@@ -1,0 +1,180 @@
+"""Configuration for the PyTorch port: the subset of ``repro.config``
+that the serving path reads, kept as an independent copy so that the
+port imports nothing from the JAX package.
+
+Plain dataclasses (stdlib only) and a registry of named architectures.
+Field names, defaults and derived values (``A3Config.m_for``,
+``threshold_nats``, ``smoke_variant``) match the reference exactly, so a
+config built here describes the same model as its JAX namesake.
+"""
+from __future__ import annotations
+
+import dataclasses
+import enum
+import math
+from dataclasses import dataclass
+from typing import Any, Callable, Dict, Optional, Tuple
+
+
+class AttentionKind(str, enum.Enum):
+    FULL = "full"                  # global causal attention
+    SLIDING = "sliding"            # sliding-window attention
+    LOCAL_GLOBAL = "local_global"  # pattern of local + global layers
+
+
+class BlockKind(str, enum.Enum):
+    ATTENTION = "attention"
+    RGLRU = "rglru"
+    MLSTM = "mlstm"
+    SLSTM = "slstm"
+
+
+class A3Mode(str, enum.Enum):
+    OFF = "off"                     # exact attention
+    CONSERVATIVE = "conservative"   # paper: M = n/2, T = 5%
+    AGGRESSIVE = "aggressive"       # paper: M = n/8, T = 10%
+    CUSTOM = "custom"
+
+
+@dataclass(frozen=True)
+class A3Config:
+    """The paper's approximation scheme (fields as in the reference)."""
+    mode: A3Mode = A3Mode.OFF
+    m_fraction: float = 0.5
+    m_absolute: Optional[int] = None
+    threshold_pct: float = 5.0
+    int_bits: Optional[int] = None
+    frac_bits: Optional[int] = None
+    lut_exponent: bool = False
+    block_q: int = 128
+    block_k: int = 128
+    # the KV ring is split into this many contiguous blocks for the
+    # compact decode walk (1 = single-shard, paper-literal selection)
+    select_shards: int = 1
+
+    def m_for(self, n: int) -> int:
+        if self.m_absolute is not None:
+            return min(self.m_absolute, n)
+        return max(1, int(round(self.m_fraction * n)))
+
+    @property
+    def threshold_nats(self) -> float:
+        return -math.log(self.threshold_pct / 100.0)
+
+    @staticmethod
+    def conservative() -> "A3Config":
+        return A3Config(mode=A3Mode.CONSERVATIVE, m_fraction=0.5,
+                        threshold_pct=5.0)
+
+    @staticmethod
+    def aggressive() -> "A3Config":
+        return A3Config(mode=A3Mode.AGGRESSIVE, m_fraction=0.125,
+                        threshold_pct=10.0)
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    family: str
+    num_layers: int
+    d_model: int
+    num_heads: int
+    num_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    head_dim: Optional[int] = None
+    max_seq_len: int = 131072
+    rope_theta: float = 10000.0
+    norm_eps: float = 1e-6
+    tie_embeddings: bool = False
+    attention_kind: AttentionKind = AttentionKind.FULL
+    window_size: int = 4096
+    local_global_pattern: int = 0
+    block_pattern: Tuple[BlockKind, ...] = ()
+    moe: Optional[Any] = None
+    frontend: Optional[str] = None
+    num_codebooks: int = 1
+    act: str = "swiglu"
+    logit_softcap: float = 0.0
+    dtype: str = "bfloat16"
+
+    @property
+    def resolved_head_dim(self) -> int:
+        return self.head_dim or self.d_model // self.num_heads
+
+    def block_kind(self, layer_idx: int) -> BlockKind:
+        if not self.block_pattern:
+            return BlockKind.ATTENTION
+        return self.block_pattern[layer_idx % len(self.block_pattern)]
+
+    def layer_is_global(self, layer_idx: int) -> bool:
+        if self.attention_kind != AttentionKind.LOCAL_GLOBAL:
+            return self.attention_kind == AttentionKind.FULL
+        p = self.local_global_pattern
+        return (layer_idx % (p + 1)) == p
+
+
+@dataclass(frozen=True)
+class ServeConfig:
+    """The engine knobs this port implements (names as in the
+    reference's ``ServeConfig``)."""
+    slots: int = 4
+    max_len: int = 2048
+    # admission-prefill chunk; None = min(max_len, 512)
+    prefill_chunk: Optional[int] = None
+    # decode steps past the sorted_upto watermark before an A^3 re-sort
+    resort_every: int = 64
+    # decode steps per decode dispatch
+    decode_block: int = 1
+
+    def __post_init__(self):
+        if self.slots < 1:
+            raise ValueError(f"slots must be >= 1, got {self.slots}")
+        if self.max_len < 1:
+            raise ValueError(f"max_len must be >= 1, got {self.max_len}")
+        if self.prefill_chunk is not None and self.prefill_chunk <= 0:
+            raise ValueError(
+                f"prefill_chunk must be positive, got "
+                f"{self.prefill_chunk} (use None for the default chunk)")
+        if self.decode_block < 1:
+            raise ValueError(
+                f"decode_block must be >= 1, got {self.decode_block}")
+
+
+_REGISTRY: Dict[str, Callable[[], ModelConfig]] = {}
+
+
+def register_arch(name: str):
+    def deco(fn: Callable[[], ModelConfig]):
+        _REGISTRY[name] = fn
+        return fn
+    return deco
+
+
+def get_arch(name: str) -> ModelConfig:
+    import repro_torch.configs  # noqa: F401  (populates the registry)
+    if name not in _REGISTRY:
+        raise KeyError(f"arch {name!r} is not yet ported to repro_torch; "
+                       f"have {sorted(_REGISTRY)}")
+    return _REGISTRY[name]()
+
+
+def smoke_variant(cfg: ModelConfig) -> ModelConfig:
+    """Reduced same-family config for CPU smoke tests (as the
+    reference's ``smoke_variant``)."""
+    kw: Dict[str, Any] = dict(
+        num_layers=min(cfg.num_layers, 2 if not cfg.block_pattern
+                       else len(cfg.block_pattern)),
+        d_model=128,
+        num_heads=4,
+        num_kv_heads=min(cfg.num_kv_heads, 2)
+        if cfg.num_kv_heads < cfg.num_heads else 4,
+        head_dim=32,
+        d_ff=256 if cfg.d_ff else 0,
+        vocab_size=512,
+        max_seq_len=512,
+        window_size=64,
+    )
+    if cfg.moe is not None:
+        raise NotImplementedError("MoE configs are not yet ported")
+    return dataclasses.replace(cfg, **kw)

@@ -1,0 +1,91 @@
+"""Build and load the port's hand-written CUDA kernels.
+
+Each ``csrc/*.cu`` file has a plain C interface and is compiled by
+``nvcc`` into its own shared library, loaded with ``ctypes`` (no PyTorch
+headers, so a build takes seconds). Builds happen at first use, never at
+import, into ``build/repro_torch_kernels/`` at the repository root; the
+library name carries a hash of the source and flags, so an edited source
+is rebuilt and a stale library is never loaded.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+from typing import Dict, Iterable, Tuple
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / \
+    "repro_torch_kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_LIBS: Dict[str, ctypes.CDLL] = {}
+# ptxas register / shared-memory report of each build, by source name
+BUILD_LOGS: Dict[str, str] = {}
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+    cand = os.path.join(CUDA_HOME, "bin", "nvcc") if CUDA_HOME else None
+    if cand and os.path.exists(cand):
+        return cand
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels are built "
+                           "on a machine with the CUDA toolkit")
+    return found
+
+
+def library_path(source: str) -> Path:
+    src = CSRC / source
+    tag = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()
+                         ).hexdigest()[:16]
+    return BUILD_DIR / f"{src.stem}-{tag}.so"
+
+
+def _start(source: str) -> Tuple[subprocess.Popen, Path, Path]:
+    out = library_path(source)
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / source)]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    return proc, Path(tmp), out
+
+
+def _finish(source: str, proc: subprocess.Popen, tmp: Path,
+            out: Path) -> None:
+    log, _ = proc.communicate()
+    BUILD_LOGS[source] = log
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed on {source}:\n{log}")
+    os.replace(tmp, out)              # atomic: readers never see a torn .so
+
+
+def build_all(sources: Iterable[str]) -> Dict[str, Path]:
+    """Compile every missing library, one ``nvcc`` per source, all
+    started together. Returns source -> library path."""
+    started, paths = [], {}
+    for source in sources:
+        paths[source] = library_path(source)
+        if not paths[source].exists():
+            started.append((source, *_start(source)))
+    for source, proc, tmp, out in started:
+        _finish(source, proc, tmp, out)
+    return paths
+
+
+def load_library(source: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<source>``, built first if needed."""
+    lib = _LIBS.get(source)
+    if lib is None:
+        path = build_all([source])[source]
+        lib = _LIBS[source] = ctypes.CDLL(str(path))
+    return lib

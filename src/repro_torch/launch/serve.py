@@ -1,0 +1,81 @@
+"""Serving launcher of the port: random weights from ``--seed``, batched
+requests through the slot engine, optionally with A^3.
+
+  python -m repro_torch.launch.serve --arch phi4-mini-3.8b --a3 off
+  python -m repro_torch.launch.serve --arch phi4-mini-3.8b --smoke \\
+      --device cpu --requests 3 --max-new 4
+
+Runs on the card unless ``--device cpu`` is given; prints the same
+summary line as ``repro.launch.serve``.
+"""
+from __future__ import annotations
+
+import argparse
+import collections
+import time
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.config import A3Config, ServeConfig, get_arch, \
+    smoke_variant
+from repro_torch.models import decoder
+from repro_torch.serve.engine import ServeEngine
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--requests", type=int, default=8)
+    ap.add_argument("--prompt-len", type=int, default=64)
+    ap.add_argument("--max-new", type=int, default=32)
+    ap.add_argument("--slots", type=int, default=4)
+    ap.add_argument("--max-len", type=int, default=512)
+    ap.add_argument("--prefill-chunk", type=int, default=0,
+                    help="admission-prefill chunk in tokens; 0 = default "
+                         "chunk of min(max_len, 512)")
+    ap.add_argument("--decode-block", type=int, default=1,
+                    help="decode steps per dispatch (the host reads the "
+                         "token ring once per block)")
+    ap.add_argument("--a3", default="off",
+                    choices=["off", "conservative", "aggressive"])
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (default; fails without a card) or cpu")
+    args = ap.parse_args(argv)
+
+    device = resolve_device(args.device)
+    cfg = get_arch(args.arch)
+    if args.smoke:
+        cfg = smoke_variant(cfg)
+    a3 = {"off": A3Config(), "conservative": A3Config.conservative(),
+          "aggressive": A3Config.aggressive()}[args.a3]
+    serve = ServeConfig(slots=args.slots, max_len=args.max_len,
+                        prefill_chunk=args.prefill_chunk or None,
+                        decode_block=args.decode_block)
+    gen = torch.Generator(device=device).manual_seed(args.seed)
+    model = decoder.init_params(cfg, gen, device)
+    engine = ServeEngine.from_config(model, cfg, serve, a3=a3)
+
+    rng = np.random.default_rng(args.seed)
+    uids = [engine.submit(
+        rng.integers(0, cfg.vocab_size, size=args.prompt_len),
+        max_new_tokens=args.max_new) for _ in range(args.requests)]
+
+    t0 = time.time()
+    engine.run_to_completion()
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    dt = time.time() - t0
+    done = sum(1 for u in uids if engine.result(u) is not None)
+    total_new = sum(len(engine.result(u) or []) for u in uids)
+    by_status = collections.Counter(engine.status(u) for u in uids)
+    print(f"arch={cfg.name} a3={args.a3} requests={done}/{len(uids)} "
+          f"new_tokens={total_new} ({total_new / dt:.1f} tok/s, "
+          f"{dt:.1f}s) statuses={dict(by_status)} stats={engine.stats}")
+
+
+if __name__ == "__main__":
+    main()

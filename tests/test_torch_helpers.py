@@ -1,0 +1,152 @@
+"""Shared helpers of the PyTorch-port parity tests (``test_torch_*``),
+plus checks that the port's configuration mirrors the reference's.
+
+Inputs are made with numpy from a fixed seed and handed to both
+packages; JAX stays on the CPU and data crosses as numpy arrays.
+Tolerances follow ``tests/test_kernels.py``: 2e-5 in float32, 2e-2 in
+bfloat16; integer and boolean outputs must be equal. This module does
+not import JAX (``repro.config`` is stdlib only), so card-only tests
+that use it also run on a machine without JAX.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro import config as jcfg  # noqa: E402
+from repro_torch import config as tcfg  # noqa: E402
+
+torch.set_num_threads(1)
+
+F32_TOL = dict(rtol=2e-5, atol=2e-5)
+BF16_TOL = dict(rtol=2e-2, atol=2e-2)
+
+# the conformance suite's tiny attention config (tests/test_serve_conformance)
+TINY = jcfg.ModelConfig("tiny", "dense", num_layers=2, d_model=64,
+                        num_heads=4, num_kv_heads=2, d_ff=128,
+                        vocab_size=256, head_dim=16, dtype="float32")
+
+
+def tol(dtype) -> dict:
+    """Tolerance of a dtype given by name or as a jnp/torch dtype."""
+    return BF16_TOL if "bfloat16" in str(dtype) else F32_TOL
+
+
+def port_cfg(cfg: jcfg.ModelConfig) -> tcfg.ModelConfig:
+    """The port's ModelConfig with the same fields as a reference one."""
+    if cfg.moe is not None:
+        raise NotImplementedError("MoE configs are not yet ported")
+    kw = {f.name: getattr(cfg, f.name)
+          for f in dataclasses.fields(jcfg.ModelConfig)}
+    kw["attention_kind"] = tcfg.AttentionKind(cfg.attention_kind.value)
+    kw["block_pattern"] = tuple(tcfg.BlockKind(b.value)
+                                for b in cfg.block_pattern)
+    return tcfg.ModelConfig(**kw)
+
+
+def port_a3(a3: jcfg.A3Config) -> tcfg.A3Config:
+    kw = {f.name: getattr(a3, f.name)
+          for f in dataclasses.fields(jcfg.A3Config)}
+    kw["mode"] = tcfg.A3Mode(a3.mode.value)
+    return tcfg.A3Config(**kw)
+
+
+def T(x, dtype=None) -> "torch.Tensor":
+    """numpy / jax array -> CPU torch tensor (bf16 via float32, exact)."""
+    arr = np.asarray(x)
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(arr.astype(np.float32)).to(torch.bfloat16)
+    t = torch.from_numpy(np.array(arr))
+    return t if dtype is None else t.to(dtype)
+
+
+def N(x) -> np.ndarray:
+    """torch tensor or jax array -> numpy (bf16 widened to float32)."""
+    if isinstance(x, torch.Tensor):
+        if x.dtype == torch.bfloat16:
+            x = x.float()
+        return x.detach().cpu().numpy()
+    arr = np.asarray(x)
+    return arr.astype(np.float32) if arr.dtype.name == "bfloat16" else arr
+
+
+def cache_to_torch(cache) -> dict:
+    return {seg: {name: T(leaf) for name, leaf in sc.items()}
+            for seg, sc in cache.items()}
+
+
+def assert_cache_close(port_cache, ref_cache, rtol, atol):
+    """Leaf for leaf: float leaves within tolerance, integer leaves
+    equal."""
+    assert set(port_cache) == set(ref_cache)
+    for seg, sc in ref_cache.items():
+        assert set(port_cache[seg]) == set(sc), seg
+        for name, leaf in sc.items():
+            a, b = N(port_cache[seg][name]), N(leaf)
+            assert a.shape == b.shape, (seg, name)
+            if np.issubdtype(b.dtype, np.integer):
+                np.testing.assert_array_equal(a, b, err_msg=f"{seg}.{name}")
+            else:
+                np.testing.assert_allclose(a, b, rtol=rtol, atol=atol,
+                                           err_msg=f"{seg}.{name}")
+
+
+@pytest.fixture
+def cuda():
+    """The CUDA device, or a skip when the machine has no card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    return torch.device("cuda")
+
+
+# ---------------------------------------------------------------------------
+# the port's configuration mirrors the reference's
+# ---------------------------------------------------------------------------
+
+def test_phi4_config_matches_reference():
+    ref = jcfg.get_arch("phi4-mini-3.8b")
+    port = tcfg.get_arch("phi4-mini-3.8b")
+    assert port == port_cfg(ref)
+    assert tcfg.smoke_variant(port) == port_cfg(jcfg.smoke_variant(ref))
+
+
+def test_unported_arch_raises():
+    with pytest.raises(KeyError, match="not yet ported"):
+        tcfg.get_arch("xlstm-350m")
+
+
+@pytest.mark.parametrize("mode", ["conservative", "aggressive"])
+@pytest.mark.parametrize("n", [1, 7, 96, 512, 4096])
+def test_a3_config_matches_reference(mode, n):
+    ref = getattr(jcfg.A3Config, mode)()
+    port = getattr(tcfg.A3Config, mode)()
+    assert port == port_a3(ref)
+    assert port.m_for(n) == ref.m_for(n)
+    assert port.threshold_nats == ref.threshold_nats
+
+
+def test_serve_config_validates():
+    with pytest.raises(ValueError):
+        tcfg.ServeConfig(slots=0)
+    with pytest.raises(ValueError):
+        tcfg.ServeConfig(decode_block=0)
+    with pytest.raises(ValueError):
+        tcfg.ServeConfig(prefill_chunk=0)
+
+
+def test_entry_points_default_to_cuda():
+    """No silent CPU fallback: without a card the default device raises;
+    only an explicit ``device="cpu"`` runs on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is valid")
+    from repro_torch.models import decoder
+    cfg = port_cfg(TINY)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        decoder.init_cache(cfg, 1, 8)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        decoder.init_params(cfg, torch.Generator())
+    assert decoder.init_cache(cfg, 1, 8, device="cpu")["seg0"]["k"].is_cpu
