@@ -3,8 +3,9 @@
 
     python3 chip_smoke.py
 
-Builds the hand-written CUDA kernels from ``src/repro_torch/csrc`` and
-then, failing on the first phase that does not hold:
+Builds the hand-written CUDA kernels from ``src/repro_torch/csrc`` (one
+``nvcc`` per source, all started together) and then, failing on the
+first phase that does not hold:
 
 1. prints the card (``nvidia-smi`` name and power limit) and the build time;
 2. holds decode-attention kernels #1-#3 (fused, row max, attend) against
@@ -25,7 +26,20 @@ then, failing on the first phase that does not hold:
    ops entry, A^3 conservative, no cached sort) on a ring the model
    wrote, which launches kernels #2 and #3, against the same call on CPU;
 6. the TINY f32 engine on the card vs the same port on the CPU: greedy
-   tokens identical.
+   tokens identical;
+7. A^3 prefill attention at phi4-mini width (B=1, Hq=24, Hkv=8, S=2048,
+   D=128, bf16, causal): (a) flash kernel #4 (causal, window 512, a
+   512-row continuation) and the sparse row-max / attend kernels #5/#6
+   (random per-query-head map of density 0.5, diagonal kept, thresholds
+   None and 3.0) against their plain versions within 2e-2, each timed
+   over inputs larger than L2 beside its plain version, its bound and
+   (for #4) ``scaled_dot_product_attention``; (b) the public
+   ``a3_attention`` in modes off / conservative / aggressive on layer 0's
+   q/k/v of the full-width model (2048 random tokens) and on clustered
+   keys: live-block fraction, selection and kernel ms, op ms, peak
+   memory, error against off, and launch counts (off: one #4; A^3: one
+   #5 and one #6); (c) the same op on the card vs the CPU at a small
+   float32 shape: block maps identical, outputs within 1e-4.
 
 Prints one JSON line of per-kernel numbers, then, last,
 ``{"ok": true, "device": {...}}``. Exits non-zero, with no result line,
@@ -368,7 +382,7 @@ def phase_serve(dev, cfg):
     if dev.type == "cuda":
         log(f"  peak device memory "
             f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
-    return runs, main_launches, ring
+    return runs, main_launches, ring, model
 
 
 # ---------------------------------------------------------------------------
@@ -452,6 +466,302 @@ def phase_tiny(dev):
 
 
 # ---------------------------------------------------------------------------
+# phase 7: A^3 prefill attention at phi4-mini width
+# ---------------------------------------------------------------------------
+
+PREFILL = dict(b=1, hq=24, hkv=8, s=2048, d=128)   # phi4-mini, one prompt
+N_PREFILL_SETS = 4         # 4 x 34 MB of q/k/v/out > 50 MB of L2
+T_CONS = 3.0               # threshold of the timed attend (~5%, conservative)
+
+
+def prefill_inputs(seed, dev, sq=None):
+    """bf16 q [1,24,Sq,128], k/v [1,8,2048,128] from a seed."""
+    import torch
+    g = torch.Generator(device=dev).manual_seed(seed)
+    b, hq, hkv, s, d = (PREFILL[x] for x in ("b", "hq", "hkv", "s", "d"))
+    q = torch.randn((b, hq, sq or s, d), generator=g, device=dev)
+    k = torch.randn((b, hkv, s, d), generator=g, device=dev)
+    v = torch.randn((b, hkv, s, d), generator=g, device=dev)
+    return q.bfloat16(), k.bfloat16(), v.bfloat16()
+
+
+def random_map(seed, dev, density=0.5):
+    """A per-query-head block map of the given density, diagonal kept,
+    unioned per kv head as the kernels take it."""
+    import torch
+    from repro_torch.kernels.a3_attention import kernel as ak
+    b, hq, hkv, s = (PREFILL[x] for x in ("b", "hq", "hkv", "s"))
+    nq = s // 128
+    g = torch.Generator(device=dev).manual_seed(seed)
+    bm = torch.rand((b, hq, nq, nq), generator=g, device=dev) < density
+    bm |= torch.eye(nq, dtype=torch.bool, device=dev)
+    return ak.union_block_map_gqa(*ak.build_block_map(bm), hq // hkv, nq)
+
+
+def flash_pairs(sq, sk, causal=True, window=None):
+    """Query-key pairs one head's mask admits (prefill offset sk - sq)."""
+    import numpy as np
+    pos = np.arange(sq) + (sk - sq)
+    hi = np.minimum(sk, pos + 1) if causal else np.full(sq, sk)
+    lo = np.maximum(0, pos - window + 1) if window else np.zeros(sq, int)
+    return int(np.maximum(hi - lo, 0).sum())
+
+
+def sparse_need(q, k, idx, cnt, rm, thr):
+    """(admitted pairs, kept pairs, K rows, V rows) the block-sparse pair
+    needs on these inputs: pairs inside live blocks under the causal
+    mask, kept = admitted and s >= rowmax - thr; K rows of blocks live
+    for some q block, V rows with some kept weight."""
+    import torch
+    from repro_torch.kernels.a3_attention import kernel as ak
+    b, hq, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    g, nk = hq // hkv, sk // 128
+    live = ak.block_map_to_mask(idx, cnt, nk)                # [B,Hkv,nq,nk]
+    elem = live.repeat_interleave(128, 2).repeat_interleave(128, 3)
+    elem &= torch.ones(sq, sk, dtype=torch.bool, device=q.device).tril()
+    elem = elem[:, :, None]                                  # [B,Hkv,1,Sq,Sk]
+    admitted = int(elem.sum()) * g
+    krows = int(live.any(2).sum()) * 128
+    sc = torch.einsum("bhgqd,bhkd->bhgqk",
+                      q.float().reshape(b, hkv, g, sq, d), k.float())
+    sc = sc * d ** -0.5
+    keep = elem & (sc >= rm[..., None] - thr)
+    return admitted, int(keep.sum()), krows, int(keep.any(3).any(2).sum())
+
+
+def phase_prefill_kernels(dev):
+    """[7](a): kernels #4-#6 vs their plain versions at phi4-mini width,
+    then their times, bounds and the library yardstick."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.a3_attention import kernel as ak
+    from repro_torch.kernels.flash_attention import kernel as fk
+
+    errs = {"flash": 0.0, "rowmax": 0.0, "attend": 0.0}
+    q, k, v = prefill_inputs(100, dev)
+    q512 = prefill_inputs(101, dev, sq=512)[0]
+    for name, args, kw in (("causal", (q, k, v), {}),
+                           ("window 512", (q, k, v), {"window": 512}),
+                           ("Sq 512 vs Sk 2048", (q512, k, v), {})):
+        e, ok = max_err(fk.flash_attention(*args, **kw),
+                        fk.flash_attention_plain(*args, **kw))
+        check(ok, f"flash kernel disagrees with its plain version ({name})"
+                  f": {e}")
+        errs["flash"] = max(errs["flash"], e)
+        log(f"  flash ({name}) vs plain: max_abs_err {e:.3g}")
+    idx, cnt = random_map(100, dev)
+    rm = ak.sparse_rowmax(q, k, idx, cnt)
+    e, ok = max_err(rm, ak.sparse_rowmax_plain(q, k, idx, cnt))
+    check(ok, f"sparse row-max kernel disagrees: {e}")
+    errs["rowmax"] = e
+    for thr in (None, T_CONS):
+        out = ak.sparse_attend(q, k, v, idx, cnt, rm, threshold=thr)
+        e, ok = max_err(out, ak.sparse_attend_plain(q, k, v, idx, cnt, rm,
+                                                    threshold=thr))
+        check(ok, f"sparse attend kernel disagrees (thr={thr}): {e}")
+        errs["attend"] = max(errs["attend"], e)
+    log(f"  sparse (density 0.5, diagonal kept) vs plain: max_abs_err "
+        f"rowmax {errs['rowmax']:.3g}, attend {errs['attend']:.3g} "
+        f"(thresholds None and {T_CONS}; tolerance atol {TOL['atol']} + "
+        f"rtol {TOL['rtol']})")
+    sync(dev)
+
+    # timed: each over 4 input sets (> L2), as the path calls it
+    sets = [prefill_inputs(200 + i, dev) for i in range(N_PREFILL_SETS)]
+    maps = [random_map(200 + i, dev) for i in range(N_PREFILL_SETS)]
+    b, hq, hkv, s, d = (PREFILL[x] for x in ("b", "hq", "hkv", "s", "d"))
+    qkv_bytes = (b * hq * s * d + 2 * b * hkv * s * d) * 2
+    res = {}
+    res["flash"] = dict(
+        ms=cuda_ms(lambda *x: fk.flash_attention(*x), sets, 20),
+        plain_ms=cuda_ms(lambda *x: fk.flash_attention_plain(*x), sets, 4),
+        library_ms=cuda_ms(lambda *x: F.scaled_dot_product_attention(
+            *x, is_causal=True, enable_gqa=True), sets, 50),
+        bound=bound(qkv_bytes + b * hq * s * d * 2,
+                    4 * d * b * hq * flash_pairs(s, s)))
+    rsets = [(x[0], x[1], *m) for x, m in zip(sets, maps)]
+    rms = [ak.sparse_rowmax(*a) for a in rsets]
+    need = [sparse_need(x[0], x[1], *m, rm, T_CONS)
+            for x, m, rm in zip(sets, maps, rms)]
+    map_bytes = maps[0][0].numel() * 4 + maps[0][1].numel() * 4
+    q_bytes, o_bytes = b * hq * s * d * 2, b * hq * s * d * 2
+
+    def mean_bound(fn):
+        nb, fl = zip(*(fn(n) for n in need))
+        return bound(sum(nb) / len(nb), sum(fl) / len(fl))
+
+    res["rowmax"] = dict(
+        ms=cuda_ms(lambda *x: ak.sparse_rowmax(*x), rsets, 20),
+        plain_ms=cuda_ms(lambda *x: ak.sparse_rowmax_plain(*x), rsets, 3),
+        library_ms=None,
+        bound=mean_bound(lambda n: (q_bytes + n[2] * d * 2 + map_bytes
+                                    + b * hq * s * 4, 2 * d * n[0])))
+    asets = [(x[0], x[1], x[2], *m, rm) for x, m, rm in zip(sets, maps, rms)]
+    res["attend"] = dict(
+        ms=cuda_ms(lambda *x: ak.sparse_attend(*x, threshold=T_CONS), asets,
+                   20),
+        plain_ms=cuda_ms(lambda *x: ak.sparse_attend_plain(
+            *x, threshold=T_CONS), asets, 3),
+        library_ms=None,
+        bound=mean_bound(lambda n: (q_bytes + n[2] * d * 2 + n[3] * d * 2
+                                    + map_bytes + b * hq * s * 4 + o_bytes,
+                                    2 * d * n[0] + 2 * d * n[1])))
+    n0 = need[0]
+    log(f"  timed map: {n0[0] / (b * hq * flash_pairs(s, s)):.3f} of the "
+        f"causal pairs admitted, {n0[1] / max(n0[0], 1):.3f} of those kept "
+        f"at t={T_CONS}")
+    for name, r in res.items():
+        lib = ("not applicable" if r["library_ms"] is None
+               else f"{r['library_ms']:.4f} ms (SDPA causal GQA)")
+        log(f"  {name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f}"
+            f" ms, library {lib}, bound {r['bound'][0]:.4f} ms "
+            f"({r['bound'][1]}) [{CARD}]")
+    return errs, res
+
+
+def clustered_qkv(seed, dev, n_clusters=8, spread=0.15):
+    """The recipe of benchmarks/bench_kernels.py::_clustered, per kv head:
+    keys around random centres, each query near its position's centre
+    (noise 0.3), both scaled by 0.5; v random."""
+    import torch
+    g = torch.Generator(device=dev).manual_seed(seed)
+    b, hq, hkv, s, d = (PREFILL[x] for x in ("b", "hq", "hkv", "s", "d"))
+    cents = torch.randn((b, hkv, n_clusters, d), generator=g, device=dev)
+    assign = torch.randint(0, n_clusters, (b, hkv, s), generator=g,
+                           device=dev)
+    at = torch.gather(cents, 2, assign[..., None].expand(b, hkv, s, d))
+    k = at + spread * torch.randn((b, hkv, s, d), generator=g, device=dev)
+    q = at.repeat_interleave(hq // hkv, 1) + 0.3 * torch.randn(
+        (b, hq, s, d), generator=g, device=dev)
+    v = torch.randn((b, hkv, s, d), generator=g, device=dev)
+    return (q * 0.5).bfloat16(), (k * 0.5).bfloat16(), v.bfloat16()
+
+
+def layer0_qkv(model, cfg, dev):
+    """Layer 0's q/k/v on a 2048-token random prompt: the model's embed,
+    the layer's rmsnorm and attention_qkv at positions 0..2047."""
+    import torch
+    from repro_torch.models import decoder
+    from repro_torch.models.common import attention_qkv, rmsnorm
+    s = PREFILL["s"]
+    g = torch.Generator(device=dev).manual_seed(7)
+    tokens = torch.randint(0, cfg.vocab_size, (1, s), generator=g,
+                           device=dev)
+    blk = model.segs[0].layers[0]
+    hn = rmsnorm(blk.ln1, decoder.embed_tokens(model, cfg, tokens),
+                 cfg.norm_eps)
+    pos = torch.arange(s, device=dev)[None]
+    q, k, v = attention_qkv(blk.attn, hn, pos, cfg.num_heads,
+                            cfg.num_kv_heads, cfg.resolved_head_dim,
+                            cfg.rope_theta)
+    return q.contiguous(), k.contiguous(), v.contiguous()
+
+
+def phase_prefill_path(model, cfg, dev):
+    """[7](b): the public a3_attention in modes OFF, conservative and
+    aggressive on layer-0 activations and on clustered keys; each timed
+    call follows one untimed warm-up call, and the launch counts are read
+    around the timed call."""
+    import torch
+    from repro_torch.config import A3Config
+    from repro_torch.kernels.a3_attention import kernel as ak
+    from repro_torch.kernels.a3_attention import ops as aops
+    from repro_torch.kernels.flash_attention import kernel as fk
+
+    launches = {"flash_attention": 0, "a3_sparse_rowmax": 0,
+                "a3_sparse_attend": 0}
+    nq = PREFILL["s"] // 128
+    tri = PREFILL["b"] * PREFILL["hkv"] * nq * (nq + 1) // 2
+    tril = torch.ones(nq, nq, dtype=torch.bool, device=dev).tril()
+    for data, (q, k, v) in (("phi4 layer 0", layer0_qkv(model, cfg, dev)),
+                            ("clustered", clustered_qkv(3, dev))):
+        off = None
+        for mode, a3 in (("off", A3Config()),
+                         ("conservative", A3Config.conservative()),
+                         ("aggressive", A3Config.aggressive())):
+            aops.a3_attention(q, k, v, a3, causal=True)    # warm-up
+            sync(dev)
+            base = torch.cuda.memory_allocated(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+            fk.reset_launch_counts()
+            ak.reset_launch_counts()
+            t0 = time.perf_counter()
+            out = aops.a3_attention(q, k, v, a3, causal=True)
+            sync(dev)
+            op_ms = (time.perf_counter() - t0) * 1e3
+            got = {**fk.LAUNCHES, **ak.LAUNCHES}
+            peak = torch.cuda.max_memory_allocated(dev)
+            check(out.shape == q.shape and bool(torch.isfinite(out).all()),
+                  f"a3_attention ({data}, {mode}) gave a non-finite or "
+                  f"misshapen output")
+            want = ({"flash_attention": 1, "a3_sparse_rowmax": 0,
+                     "a3_sparse_attend": 0} if mode == "off" else
+                    {"flash_attention": 0, "a3_sparse_rowmax": 1,
+                     "a3_sparse_attend": 1})
+            check(got == want or dev.type != "cuda",
+                  f"a3_attention ({data}, {mode}) launched "
+                               f"{got}, expected {want}")
+            for name in launches:
+                launches[name] += got[name]
+            line = (f"  a3_attention {data} a3={mode}: op {op_ms:.1f} ms, "
+                    f"peak {peak / 2**30:.2f} GiB ({(peak - base) / 2**30:.2f}"
+                    f" GiB above the {base / 2**30:.2f} GiB held)")
+            if mode == "off":
+                off = out.float()
+                kms = cuda_ms(lambda: fk.flash_attention(q, k, v), [()], 5)
+                line += f", kernel {kms:.3f} ms"
+            else:
+                t0 = time.perf_counter()
+                idx, cnt = aops.candidate_block_map_for_heads(q, k, a3)
+                sync(dev)
+                sel_ms = (time.perf_counter() - t0) * 1e3
+                kms = cuda_ms(lambda: ak.a3_sparse_attention(
+                    q, k, v, idx, cnt, threshold=a3.threshold_nats), [()], 5)
+                live = ak.block_map_to_mask(idx, cnt, nq) & tril
+                rel = float((out.float() - off).norm() / off.norm())
+                line += (f", selection {sel_ms:.1f} ms, kernels (#5+#6) "
+                         f"{kms:.3f} ms; live blocks {int(live.sum())}/{tri}"
+                         f" = {int(live.sum()) / tri:.3f} of the causal "
+                         f"blocks; rel err vs off {rel:.4f}")
+            log(line + f" [{CARD}]")
+    return launches
+
+
+def phase_prefill_cpu(dev):
+    """[7](c): a3_attention on the card vs the same port on the CPU at a
+    small float32 shape, all three modes. q and k take values in
+    {-1, 0, 1} and D=64 makes the scale 1/8, so every score is exact in
+    float32 in any summation order: block maps and kept sets must be
+    identical, and outputs agree to the order of exp-sums and P.V
+    (tolerance 1e-4)."""
+    import torch
+    from repro_torch.config import A3Config
+    from repro_torch.kernels.a3_attention import ops as aops
+    g = torch.Generator().manual_seed(11)
+    q = torch.randint(-1, 2, (1, 6, 512, 64), generator=g).float()
+    k = torch.randint(-1, 2, (1, 2, 512, 64), generator=g).float()
+    v = torch.randn((1, 2, 512, 64), generator=g)
+    for mode, a3 in (("off", A3Config()),
+                     ("conservative", A3Config.conservative()),
+                     ("aggressive", A3Config.aggressive())):
+        want = aops.a3_attention(q, k, v, a3)
+        got = aops.a3_attention(q.to(dev), k.to(dev), v.to(dev), a3).cpu()
+        same = True
+        if mode != "off":
+            for a, b_ in zip(aops.candidate_block_map_for_heads(
+                    q.to(dev), k.to(dev), a3),
+                    aops.candidate_block_map_for_heads(q, k, a3)):
+                same &= torch.equal(a.cpu(), b_)
+        e = float((got - want).abs().max())
+        ok = bool(torch.allclose(got, want, rtol=1e-4, atol=1e-4))
+        check(same and ok, f"a3_attention card vs CPU ({mode}): maps "
+                           f"identical {same}, max_abs_err {e}")
+        log(f"  a3_attention f32 a3={mode}: card vs CPU block maps "
+            f"identical, max_abs_err {e:.3g} (tolerance 1e-4)")
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     global CARD
@@ -493,11 +803,19 @@ def main() -> int:
     dev = torch.device("cuda")
     errs, times = phase_kernels(dev)
     log("[3-4] full-width serve, phi4-mini-3.8b")
-    _, main_launches, ring = phase_serve(dev, get_arch("phi4-mini-3.8b"))
+    cfg = get_arch("phi4-mini-3.8b")
+    _, main_launches, ring, model = phase_serve(dev, cfg)
     log("[5] two-pass path")
     two_pass = phase_two_pass(ring, dev)
     log("[6] TINY f32, card vs CPU")
     phase_tiny(dev)
+    log("[7] A^3 prefill attention at phi4-mini width (B=1, Hq=24, Hkv=8, "
+        "S=2048, D=128, bf16, causal)")
+    t7 = time.perf_counter()
+    perrs, ptimes = phase_prefill_kernels(dev)
+    prefill_launches = phase_prefill_path(model, cfg, dev)
+    phase_prefill_cpu(dev)
+    log(f"  phase [7] took {time.perf_counter() - t7:.1f} s")
 
     src = "src/repro_torch/csrc/decode_attention.cu"
     jax_kernel = "src/repro/kernels/decode_attention/kernel.py"
@@ -512,6 +830,22 @@ def main() -> int:
                      "launches": launches, "max_abs_err": errs[name],
                      "ms": r["ms"], "plain_ms": r["plain_ms"],
                      "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
+                     "library_ms": r["library_ms"]})
+    for name, key, src, jax_kernel, line in (
+            ("flash_attention", "flash", "flash_attention.cu",
+             "flash_attention/kernel.py", 23),
+            ("a3_sparse_rowmax", "rowmax", "a3_attention.cu",
+             "a3_attention/kernel.py", 60),
+            ("a3_sparse_attend", "attend", "a3_attention.cu",
+             "a3_attention/kernel.py", 94)):
+        r = ptimes[key]
+        rows.append({"name": name, "route": "cuda",
+                     "source": f"src/repro_torch/csrc/{src}",
+                     "replaces": f"src/repro/kernels/{jax_kernel}:{line}",
+                     "launches": prefill_launches[name],
+                     "max_abs_err": perrs[key], "ms": r["ms"],
+                     "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
+                     "bound_by": r["bound"][1],
                      "library_ms": r["library_ms"]})
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))

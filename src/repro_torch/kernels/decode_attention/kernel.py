@@ -22,6 +22,8 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.kernels import build
+
 NEG_INF = -1e30
 SOURCE = "decode_attention.cu"
 MAX_HEAD_DIM = 256          # the kernels hold a key row in 8 registers/lane
@@ -44,11 +46,7 @@ _ARGTYPES = {
 
 
 def _entry(name: str):
-    from repro_torch.kernels.build import load_library
-    fn = getattr(load_library(SOURCE), name)
-    fn.argtypes = _ARGTYPES[name]
-    fn.restype = ctypes.c_int
-    return fn
+    return build.entry(SOURCE, name, _ARGTYPES[name])
 
 
 # ---------------------------------------------------------------------------
@@ -75,41 +73,6 @@ def _check(q, k, v, mask, block_k) -> Tuple[int, int, int, int, int, int, int]:
     if s % bk != 0:
         raise ValueError(f"S={s} is not a multiple of block_k={bk}")
     return b, hq, hkv, s, d, dv, bk
-
-
-def _check_launch(floats, others, d: int) -> None:
-    """``floats``: q, k (, v) — one dtype, f32 or bf16; ``others``: the
-    mask (and row max). All contiguous, on one device."""
-    dev = floats[0].device
-    for t in (*floats, *others):
-        if t.device != dev:
-            raise ValueError("decode_attention inputs must share a device")
-        if not t.is_contiguous():
-            raise ValueError("decode_attention kernels need contiguous "
-                             "inputs")
-    if floats[0].dtype not in (torch.float32, torch.bfloat16) or \
-            any(t.dtype != floats[0].dtype for t in floats):
-        raise ValueError("q, k and v must share one dtype, float32 or "
-                         "bfloat16")
-    if d > MAX_HEAD_DIM:
-        raise ValueError(f"head dim {d} > {MAX_HEAD_DIM}")
-
-
-def _stream(dev: torch.device) -> int:
-    return torch.cuda.current_stream(dev).cuda_stream
-
-
-def _raise_on(err: int, name: str) -> None:
-    if err != 0:
-        raise RuntimeError(f"{name} launch failed: cudaError {err}")
-
-
-def _route(t: torch.Tensor) -> str:
-    if t.device.type == "cpu":
-        return "plain"
-    if t.device.type == "cuda":
-        return "kernel"
-    raise ValueError(f"unsupported device {t.device}")
 
 
 # ---------------------------------------------------------------------------
@@ -207,47 +170,50 @@ def _thr(threshold) -> Tuple[int, float]:
 
 def fused(q, k, v, mask, *, threshold=None, scale=None, block_k=512):
     """Kernel #1 on CUDA tensors, its plain version on CPU tensors."""
-    if _route(q) == "plain":
+    if build.route(q) == "plain":
         return fused_plain(q, k, v, mask, threshold=threshold, scale=scale,
                            block_k=block_k)
     b, hq, hkv, s, d, dv, bk = _check(q, k, v, mask, block_k)
-    _check_launch((q, k, v), (mask,), d)
+    build.check_launch("decode_attention", (q, k, v), (mask,), (d,),
+                       MAX_HEAD_DIM)
     scale = d ** -0.5 if scale is None else scale
     out = torch.empty((b, hq, dv), dtype=q.dtype, device=q.device)
     has_thr, thr = _thr(threshold)
     err = _entry("decode_attention_fused")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
         out.data_ptr(), int(q.dtype == torch.bfloat16), b, hq, hkv, s, d,
-        dv, bk, scale, has_thr, thr, _stream(q.device))
-    _raise_on(err, "decode_attention_fused")
+        dv, bk, scale, has_thr, thr, build.stream(q.device))
+    build.raise_on(err, "decode_attention_fused")
     LAUNCHES["decode_attention_fused"] += 1
     return out
 
 
 def rowmax(q, k, mask, *, scale=None, block_k=512):
     """Kernel #2 on CUDA tensors, its plain version on CPU tensors."""
-    if _route(q) == "plain":
+    if build.route(q) == "plain":
         return rowmax_plain(q, k, mask, scale=scale, block_k=block_k)
     b, hq, hkv, s, d, _, bk = _check(q, k, None, mask, block_k)
-    _check_launch((q, k), (mask,), d)
+    build.check_launch("decode_attention", (q, k), (mask,), (d,),
+                       MAX_HEAD_DIM)
     scale = d ** -0.5 if scale is None else scale
     out = torch.empty((b, hq), dtype=torch.float32, device=q.device)
     err = _entry("decode_attention_rowmax")(
         q.data_ptr(), k.data_ptr(), mask.data_ptr(), out.data_ptr(),
         int(q.dtype == torch.bfloat16), b, hq, hkv, s, d, bk, scale,
-        _stream(q.device))
-    _raise_on(err, "decode_attention_rowmax")
+        build.stream(q.device))
+    build.raise_on(err, "decode_attention_rowmax")
     LAUNCHES["decode_attention_rowmax"] += 1
     return out
 
 
 def attend(q, k, v, mask, rm, *, threshold=None, scale=None, block_k=512):
     """Kernel #3 on CUDA tensors, its plain version on CPU tensors."""
-    if _route(q) == "plain":
+    if build.route(q) == "plain":
         return attend_plain(q, k, v, mask, rm, threshold=threshold,
                             scale=scale, block_k=block_k)
     b, hq, hkv, s, d, dv, bk = _check(q, k, v, mask, block_k)
-    _check_launch((q, k, v), (mask, rm), d)
+    build.check_launch("decode_attention", (q, k, v), (mask, rm), (d,),
+                       MAX_HEAD_DIM)
     if rm.dtype != torch.float32 or tuple(rm.shape) != (b, hq):
         raise ValueError("rowmax must be float32 [B, Hq]")
     scale = d ** -0.5 if scale is None else scale
@@ -256,8 +222,8 @@ def attend(q, k, v, mask, rm, *, threshold=None, scale=None, block_k=512):
     err = _entry("decode_attention_attend")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
         rm.data_ptr(), out.data_ptr(), int(q.dtype == torch.bfloat16), b,
-        hq, hkv, s, d, dv, bk, scale, has_thr, thr, _stream(q.device))
-    _raise_on(err, "decode_attention_attend")
+        hq, hkv, s, d, dv, bk, scale, has_thr, thr, build.stream(q.device))
+    build.raise_on(err, "decode_attention_attend")
     LAUNCHES["decode_attention_attend"] += 1
     return out
 
