@@ -39,7 +39,19 @@ first phase that does not hold:
    keys: live-block fraction, selection and kernel ms, op ms, peak
    memory, error against off, and launch counts (off: one #4; A^3: one
    #5 and one #6); (c) the same op on the card vs the CPU at a small
-   float32 shape: block maps identical, outputs within 1e-4.
+   float32 shape: block maps identical, outputs within 1e-4;
+8. xLSTM: (a) the chunkwise mLSTM kernel #7 against its plain version at
+   xlstm-350m's heads (B=4, H=4, S=2048, D=256, bf16 streams, float32
+   gates, chunk 256) from the zero state, from a random carried state
+   (the final state compared too), at the served prefill shape (S=512)
+   and at an odd S=300, within 2e-4, then its time over inputs larger
+   than L2 beside its plain version and its bound (no single PyTorch call
+   computes it); (b) main path: serves xlstm-350m at full width (24
+   layers, 21 mLSTM + 3 sLSTM, random bf16 weights from seed 0; 4 slots,
+   8 requests of 512-token prompts, 16 new tokens, decode_block 1 and 4)
+   and checks that kernel #7 ran once per mLSTM layer per prefill
+   dispatch; (c) the TINY_XL f32 engine on the card vs the CPU: greedy
+   tokens identical.
 
 Prints one JSON line of per-kernel numbers, then, last,
 ``{"ok": true, "device": {...}}``. Exits non-zero, with no result line,
@@ -429,36 +441,50 @@ def phase_two_pass(ring, dev):
 # phase 6: TINY f32, card vs CPU
 # ---------------------------------------------------------------------------
 
-def phase_tiny(dev):
+def card_vs_cpu_tokens(cfg, dev, a3, reset_counts):
+    """Greedy tokens of the port's engine on a tiny float32 ``cfg``
+    (random weights from seed 0; 4 slots, chunk 8, decode_block 4,
+    resort_every 2, five prompts of 5-31 tokens, 6 new tokens each) on
+    the CPU and on the card -> {"cpu": [...], "cuda": [...]}. The kernel
+    counts are reset just before each run, so after the call they hold
+    the card run's launches."""
     import numpy as np
     import torch
-    from repro_torch.config import A3Config, ModelConfig
-    from repro_torch.kernels.decode_attention import kernel as tk
     from repro_torch.models import decoder
     from repro_torch.serve.engine import ServeEngine
+
+    cpu = decoder.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    gpu = copy.deepcopy(cpu).to(dev)
+    rng = np.random.default_rng(7)
+    prompts = [rng.integers(0, 256, size=n) for n in (5, 12, 23, 31, 9)]
+    outs = {}
+    for name, model in (("cpu", cpu), ("cuda", gpu)):
+        eng = ServeEngine(model, cfg, slots=4, max_len=96, a3=a3,
+                          prefill_chunk=8, resort_every=2, decode_block=4)
+        uids = [eng.submit(p, max_new_tokens=6) for p in prompts]
+        reset_counts()
+        eng.run_to_completion()
+        outs[name] = [eng.result(u) for u in uids]
+    return outs
+
+
+def n_same(outs):
+    return sum(a == b for o, r in zip(outs["cuda"], outs["cpu"])
+               for a, b in zip(o, r))
+
+
+def phase_tiny(dev):
+    from repro_torch.config import A3Config, ModelConfig
+    from repro_torch.kernels.decode_attention import kernel as tk
 
     tiny = ModelConfig("tiny", "dense", num_layers=2, d_model=64,
                        num_heads=4, num_kv_heads=2, d_ff=128, vocab_size=256,
                        head_dim=16, dtype="float32")
-    cpu = decoder.init_params(tiny, torch.Generator().manual_seed(0), "cpu")
-    gpu = copy.deepcopy(cpu).to(dev)
-    rng = np.random.default_rng(7)
-    prompts = [rng.integers(0, 256, size=n) for n in (5, 12, 23, 31, 9)]
     for mode, a3 in (("off", A3Config()),
                      ("conservative", A3Config.conservative())):
-        outs = {}
-        for name, model in (("cpu", cpu), ("cuda", gpu)):
-            eng = ServeEngine(model, tiny, slots=4, max_len=96, a3=a3,
-                              prefill_chunk=8, resort_every=2,
-                              decode_block=4)
-            uids = [eng.submit(p, max_new_tokens=6) for p in prompts]
-            tk.reset_launch_counts()
-            eng.run_to_completion()
-            outs[name] = [eng.result(u) for u in uids]
-        same = sum(a == b for o, r in zip(outs["cuda"], outs["cpu"])
-                   for a, b in zip(o, r))
-        log(f"  TINY f32 a3={mode}: card vs CPU greedy tokens {same}/30 "
-            f"identical; card fused launches "
+        outs = card_vs_cpu_tokens(tiny, dev, a3, tk.reset_launch_counts)
+        log(f"  TINY f32 a3={mode}: card vs CPU greedy tokens "
+            f"{n_same(outs)}/30 identical; card fused launches "
             f"{tk.LAUNCHES['decode_attention_fused']}")
         if mode == "off":
             check(outs["cuda"] == outs["cpu"],
@@ -762,6 +788,215 @@ def phase_prefill_cpu(dev):
 
 
 # ---------------------------------------------------------------------------
+# phase 8: xLSTM (kernel #7, xlstm-350m serving, TINY_XL card vs CPU)
+# ---------------------------------------------------------------------------
+
+XL = dict(b=4, h=4, s=2048, d=256, chunk=256)      # xlstm-350m's heads
+N_XL_SETS = 2          # 2 x 84 MB of q/k/v/h > 50 MB of L2
+XL_TOL = dict(rtol=2e-4, atol=2e-4)    # float32 h, sequential vs chunked
+
+
+def mlstm_inputs(seed, dev, s=None, state=False):
+    """bf16 q/k/v [4,4,S,256], float32 gates [4,4,S] (log_i normal, log_f
+    a log-sigmoid around 2) and, with ``state``, a random carried (C, n,
+    m)."""
+    import torch
+    import torch.nn.functional as F
+    g = torch.Generator(device=dev).manual_seed(seed)
+    b, h, d = XL["b"], XL["h"], XL["d"]
+    s = s or XL["s"]
+    q, k, v = (0.5 * torch.randn((b, h, s, d), generator=g, device=dev)
+               for _ in range(3))
+    li = torch.randn((b, h, s), generator=g, device=dev)
+    lf = F.logsigmoid(torch.randn((b, h, s), generator=g, device=dev) + 2.0)
+    st = None
+    if state:
+        st = (torch.randn((b, h, d, d), generator=g, device=dev),
+              torch.randn((b, h, d), generator=g, device=dev),
+              torch.randn((b, h), generator=g, device=dev))
+    return (q.bfloat16(), k.bfloat16(), v.bfloat16(), li, lf), st
+
+
+def mlstm_need(b, h, s, chunk, dk, dv, state):
+    """(bytes, operations) of one chunk-kernel call: bf16 q/k/v and f32
+    gates read once, f32 h written once (and the state read and written);
+    per chunk 2 Dk + 2 Dv operations for each causal (t, u) pair, and per
+    row q.C, q.n, the k^T V and n updates."""
+    L = min(chunk, s)
+    pairs = sum(n * (n + 1) // 2 for n in
+                [L] * (s // L) + ([s % L] if s % L else []))
+    flops = b * h * (pairs * (2 * dk + 2 * dv) + s * (4 * dk * dv + 4 * dk))
+    nbytes = b * h * (s * (2 * dk + dv) * 2 + s * 2 * 4 + s * dv * 4)
+    if state:
+        nbytes += 2 * b * h * (dk * dv + dk + 1) * 4
+    return nbytes, flops
+
+
+def phase_mlstm_kernel(dev):
+    """[8](a): kernel #7 vs its plain version at xlstm-350m's shape: zero
+    state, a random carried state (also the final state), the served
+    prefill dispatch's shape (S=512) and an odd S; then its time, its
+    plain version's and its bound."""
+    import torch
+    from repro_torch.kernels.mlstm_chunk import kernel as mk
+
+    err = 0.0
+    for name, s, with_state in (("zero state", None, False),
+                                ("carried state", None, True),
+                                ("carried state, S=512", 512, True),
+                                ("zero state, S=300", 300, False)):
+        args, st = mlstm_inputs(300 + (s or 0) + with_state, dev, s,
+                                with_state)
+        kw = dict(chunk=XL["chunk"], scale=XL["d"] ** -0.5, state=st,
+                  return_state=True)
+        got, gst = mk.mlstm_chunk_kernel(*args, **kw)
+        want, wst = mk.mlstm_chunk_plain(*args, **kw)
+        sync(dev)
+        for a, b_ in ((got, want),) + tuple(zip(gst, wst)):
+            ok = bool(torch.allclose(a, b_, **XL_TOL))
+            e = float((a - b_).abs().max())
+            check(ok and bool(torch.isfinite(a).all()),
+                  f"mlstm_chunk kernel disagrees with its plain version "
+                  f"({name}): max_abs_err {e}")
+        e = float((got - want).abs().max())
+        err = max(err, e)
+        log(f"  mlstm_chunk ({name}) vs plain: h max_abs_err {e:.3g}, "
+            f"final C/n/m within tolerance (atol {XL_TOL['atol']} + rtol "
+            f"{XL_TOL['rtol']})")
+    sets = [mlstm_inputs(400 + i, dev)[0] for i in range(N_XL_SETS)]
+    kw = dict(chunk=XL["chunk"], scale=XL["d"] ** -0.5)
+    res = dict(
+        ms=cuda_ms(lambda *x: mk.mlstm_chunk_kernel(*x, **kw), sets, 6),
+        plain_ms=cuda_ms(lambda *x: mk.mlstm_chunk_plain(*x, **kw), sets, 6),
+        library_ms=None,
+        bound=bound(*mlstm_need(XL["b"], XL["h"], XL["s"], XL["chunk"],
+                                XL["d"], XL["d"], False)))
+    log(f"  mlstm_chunk (B=4, H=4, S=2048, D=256, chunk 256, zero state): "
+        f"kernel {res['ms']:.4f} ms, plain {res['plain_ms']:.4f} ms, library"
+        f" not applicable, bound {res['bound'][0]:.4f} ms "
+        f"({res['bound'][1]}) [{CARD}]")
+    return err, res
+
+
+def phase_xlstm_serve(dev):
+    """[8](b): xlstm-350m at full width (random bf16 weights from seed 0)
+    through ServeEngine: 4 slots, 8 requests of 512-token prompts, 16 new
+    tokens, decode_block 1 and 4; kernel #7 must run once per mLSTM layer
+    per prefill dispatch."""
+    import numpy as np
+    import torch
+    from repro_torch.config import A3Config, BlockKind, get_arch
+    from repro_torch.kernels.mlstm_chunk import kernel as mk
+    from repro_torch.models import decoder
+    from repro_torch.serve.engine import ServeEngine
+
+    cfg = get_arch("xlstm-350m")
+    n_mlstm = sum(cfg.block_kind(i) == BlockKind.MLSTM
+                  for i in range(cfg.num_layers))
+    t0 = time.perf_counter()
+    model = decoder.init_params(cfg, torch.Generator(device=dev).manual_seed(
+        0), dev)
+    sync(dev)
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"  {cfg.name}: {n_params / 1e9:.3f} B params ({cfg.dtype}), "
+        f"{n_mlstm} mLSTM + {cfg.num_layers - n_mlstm} sLSTM layers, random "
+        f"init from seed 0 in {time.perf_counter() - t0:.1f} s")
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, size=512) for _ in range(8)]
+
+    def serve(reqs, decode_block, max_new):
+        eng = ServeEngine(model, cfg, slots=4, max_len=1024,
+                          decode_block=decode_block)
+        uids = [eng.submit(p, max_new_tokens=max_new) for p in reqs]
+        sync(dev)
+        mk.reset_launch_counts()
+        t = time.perf_counter()
+        eng.run_to_completion()
+        sync(dev)
+        dt = time.perf_counter() - t
+        outs = [eng.result(u) for u in uids]
+        check(all(o is not None and len(o) == max_new for o in outs),
+              "an xLSTM request did not finish with its full budget")
+        check(all(0 <= x < cfg.vocab_size for o in outs for x in o),
+              "an xLSTM token lies outside the vocabulary")
+        return outs, eng.stats, dt, mk.LAUNCHES["mlstm_chunk"]
+
+    serve(prompts[:1], 1, 2)                     # warm-up, not measured
+    launches, runs = 0, {}
+    for t in (1, 4):
+        outs, st, dt, got = serve(prompts, t, 16)
+        want = n_mlstm * st["prefill_dispatches"]
+        check(got == want > 0, f"mlstm_chunk launched {got} times, expected "
+                               f"{n_mlstm} x prefill_dispatches = {want}")
+        launches += got
+        runs[t] = outs
+        n_new = sum(len(o) for o in outs)
+        log(f"  serve xlstm-350m decode_block={t}: {n_new} tokens in "
+            f"{dt:.3f} s = {n_new / dt:.1f} tok/s; prefill_dispatches "
+            f"{st['prefill_dispatches']}, decode_steps {st['decode_steps']}, "
+            f"host_syncs {st['host_syncs']}; mlstm_chunk launches {got} = "
+            f"{n_mlstm} x {st['prefill_dispatches']} [{CARD}]")
+    check(runs[1] == runs[4], "xLSTM tokens differ between decode_block 1 "
+                              "and 4")
+    # one prefill dispatch of the serve (4 fresh lanes x 512 tokens) by
+    # the host clock, beside kernel #7 at its shape there by CUDA events
+    cache = decoder.init_cache(cfg, 4, 1024, device=dev)
+    toks = torch.from_numpy(np.stack(prompts[:4]).astype(np.int32)).to(dev)
+    pos = torch.zeros((4,), dtype=torch.int32, device=dev)
+    length = torch.full((4,), 512, dtype=torch.int32, device=dev)
+    for _ in range(2):                           # the first call warms up
+        sync(dev)
+        t = time.perf_counter()
+        decoder.prefill_chunk(model, cfg, cache, toks, pos, length)
+        sync(dev)
+    pms = (time.perf_counter() - t) * 1e3
+    args, st = mlstm_inputs(500, dev, 512, True)
+    kms = cuda_ms(lambda: mk.mlstm_chunk_kernel(
+        *args, chunk=XL["chunk"], scale=XL["d"] ** -0.5, state=st,
+        return_state=True), [()], 10)
+    log(f"  prefill dispatch (4 lanes x 512 tokens): {pms:.1f} ms; kernel "
+        f"#7 at its shape (B=4, H=4, S=512, carried state) {kms:.4f} ms x "
+        f"{n_mlstm} launches = {kms * n_mlstm:.1f} ms of it [{CARD}]")
+    fn = step_fn(model, cfg, A3Config(), False)
+    ms = cuda_ms(fn, [()], 20)
+    log(f"  decode_step: {ms:.3f} ms per step (B=4, {cfg.num_layers} "
+        f"layers) [{CARD}]")
+    dev_ms, n_kernels, top = profile_steps(fn)
+    if dev_ms is None:
+        log("    device time per step: not measured (the profiler saw no "
+            "device activity)")
+    else:
+        log(f"    profiler: device busy {dev_ms:.3f} ms per step "
+            f"({dev_ms / ms:.1%} of the {ms:.3f} ms step), {n_kernels:.0f} "
+            f"kernels per step; top: "
+            + "; ".join(f"{n} {t:.3f} ms" for n, t in top))
+    log(f"  peak device memory "
+        f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
+    return launches
+
+
+def phase_tiny_xl(dev):
+    """[8](c): the TINY_XL f32 engine (mLSTM, mLSTM, sLSTM; the shape of
+    tests/test_serve_conformance.py's TINY_XL) on the card vs the CPU:
+    greedy tokens identical; chunk 8 puts chunk boundaries mid-prompt."""
+    from repro_torch.config import A3Config, BlockKind, ModelConfig
+    from repro_torch.kernels.mlstm_chunk import kernel as mk
+
+    tiny_xl = ModelConfig("tiny-xl", "ssm", num_layers=3, d_model=64,
+                          num_heads=4, num_kv_heads=4, d_ff=0,
+                          vocab_size=256, head_dim=16,
+                          block_pattern=(BlockKind.MLSTM, BlockKind.MLSTM,
+                                         BlockKind.SLSTM), dtype="float32")
+    outs = card_vs_cpu_tokens(tiny_xl, dev, A3Config(),
+                              mk.reset_launch_counts)
+    log(f"  TINY_XL f32: card vs CPU greedy tokens {n_same(outs)}/30 "
+        f"identical; card mlstm_chunk launches {mk.LAUNCHES['mlstm_chunk']}")
+    check(outs["cuda"] == outs["cpu"] and mk.LAUNCHES["mlstm_chunk"] > 0,
+          "TINY_XL f32 tokens differ between the card and the CPU, or "
+          "kernel #7 did not run")
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     global CARD
@@ -816,6 +1051,13 @@ def main() -> int:
     prefill_launches = phase_prefill_path(model, cfg, dev)
     phase_prefill_cpu(dev)
     log(f"  phase [7] took {time.perf_counter() - t7:.1f} s")
+    log("[8] xLSTM: chunkwise mLSTM kernel #7 at xlstm-350m width (B=4, "
+        "H=4, S=2048, D=256, bf16 streams), xlstm-350m serving, TINY_XL")
+    t8 = time.perf_counter()
+    xerr, xtimes = phase_mlstm_kernel(dev)
+    xl_launches = phase_xlstm_serve(dev)
+    phase_tiny_xl(dev)
+    log(f"  phase [8] took {time.perf_counter() - t8:.1f} s")
 
     src = "src/repro_torch/csrc/decode_attention.cu"
     jax_kernel = "src/repro/kernels/decode_attention/kernel.py"
@@ -847,6 +1089,13 @@ def main() -> int:
                      "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
                      "bound_by": r["bound"][1],
                      "library_ms": r["library_ms"]})
+    rows.append({"name": "mlstm_chunk", "route": "cuda",
+                 "source": "src/repro_torch/csrc/mlstm_chunk.cu",
+                 "replaces": "src/repro/kernels/mlstm_chunk/kernel.py:34",
+                 "launches": xl_launches, "max_abs_err": xerr,
+                 "ms": xtimes["ms"], "plain_ms": xtimes["plain_ms"],
+                 "bound_ms": xtimes["bound"][0],
+                 "bound_by": xtimes["bound"][1], "library_ms": None})
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -5,7 +5,11 @@ of arrays: ``embed`` [Vp, d], ``final_norm.scale``, ``lm_head`` [d, Vp]
 and per segment ``seg{i}`` the layer parameters stacked on a leading
 ``layers`` axis. Its dense weights are ``[d_in, d_out]`` and used as
 ``x @ W``; the port's ``nn.Linear`` weights are ``[d_out, d_in]``, so
-they are transposed on the way in. Values are copied bit for bit.
+they are transposed on the way in. Values are copied bit for bit. The
+xLSTM leaves keep their own layout except the dense projections: mLSTM
+``wq``/``wk``/``wv``/``w_o``/``w_out`` and sLSTM ``wx``/``w_out`` are
+transposed; the gates ``w_i``/``w_f``/``b_i``/``b_f``, the recurrent
+``wr``, the bias ``b`` and the norm scales go over as they are.
 """
 from __future__ import annotations
 
@@ -15,8 +19,17 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.config import ModelConfig
+from repro_torch.config import BlockKind, ModelConfig
 from repro_torch.models.decoder import Decoder
+from repro_torch.models.mixer import build_segments
+
+# per block kind: (tree key, transposed dense leaves, leaves as they are)
+_MIXER_LEAVES = {
+    BlockKind.ATTENTION: ("attn", ("wq", "wk", "wv", "wo"), ()),
+    BlockKind.MLSTM: ("mlstm", ("wq", "wk", "wv", "w_o", "w_out"),
+                      ("w_i", "w_f", "b_i", "b_f", "ln_scale")),
+    BlockKind.SLSTM: ("slstm", ("wx", "w_out"), ("wr", "b", "ln_scale")),
+}
 
 
 def _put(dst: torch.Tensor, src: Any, transpose: bool = False) -> None:
@@ -43,14 +56,21 @@ def params_from_numpy(tree: Mapping[str, Any], cfg: ModelConfig,
         _put(model.final_norm.scale, tree["final_norm"]["scale"])
         if not cfg.tie_embeddings:
             _put(model.lm_head.weight, tree["lm_head"], transpose=True)
-        for si, seg_mod in enumerate(model.segs):
+        for si, (seg, seg_mod) in enumerate(zip(build_segments(cfg),
+                                                model.segs)):
             st = tree[f"seg{si}"]
+            key, dense, plain = _MIXER_LEAVES[seg.kind]
             for l, blk in enumerate(seg_mod.layers):
                 _put(blk.ln1.scale, st["ln1"]["scale"][l])
+                mix = getattr(blk, key)
+                for name in dense:
+                    _put(getattr(mix, name).weight, st[key][name][l],
+                         transpose=True)
+                for name in plain:
+                    _put(getattr(mix, name), st[key][name][l])
+                if blk.ffn is None:
+                    continue
                 _put(blk.ln2.scale, st["ln2"]["scale"][l])
-                for name in ("wq", "wk", "wv", "wo"):
-                    _put(getattr(blk.attn, name).weight,
-                         st["attn"][name][l], transpose=True)
                 for name in ("w_gate", "w_up", "w_down"):
                     if name in st["ffn"]:
                         _put(getattr(blk.ffn, name).weight,

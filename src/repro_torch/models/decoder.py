@@ -5,10 +5,11 @@ the in-dispatch A^3 re-sort and the multi-step ``decode_block``.
 
 The caches keep the reference layout: per segment ``seg{i}`` a dict of
 ``[L, B, ...]`` tensors (``k``/``v`` rings ``[L, B, Hkv, w, hd]``, the A^3
-sorted keys and ``sorted_upto`` watermark), so they compare leaf for
-leaf with the JAX caches. Unlike the reference, which returns new
-arrays, ``prefill_chunk``, ``decode_step``, ``resort_sorted_keys`` and
-``decode_block`` update the cache **in place** and return the same dict.
+sorted keys and ``sorted_upto`` watermark; the mLSTM and sLSTM states),
+so they compare leaf for leaf with the JAX caches. Unlike the reference,
+which returns new arrays, ``prefill_chunk``, ``decode_step``,
+``resort_sorted_keys`` and ``decode_block`` update the cache **in
+place** and return the same dict.
 
 Where the reference branches on a device value inside the graph
 (``lax.cond``), the port decides on the host: ``prefill_chunk`` takes
@@ -26,12 +27,13 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from repro_torch import resolve_device
-from repro_torch.config import A3Config, A3Mode, ModelConfig
+from repro_torch.config import A3Config, A3Mode, BlockKind, ModelConfig
 from repro_torch.core.candidate_selection import sort_key_columns
 from repro_torch.models.common import NEG_INF, FFN, Attention, RMSNorm, \
     attention_init_, embed_init_, dense_init_, ffn_apply, ffn_init_, \
     rmsnorm, round_to, softcap
-from repro_torch.models.mixer import build_segments, mixer_for
+from repro_torch.models import xlstm as xl
+from repro_torch.models.mixer import SegmentSpec, build_segments, mixer_for
 
 # Poison-quarantine sentinel of the decode token ring: emitted once by a
 # lane whose logits went non-finite, then the lane freezes (reference
@@ -52,16 +54,27 @@ def padded_vocab(v: int) -> int:
 # ---------------------------------------------------------------------------
 
 class Block(nn.Module):
-    """One attention + dense-FFN layer."""
+    """One layer: ``ln1`` and the segment kind's mixer (``attn``,
+    ``mlstm`` or ``slstm``), then ``ln2`` and the dense ``ffn`` unless
+    the segment has none (``ffn`` is then None)."""
 
-    def __init__(self, cfg: ModelConfig, dtype, device=None):
+    def __init__(self, cfg: ModelConfig, seg: SegmentSpec, dtype,
+                 device=None):
         super().__init__()
         d, hd = cfg.d_model, cfg.resolved_head_dim
         self.ln1 = RMSNorm(d, dtype, device)
-        self.attn = Attention(d, cfg.num_heads, cfg.num_kv_heads, hd, dtype,
-                              device)
-        self.ln2 = RMSNorm(d, dtype, device)
-        self.ffn = FFN(d, cfg.d_ff, dtype, device)
+        if seg.kind == BlockKind.ATTENTION:
+            self.attn = Attention(d, cfg.num_heads, cfg.num_kv_heads, hd,
+                                  dtype, device)
+        elif seg.kind == BlockKind.MLSTM:
+            self.mlstm = xl.MLSTM(d, cfg.num_heads, hd, dtype, device)
+        elif seg.kind == BlockKind.SLSTM:
+            self.slstm = xl.SLSTM(d, cfg.num_heads, dtype, device)
+        if seg.ffn == "none":
+            self.ffn = None
+        else:
+            self.ln2 = RMSNorm(d, dtype, device)
+            self.ffn = FFN(d, cfg.d_ff, dtype, device)
 
 
 class Decoder(nn.Module):
@@ -84,7 +97,7 @@ class Decoder(nn.Module):
             mixer_for(seg, cfg)               # raises for unported kinds
             seg_mod = nn.Module()
             seg_mod.layers = nn.ModuleList(
-                Block(cfg, dtype, device) for _ in range(seg.count))
+                Block(cfg, seg, dtype, device) for _ in range(seg.count))
             self.segs.append(seg_mod)
         self.requires_grad_(False)            # inference only
 
@@ -103,10 +116,16 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     embed_init_(model.embed, generator)
     if not cfg.tie_embeddings:
         dense_init_(model.lm_head, generator)
-    for seg_mod in model.segs:
+    for seg, seg_mod in zip(build_segments(cfg), model.segs):
         for blk in seg_mod.layers:
-            attention_init_(blk.attn, generator)
-            ffn_init_(blk.ffn, generator)
+            if seg.kind == BlockKind.ATTENTION:
+                attention_init_(blk.attn, generator)
+            elif seg.kind == BlockKind.MLSTM:
+                xl.mlstm_init_(blk.mlstm, generator)
+            else:
+                xl.slstm_init_(blk.slstm, generator)
+            if blk.ffn is not None:
+                ffn_init_(blk.ffn, generator)
     return model
 
 
@@ -136,6 +155,8 @@ def unembed(model: Decoder, cfg: ModelConfig, h: torch.Tensor
 
 def _ffn_block(blk: Block, h: torch.Tensor, cfg: ModelConfig
                ) -> torch.Tensor:
+    if blk.ffn is None:
+        return h
     return h + ffn_apply(blk.ffn, rmsnorm(blk.ln2, h, cfg.norm_eps))
 
 

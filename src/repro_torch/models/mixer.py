@@ -1,5 +1,5 @@
 """Per-segment mixer-state interface (PyTorch port of
-``repro.models.mixer``), attention kind only.
+``repro.models.mixer``): the attention, mLSTM and sLSTM kinds.
 
 A model is a sequence of *segments* (maximal runs of layers sharing a
 (block kind, ffn kind, attention window) signature). A
@@ -17,6 +17,13 @@ per-layer views and update them). Pad lanes — ``length == 0`` in a
 chunk, ``pos < 0`` in a decode step — keep their state bit-identical:
 torch has no ``mode="drop"`` scatter, so the writes select the old value
 for those lanes instead of scattering out of bounds.
+
+The recurrent kinds keep the reference's state leaves: mLSTM ``C``/``n``/
+``m`` ``[L, B, H, hd, hd]``/``[L, B, H, hd]``/``[L, B, H]`` and sLSTM
+``c``/``n``/``m``/``h`` ``[L, B, d]``, all float32. A lane starting a
+fresh prompt (``pos == 0, length > 0``) reads its state as the initial
+one (the slot may hold a finished request's state); lanes with
+``length == 0`` or ``pos < 0`` keep theirs by an explicit per-lane select.
 """
 from __future__ import annotations
 
@@ -31,6 +38,7 @@ from repro_torch.core.candidate_selection import SortedKeys, \
     sort_key_columns
 from repro_torch.kernels.decode_attention.ops import a3_decode_attention, \
     a3_decode_attention_compact
+from repro_torch.models import xlstm as xl
 from repro_torch.models.common import NEG_INF, attention_out, \
     attention_qkv, attention_xla_flash
 
@@ -302,6 +310,124 @@ def _attn_decode_step(layer, state: Dict[str, torch.Tensor],
 
 
 # ---------------------------------------------------------------------------
+# recurrent kinds (mLSTM, sLSTM)
+# ---------------------------------------------------------------------------
+
+def _lane_select(new: torch.Tensor, old: torch.Tensor,
+                 active: torch.Tensor) -> torch.Tensor:
+    """Per-lane select: inactive lanes keep ``old`` bit-identically.
+    ``active`` is [B]; leaves are [B, ...]."""
+    return torch.where(active.reshape((-1,) + (1,) * (old.dim() - 1)), new,
+                       old)
+
+
+def _fresh_state(state: Dict[str, torch.Tensor], init: Dict[str, float],
+                 fresh: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """The carried state with fresh lanes reset to the initial values."""
+    return tuple(_lane_select(torch.full_like(state[name], v), state[name],
+                              fresh) for name, v in init.items())
+
+
+def _commit(state: Dict[str, torch.Tensor], names,
+            new: Tuple[torch.Tensor, ...], active: torch.Tensor) -> None:
+    """In place: active lanes take the new state (leaves in the order of
+    ``names``), the rest keep theirs."""
+    for name, t in zip(names, new):
+        state[name].copy_(_lane_select(t, state[name], active))
+
+
+_MLSTM_INIT = {"C": 0.0, "n": 0.0, "m": NEG_INF}
+_SLSTM_INIT = {"c": 0.0, "n": 0.0, "m": NEG_INF, "h": 0.0}
+
+
+def _mlstm_init_state(cfg: ModelConfig, seg: SegmentSpec, batch: int,
+                      max_len: int, dtype, a3: bool,
+                      device) -> Dict[str, torch.Tensor]:
+    L, hd = seg.count, cfg.resolved_head_dim
+    C, n, m = xl.mlstm_init_state(L * batch, cfg.num_heads, hd, device)
+    return {"C": C.reshape(L, batch, *C.shape[1:]),
+            "n": n.reshape(L, batch, *n.shape[1:]),
+            "m": m.reshape(L, batch, *m.shape[1:])}
+
+
+def _mlstm_forward(layer, hn: torch.Tensor, *, cfg: ModelConfig,
+                   **_) -> torch.Tensor:
+    return xl.mlstm_chunkwise(layer.mlstm, hn, cfg.num_heads,
+                              cfg.resolved_head_dim)[0]
+
+
+def _mlstm_prefill_full(layer, hn: torch.Tensor, *, cfg: ModelConfig, **_
+                        ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    o, st = xl.mlstm_chunkwise(layer.mlstm, hn, cfg.num_heads,
+                               cfg.resolved_head_dim)
+    return o, dict(zip(_MLSTM_INIT, st))
+
+
+def _mlstm_prefill_chunk(layer, state: Dict[str, torch.Tensor],
+                         hn: torch.Tensor, *, cfg: ModelConfig,
+                         pos: torch.Tensor, length: torch.Tensor,
+                         valid_tok: torch.Tensor, **_) -> torch.Tensor:
+    st = _fresh_state(state, _MLSTM_INIT, (pos == 0) & (length > 0))
+    o, new = xl.mlstm_chunkwise(layer.mlstm, hn, cfg.num_heads,
+                                cfg.resolved_head_dim, state=st,
+                                valid=valid_tok)
+    _commit(state, _MLSTM_INIT, new, length > 0)
+    return o
+
+
+def _mlstm_decode_step(layer, state: Dict[str, torch.Tensor],
+                       hn: torch.Tensor, *, cfg: ModelConfig,
+                       pos: torch.Tensor, **_) -> torch.Tensor:
+    o, new = xl.mlstm_decode_step(layer.mlstm, hn,
+                                  tuple(state[k] for k in _MLSTM_INIT),
+                                  cfg.num_heads, cfg.resolved_head_dim)
+    _commit(state, _MLSTM_INIT, new, pos >= 0)
+    return o
+
+
+def _slstm_init_state(cfg: ModelConfig, seg: SegmentSpec, batch: int,
+                      max_len: int, dtype, a3: bool,
+                      device) -> Dict[str, torch.Tensor]:
+    st = xl.slstm_init_state(seg.count * batch, cfg.d_model, device)
+    return {name: t.reshape(seg.count, batch, cfg.d_model)
+            for name, t in zip(_SLSTM_INIT, st)}
+
+
+def _slstm_forward(layer, hn: torch.Tensor, *, cfg: ModelConfig,
+                   **_) -> torch.Tensor:
+    return xl.slstm_apply_scan(layer.slstm, hn, cfg.num_heads)[0]
+
+
+def _slstm_prefill_full(layer, hn: torch.Tensor, *, cfg: ModelConfig, **_
+                        ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    o, st = xl.slstm_apply_scan(layer.slstm, hn, cfg.num_heads)
+    return o, dict(zip(_SLSTM_INIT, st))
+
+
+def _slstm_prefill_chunk(layer, state: Dict[str, torch.Tensor],
+                         hn: torch.Tensor, *, cfg: ModelConfig,
+                         pos: torch.Tensor, length: torch.Tensor,
+                         valid_tok: torch.Tensor, **_) -> torch.Tensor:
+    st = _fresh_state(state, _SLSTM_INIT, (pos == 0) & (length > 0))
+    # pad positions reselect the carried state inside the scan, so a
+    # zero-length lane is bit-identical by construction
+    o, new = xl.slstm_apply_scan(layer.slstm, hn, cfg.num_heads, state=st,
+                                 valid=valid_tok)
+    _commit(state, _SLSTM_INIT, new, length > 0)
+    return o
+
+
+def _slstm_decode_step(layer, state: Dict[str, torch.Tensor],
+                       hn: torch.Tensor, *, cfg: ModelConfig,
+                       pos: torch.Tensor, **_) -> torch.Tensor:
+    o, new = xl.slstm_decode_step(layer.slstm, hn,
+                                  tuple(state[k] for k in _SLSTM_INIT),
+                                  cfg.num_heads)
+    _commit(state, _SLSTM_INIT, new, pos >= 0)
+    return o
+
+
+# ---------------------------------------------------------------------------
 # registry
 # ---------------------------------------------------------------------------
 
@@ -320,13 +446,23 @@ MIXERS: Dict[BlockKind, SegmentMixer] = {
     BlockKind.ATTENTION: SegmentMixer(
         _attn_init_state, _attn_forward, _attn_prefill_full,
         _attn_prefill_chunk, _attn_decode_step),
+    BlockKind.MLSTM: SegmentMixer(
+        _mlstm_init_state, _mlstm_forward, _mlstm_prefill_full,
+        _mlstm_prefill_chunk, _mlstm_decode_step),
+    BlockKind.SLSTM: SegmentMixer(
+        _slstm_init_state, _slstm_forward, _slstm_prefill_full,
+        _slstm_prefill_chunk, _slstm_decode_step),
 }
 
 
 def mixer_for(seg: SegmentSpec, cfg: ModelConfig) -> SegmentMixer:
     """The segment's mixer; raises for what the port does not serve yet
-    (non-attention kinds, MoE or GELU FFNs)."""
-    if seg.kind not in MIXERS or seg.ffn != "dense" or cfg.act != "swiglu":
+    (RG-LRU blocks, MoE or GELU FFNs). The recurrent kinds may have no
+    FFN (xLSTM's blocks carry their own projections)."""
+    no_ffn = seg.ffn == "none" and seg.kind in (BlockKind.MLSTM,
+                                                BlockKind.SLSTM)
+    dense = seg.ffn == "dense" and cfg.act == "swiglu"
+    if seg.kind not in MIXERS or not (no_ffn or dense):
         raise NotImplementedError(
             f"{seg.kind.value} blocks with a {seg.ffn} {cfg.act} FFN are "
             f"not yet ported to repro_torch")

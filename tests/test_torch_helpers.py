@@ -29,6 +29,14 @@ BF16_TOL = dict(rtol=2e-2, atol=2e-2)
 TINY = jcfg.ModelConfig("tiny", "dense", num_layers=2, d_model=64,
                         num_heads=4, num_kv_heads=2, d_ff=128,
                         vocab_size=256, head_dim=16, dtype="float32")
+# and its xlstm-like mLSTM/mLSTM/sLSTM config (no FFN)
+TINY_XL = jcfg.ModelConfig("tiny-xl", "ssm", num_layers=3, d_model=64,
+                           num_heads=4, num_kv_heads=4, d_ff=0,
+                           vocab_size=256, head_dim=16,
+                           block_pattern=(jcfg.BlockKind.MLSTM,
+                                          jcfg.BlockKind.MLSTM,
+                                          jcfg.BlockKind.SLSTM),
+                           dtype="float32")
 
 
 def tol(dtype) -> dict:
@@ -114,9 +122,16 @@ def test_phi4_config_matches_reference():
     assert tcfg.smoke_variant(port) == port_cfg(jcfg.smoke_variant(ref))
 
 
+def test_xlstm_config_matches_reference():
+    ref = jcfg.get_arch("xlstm-350m")
+    port = tcfg.get_arch("xlstm-350m")
+    assert port == port_cfg(ref)
+    assert tcfg.smoke_variant(port) == port_cfg(jcfg.smoke_variant(ref))
+
+
 def test_unported_arch_raises():
     with pytest.raises(KeyError, match="not yet ported"):
-        tcfg.get_arch("xlstm-350m")
+        tcfg.get_arch("recurrentgemma-2b")
 
 
 @pytest.mark.parametrize("mode", ["conservative", "aggressive"])
