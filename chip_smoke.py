@@ -15,7 +15,9 @@ first phase that does not hold:
    events over inputs that exceed the 50 MB L2 (as the 32 layers of a
    decode step do), its plain version, and the
    ``scaled_dot_product_attention`` yardstick (timed only; the port never
-   calls it);
+   calls it); for the fused kernel and SDPA also the device time per call
+   from ``torch.profiler`` (the event loop measures the host's enqueue
+   once a call takes less device time than the wrapper's Python);
 3. main path: serves phi4-mini-3.8b at full width (random bf16 weights
    from seed 0; 4 slots, max_len 512, 8 requests of 64-token prompts, 16
    new tokens) through ``ServeEngine`` with A^3 off at decode_block 1 and
@@ -29,16 +31,18 @@ first phase that does not hold:
    tokens identical;
 7. A^3 prefill attention at phi4-mini width (B=1, Hq=24, Hkv=8, S=2048,
    D=128, bf16, causal): (a) flash kernel #4 (causal, window 512, a
-   512-row continuation) and the sparse row-max / attend kernels #5/#6
+   512-row continuation; every bf16 call must take the tensor-core
+   route) and the sparse row-max / attend kernels #5/#6
    (random per-query-head map of density 0.5, diagonal kept, thresholds
    None and 3.0) against their plain versions within 2e-2, each timed
    over inputs larger than L2 beside its plain version, its bound and
-   (for #4) ``scaled_dot_product_attention``; (b) the public
+   (for #4) ``scaled_dot_product_attention``, #4 and SDPA also by device
+   time per call; (b) the public
    ``a3_attention`` in modes off / conservative / aggressive on layer 0's
    q/k/v of the full-width model (2048 random tokens) and on clustered
    keys: live-block fraction, selection and kernel ms, op ms, peak
-   memory, error against off, and launch counts (off: one #4; A^3: one
-   #5 and one #6); (c) the same op on the card vs the CPU at a small
+   memory, error against off, and launch counts (off: one #4 on the
+   tensor-core route; A^3: one #5 and one #6); (c) the same op on the card vs the CPU at a small
    float32 shape: block maps identical, outputs within 1e-4;
 8. xLSTM: (a) the chunkwise mLSTM kernel #7 against its plain version at
    xlstm-350m's heads (B=4, H=4, S=2048, D=256, bf16 streams, float32
@@ -53,7 +57,8 @@ first phase that does not hold:
    dispatch; (c) the TINY_XL f32 engine on the card vs the CPU: greedy
    tokens identical.
 
-Prints one JSON line of per-kernel numbers, then, last,
+Prints one JSON line of per-kernel numbers (rows #1 and #4 with
+``device_ms``, the profiler's device time per launch), then, last,
 ``{"ok": true, "device": {...}}``. Exits non-zero, with no result line,
 when CUDA is unavailable or the port's sources are not beside the script.
 """
@@ -115,12 +120,59 @@ def cuda_ms(fn, arg_sets, iters):
     return start.elapsed_time(end) / iters
 
 
+def device_ms(fn, arg_sets, iters):
+    """Device time per call by ``torch.profiler``: the self device time
+    of every kernel launched over ``iters`` calls cycling through
+    ``arg_sets``, over ``iters``; None when the profiler saw no device
+    activity. Beside ``cuda_ms`` it separates the kernels' time from
+    the host's enqueue."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for args in arg_sets:
+        fn(*args)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for i in range(iters):
+            fn(*arg_sets[i % len(arg_sets)])
+        torch.cuda.synchronize()
+    total_us = sum(e.self_device_time_total for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA)
+    return total_us / 1e3 / iters if total_us > 0 else None
+
+
+def fmt_ms(ms):
+    return "not measured" if ms is None else f"{ms:.4f} ms"
+
+
 def bound(nbytes, flops):
     """(least ms, what bounds it) for moving ``nbytes`` and doing
     ``flops`` bf16 operations on one H100."""
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
+
+
+def ptxas_report(text):
+    """(kernel, "N registers, S bytes spill stores, ...") per function of
+    an ``nvcc -Xptxas -v`` log; the kernel is the mangled name's
+    identifier and template arguments, shortened."""
+    import re
+    out, name = [], None
+    for ln in text.splitlines():
+        m = re.search(r"Function properties for (\S+)", ln)
+        if m:
+            name = m.group(1)
+            short = re.search(r"([a-z_]+_kernel)I(\w*?)EEv", name)
+            name = f"{short.group(1)}<{short.group(2)}>" if short \
+                else name[-40:]
+        elif name and ("spill" in ln or "registers" in ln):
+            out.append((name, ln.strip().replace("ptxas info    : ", "")))
+    report = {}
+    for fn, props in out:
+        report[fn] = (report[fn] + "; " + props) if fn in report else props
+    return list(report.items())
 
 
 # ---------------------------------------------------------------------------
@@ -232,7 +284,11 @@ def phase_kernels(dev):
     res["fused"] = dict(
         ms=cuda_ms(lambda *x: tk.fused(*x), sets, 200),
         plain_ms=cuda_ms(lambda *x: tk.fused_plain(*x), sets, 20),
-        library_ms=cuda_ms(sdpa, sdpa_sets, 200), bound=fused_bound)
+        library_ms=cuda_ms(sdpa, sdpa_sets, 200), bound=fused_bound,
+        device_ms=device_ms(lambda *x: tk.fused(*x), sets, 200),
+        library_device_ms=device_ms(sdpa, sdpa_sets, 200))
+    log(f"  fused: cluster of {tk.cluster_size(SHAPE['s'], 512)} CTAs per "
+        f"(batch, kv head), {SHAPE['b'] * SHAPE['hkv']} clusters")
     rowmax_bound = mean_bound(lambda i: needed_bytes_flops(
         sets[i][0], sets[i][1], None, sets[i][3], sets[i][3],
         b * hq * 4))
@@ -257,6 +313,11 @@ def phase_kernels(dev):
         log(f"  {name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f}"
             f" ms, library {lib}, bound {r['bound'][0]:.4f} ms "
             f"({r['bound'][1]}) [{CARD}]")
+    r = res["fused"]
+    log(f"  fused by device time per launch (torch.profiler): kernel "
+        f"{fmt_ms(r['device_ms'])}, SDPA {fmt_ms(r['library_device_ms'])}; "
+        f"by the event loop: kernel {r['ms']:.4f} ms, SDPA "
+        f"{r['library_ms']:.4f} ms [{CARD}]")
     return errs, res
 
 
@@ -567,6 +628,7 @@ def phase_prefill_kernels(dev):
     errs = {"flash": 0.0, "rowmax": 0.0, "attend": 0.0}
     q, k, v = prefill_inputs(100, dev)
     q512 = prefill_inputs(101, dev, sq=512)[0]
+    fk.reset_launch_counts()
     for name, args, kw in (("causal", (q, k, v), {}),
                            ("window 512", (q, k, v), {"window": 512}),
                            ("Sq 512 vs Sk 2048", (q512, k, v), {})):
@@ -576,6 +638,11 @@ def phase_prefill_kernels(dev):
                   f": {e}")
         errs["flash"] = max(errs["flash"], e)
         log(f"  flash ({name}) vs plain: max_abs_err {e:.3g}")
+    check(fk.LAUNCHES == {"flash_attention_wgmma": 3,
+                          "flash_attention_simt": 0},
+          f"bf16 flash calls at phi4 width took {fk.LAUNCHES}, expected "
+          f"the tensor-core route three times")
+    log(f"  flash routes at phi4 width, bf16: {fk.LAUNCHES}")
     idx, cnt = random_map(100, dev)
     rm = ak.sparse_rowmax(q, k, idx, cnt)
     e, ok = max_err(rm, ak.sparse_rowmax_plain(q, k, idx, cnt))
@@ -599,13 +666,18 @@ def phase_prefill_kernels(dev):
     b, hq, hkv, s, d = (PREFILL[x] for x in ("b", "hq", "hkv", "s", "d"))
     qkv_bytes = (b * hq * s * d + 2 * b * hkv * s * d) * 2
     res = {}
+    def sdpa(*x):
+        return F.scaled_dot_product_attention(*x, is_causal=True,
+                                              enable_gqa=True)
+
     res["flash"] = dict(
-        ms=cuda_ms(lambda *x: fk.flash_attention(*x), sets, 20),
+        ms=cuda_ms(lambda *x: fk.flash_attention(*x), sets, 50),
         plain_ms=cuda_ms(lambda *x: fk.flash_attention_plain(*x), sets, 4),
-        library_ms=cuda_ms(lambda *x: F.scaled_dot_product_attention(
-            *x, is_causal=True, enable_gqa=True), sets, 50),
+        library_ms=cuda_ms(sdpa, sets, 50),
         bound=bound(qkv_bytes + b * hq * s * d * 2,
-                    4 * d * b * hq * flash_pairs(s, s)))
+                    4 * d * b * hq * flash_pairs(s, s)),
+        device_ms=device_ms(lambda *x: fk.flash_attention(*x), sets, 50),
+        library_device_ms=device_ms(sdpa, sets, 50))
     rsets = [(x[0], x[1], *m) for x, m in zip(sets, maps)]
     rms = [ak.sparse_rowmax(*a) for a in rsets]
     need = [sparse_need(x[0], x[1], *m, rm, T_CONS)
@@ -643,6 +715,11 @@ def phase_prefill_kernels(dev):
         log(f"  {name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f}"
             f" ms, library {lib}, bound {r['bound'][0]:.4f} ms "
             f"({r['bound'][1]}) [{CARD}]")
+    r = res["flash"]
+    log(f"  flash by device time per launch (torch.profiler): kernel "
+        f"{fmt_ms(r['device_ms'])}, SDPA {fmt_ms(r['library_device_ms'])}; "
+        f"by the event loop: kernel {r['ms']:.4f} ms, SDPA "
+        f"{r['library_ms']:.4f} ms [{CARD}]")
     return errs, res
 
 
@@ -695,8 +772,8 @@ def phase_prefill_path(model, cfg, dev):
     from repro_torch.kernels.a3_attention import ops as aops
     from repro_torch.kernels.flash_attention import kernel as fk
 
-    launches = {"flash_attention": 0, "a3_sparse_rowmax": 0,
-                "a3_sparse_attend": 0}
+    launches = {"flash_attention_wgmma": 0, "flash_attention_simt": 0,
+                "a3_sparse_rowmax": 0, "a3_sparse_attend": 0}
     nq = PREFILL["s"] // 128
     tri = PREFILL["b"] * PREFILL["hkv"] * nq * (nq + 1) // 2
     tril = torch.ones(nq, nq, dtype=torch.bool, device=dev).tril()
@@ -721,10 +798,10 @@ def phase_prefill_path(model, cfg, dev):
             check(out.shape == q.shape and bool(torch.isfinite(out).all()),
                   f"a3_attention ({data}, {mode}) gave a non-finite or "
                   f"misshapen output")
-            want = ({"flash_attention": 1, "a3_sparse_rowmax": 0,
-                     "a3_sparse_attend": 0} if mode == "off" else
-                    {"flash_attention": 0, "a3_sparse_rowmax": 1,
-                     "a3_sparse_attend": 1})
+            want = {"flash_attention_wgmma": int(mode == "off"),
+                    "flash_attention_simt": 0,
+                    "a3_sparse_rowmax": int(mode != "off"),
+                    "a3_sparse_attend": int(mode != "off")}
             check(got == want or dev.type != "cuda",
                   f"a3_attention ({data}, {mode}) launched "
                                f"{got}, expected {want}")
@@ -1029,9 +1106,8 @@ def main() -> int:
     log(f"[1] built {sources} in {time.perf_counter() - t0:.1f} s -> "
         f"{[str(p.relative_to(ROOT)) for p in paths.values()]}")
     for src, text in build.BUILD_LOGS.items():
-        regs = [ln.strip() for ln in text.splitlines() if "registers" in ln
-                or "spill" in ln]
-        log(f"    ptxas {src}: " + " | ".join(regs))
+        for fn, props in ptxas_report(text):
+            log(f"    ptxas {src} {fn}: {props}")
 
     log("[2] kernels vs plain versions (B=4, Hq=24, Hkv=8, S=512, D=128, "
         "bf16)")
@@ -1073,22 +1149,26 @@ def main() -> int:
                      "ms": r["ms"], "plain_ms": r["plain_ms"],
                      "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
                      "library_ms": r["library_ms"]})
-    for name, key, src, jax_kernel, line in (
+        if "device_ms" in r:
+            rows[-1]["device_ms"] = r["device_ms"]
+    for name, key, src, jax_kernel, line, counted in (
             ("flash_attention", "flash", "flash_attention.cu",
-             "flash_attention/kernel.py", 23),
+             "flash_attention/kernel.py", 23, "flash_attention_wgmma"),
             ("a3_sparse_rowmax", "rowmax", "a3_attention.cu",
-             "a3_attention/kernel.py", 60),
+             "a3_attention/kernel.py", 60, "a3_sparse_rowmax"),
             ("a3_sparse_attend", "attend", "a3_attention.cu",
-             "a3_attention/kernel.py", 94)):
+             "a3_attention/kernel.py", 94, "a3_sparse_attend")):
         r = ptimes[key]
         rows.append({"name": name, "route": "cuda",
                      "source": f"src/repro_torch/csrc/{src}",
                      "replaces": f"src/repro/kernels/{jax_kernel}:{line}",
-                     "launches": prefill_launches[name],
+                     "launches": prefill_launches[counted],
                      "max_abs_err": perrs[key], "ms": r["ms"],
                      "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
                      "bound_by": r["bound"][1],
                      "library_ms": r["library_ms"]})
+        if "device_ms" in r:
+            rows[-1]["device_ms"] = r["device_ms"]
     rows.append({"name": "mlstm_chunk", "route": "cuda",
                  "source": "src/repro_torch/csrc/mlstm_chunk.cu",
                  "replaces": "src/repro/kernels/mlstm_chunk/kernel.py:34",

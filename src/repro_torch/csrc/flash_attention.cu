@@ -1,34 +1,61 @@
-// Causal / sliding-window GQA flash attention for Hopper (sm_90a), with a
-// plain C entry point loaded through ctypes by
-// repro_torch/kernels/flash_attention/kernel.py.
+// Causal / sliding-window GQA flash attention for Hopper (sm_90a), with
+// plain C entry points loaded through ctypes by
+// repro_torch/kernels/flash_attention/kernel.py. Two kernels, one per
+// route; the wrapper picks the route from dtype and head dims before the
+// launch:
 //
-//   flash_attention_fwd  replaces repro/kernels/flash_attention/kernel.py
-//                        ::_flash_kernel (online softmax over kv tiles;
-//                        query rows offset by seq_k - seq_q; l == 0 -> 0)
+//   flash_attention_fwd_wgmma  bf16, D and Dv multiples of 16 up to 128,
+//                              16-byte aligned inputs, a positive scale:
+//                              the tensor-core kernel (flash_wgmma_kernel)
+//   flash_attention_fwd        float32 and every other call: the
+//                              CUDA-core kernel (flash_kernel)
 //
-// Semantics follow the Pallas kernel: s = (q . k) * scale in float32 (the
-// scale applied after the dot), masked scores at -1e30, running max m,
-// sum l and accumulator rescaled by exp(m_prev - m_new), output acc / l
-// in q's dtype and 0 where l == 0.
+// Both replace repro/kernels/flash_attention/kernel.py::_flash_kernel
+// (online softmax over kv tiles; query rows offset by seq_k - seq_q;
+// l == 0 -> 0). Semantics follow the Pallas kernel: s = (q . k) * scale
+// in float32 (the scale applied after the dot), masked scores at -1e30,
+// running max m, sum l and accumulator rescaled by exp(m_prev - m_new),
+// output acc / l in q's dtype and 0 where l == 0.
 //
 // Bound: at the prefill shape (B=1, Hq=24, Hkv=8, S=2048, D=128, bf16,
 // causal) the admitted pairs need 4*D flops each, 25.8 GFLOP, 26 us at
 // 989 TFLOP/s, against 34 MB of q/k/v/out (10 us at 3.35 TB/s): the
 // kernel is bound by operations, i.e. by the tensor cores.
 //
-// Design (simple and right, not fast yet): a CUDA block owns 64 query
-// rows of one (batch, head) and loops over kv tiles of 64 keys inside the
-// block, which replaces the TPU grid's sequential kv axis. The loop runs
-// only over the column range the causal diagonal and the window admit
-// for the block's rows, so tiles wholly above the diagonal or wholly
-// outside the window are never visited (exact: a fully masked tile
-// leaves m, l and acc unchanged) and causal work halves. Scores and P.V
-// run in float32 on the CUDA cores through shared-memory tiles
-// (attention_tile.cuh), not on the tensor cores, so the kernel sits far
-// above its operations bound: mma/wgmma tiles, TMA staging and a
-// persistent schedule are later work.
+// flash_wgmma_kernel (the bf16 route) puts both products on the tensor
+// cores. A CTA owns 128 query rows of one (batch, head): two consumer
+// warpgroups of 64 rows each and one producer warpgroup, which hands its
+// registers to the consumers (setmaxnreg 24 / 240: the accumulators of S,
+// O and P need ~180 a thread) and has one lane load the CTA's Q once and
+// stream 128-key K and V tiles through a 3-stage ring with TMA (128-byte
+// swizzle, 64-column boxes, mbarriers with transaction counts; rows past
+// Sk and columns past D arrive as zeros). Each consumer computes
+// S = Q K^T with wgmma m64n128k16 (Q and K from shared memory, both
+// K-major), runs the online softmax on the accumulator registers (exp2
+// on the special-function unit, the scale folded into one FFMA, the
+// per-element mask only on tiles that cross the causal diagonal, the
+// window edge or Sk), converts P to bf16 in registers and accumulates
+// O += P V with wgmma (P as the register A operand, V the MN-major B
+// operand). The loop is software-pipelined: S_j and P_{j-1} V_{j-1} are
+// issued together and the softmax of S_j runs while the tensor cores
+// finish P_{j-1} V_{j-1}. The loop covers only the kv tiles the causal
+// diagonal and the window admit for the CTA's rows, and the grid runs
+// the heaviest causal query blocks first. What bounds it now is the
+// softmax's share of the special-function unit and issue slots beside
+// the wgmma (about half of each tile's time on an H100).
+//
+// Precision: P is rounded to bf16 before P.V (the Pallas kernel and
+// flash_kernel multiply in float32); scores, m, l and O stay float32.
+// Against the plain version that is a relative error of about 2^-9 per
+// weight, inside the 2e-2 bf16 tolerance.
+//
+// flash_kernel (float32 and other head dims) is the simple CUDA-core
+// design: a block owns 64 query rows and loops over 64-key tiles of the
+// admitted column range; scores and P.V run in float32 through
+// shared-memory tiles (attention_tile.cuh).
 
 #include "attention_tile.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -137,6 +164,380 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
   return (int)cudaGetLastError();
 }
 
+
+// ---------------------------------------------------------------------------
+// the tensor-core route (bf16)
+// ---------------------------------------------------------------------------
+
+constexpr int kWgRows = 64;                 // query rows of a consumer WG
+constexpr int kQRows = 2 * kWgRows;         // query rows of a CTA
+constexpr int kKeys = 128;                  // keys of a kv tile
+constexpr int kStages = 3;                  // K/V ring depth
+constexpr int kWgThreads = 3 * 128;        // two consumer WGs + producer WG
+constexpr int kBox = 64;                    // columns of a TMA box (128 B)
+constexpr int kQBoxBytes = kWgRows * kBox * 2;     // 8 KB
+constexpr int kKVBoxBytes = kKeys * kBox * 2;      // 16 KB
+constexpr float kLog2e = 1.4426950408889634f;
+
+// Shared memory of one CTA, all boxes 1024-byte aligned: Q [2 WGs][nb],
+// K [stage][nb], V [stage][nvb] (nb = ceil(D/64), nvb = ceil(Dv/64)
+// boxes), then the barriers.
+struct WgSmem {
+  unsigned char* q;
+  unsigned char* k;
+  unsigned char* v;
+  uint64_t* q_full;
+  uint64_t* k_full;                         // [kStages]
+  uint64_t* v_full;                         // [kStages]
+  uint64_t* empty;                          // [kStages]
+};
+
+size_t wg_smem_bytes(int nb, int nvb) {
+  return 1024 + (size_t)2 * nb * kQBoxBytes +
+         (size_t)kStages * (nb + nvb) * kKVBoxBytes + 8 * (1 + 3 * kStages);
+}
+
+__device__ inline WgSmem wg_carve(unsigned char* raw, int nb, int nvb) {
+  unsigned char* base = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(raw) + 1023) & ~(uintptr_t)1023);
+  WgSmem s;
+  s.q = base;
+  s.k = s.q + (size_t)2 * nb * kQBoxBytes;
+  s.v = s.k + (size_t)kStages * nb * kKVBoxBytes;
+  uint64_t* bars =
+      reinterpret_cast<uint64_t*>(s.v + (size_t)kStages * nvb * kKVBoxBytes);
+  s.q_full = bars;
+  s.k_full = bars + 1;
+  s.v_full = bars + 1 + kStages;
+  s.empty = bars + 1 + 2 * kStages;
+  return s;
+}
+
+// O accumulator columns: 64 per box of Dv, a 64 x (64 nvb) tile.
+template <int NVB>
+__device__ __forceinline__ void pv_mma(float (&o)[32 * NVB],
+                                       const uint32_t (&a)[4], uint64_t db);
+template <>
+__device__ __forceinline__ void pv_mma<1>(float (&o)[32],
+                                          const uint32_t (&a)[4],
+                                          uint64_t db) {
+  hopper::wgmma_rs_n64_tb(o, a, db);
+}
+template <>
+__device__ __forceinline__ void pv_mma<2>(float (&o)[64],
+                                          const uint32_t (&a)[4],
+                                          uint64_t db) {
+  hopper::wgmma_rs_n128_tb(o, a, db);
+}
+
+// Online softmax of one 64 x 128 score tile held in wgmma accumulator
+// registers: element i of a lane sits at row row_a + 8 * ((i >> 1) & 1)
+// of the warpgroup and column c0 + 8 * (i >> 2) + 2 * (lane % 4) + (i & 1),
+// so a row's 128 columns spread over the 4 lanes of a quad. Raw scores
+// in, probabilities out; m is kept in the log2 domain (scale * log2 e
+// folded into one FFMA per element), l as this lane's share of the row;
+// al_a / al_b return the rescale factors of the lane's two rows.
+// MASK applies the causal / window / Sk mask per element (only tiles
+// that cross an edge); masked entries get weight 0 even while their
+// whole row is masked (m at its initial value).
+template <bool MASK>
+__device__ __forceinline__ void softmax_tile(
+    float (&sc)[64], float& m_a, float& m_b, float& l_a, float& l_b,
+    float& al_a, float& al_b, float scale2, int c0, int lane, int pos_a,
+    int Sk, int causal, int has_window, int window) {
+  float mx_a = kNegInf, mx_b = kNegInf;
+#pragma unroll
+  for (int i = 0; i < 64; ++i) {
+    if (MASK) {
+      const int col = c0 + 8 * (i >> 2) + 2 * (lane & 3) + (i & 1);
+      const int pos = pos_a + ((i & 2) ? 8 : 0);
+      if (!(col < Sk && allowed(pos, col, causal, has_window, window)))
+        sc[i] = kNegInf;
+    }
+    if (i & 2) mx_b = fmaxf(mx_b, sc[i]);
+    else mx_a = fmaxf(mx_a, sc[i]);
+  }
+#pragma unroll
+  for (int x = 1; x <= 2; x <<= 1) {
+    mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, x));
+    mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, x));
+  }
+  const float mn_a = fmaxf(m_a, mx_a * scale2);
+  const float mn_b = fmaxf(m_b, mx_b * scale2);
+  al_a = hopper::fast_exp2(m_a - mn_a);
+  al_b = hopper::fast_exp2(m_b - mn_b);
+  m_a = mn_a;
+  m_b = mn_b;
+  float ps_a = 0.f, ps_b = 0.f;
+#pragma unroll
+  for (int i = 0; i < 64; ++i) {
+    const float mn = (i & 2) ? mn_b : mn_a;
+    float p = hopper::fast_exp2(fmaf(sc[i], scale2, -mn));
+    if (MASK && sc[i] == kNegInf) p = 0.f;
+    sc[i] = p;
+    if (i & 2) ps_b += p;
+    else ps_a += p;
+  }
+  l_a = l_a * al_a + ps_a;
+  l_b = l_b * al_b + ps_b;
+}
+
+template <int NB, int NVB>
+__global__ void __launch_bounds__(kWgThreads, 1)
+flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
+                   const __grid_constant__ CUtensorMap kmap,
+                   const __grid_constant__ CUtensorMap vmap,
+                   __nv_bfloat16* __restrict__ out, int Hq, int Hkv, int Sq,
+                   int Sk, int Dv, float scale, int causal, int has_window,
+                   int window) {
+  using namespace hopper;
+  extern __shared__ __align__(1024) unsigned char wg_raw[];
+  const WgSmem sm = wg_carve(wg_raw, NB, NVB);
+  const int bh = blockIdx.x;                          // b * Hq + h
+  const int b = bh / Hq, h = bh % Hq;
+  const int bkv = b * Hkv + h / (Hq / Hkv);
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kQRows;   // heaviest first
+  const int off = Sk - Sq;                            // query i sits at i + off
+
+  // the kv tiles any row of the CTA admits: [t0, t0 + ntiles * kKeys)
+  const int first = q0 + off;
+  const int last = min(q0 + kQRows, Sq) - 1 + off;
+  const int hi = causal ? min(Sk, last + 1) : Sk;
+  const int lo = has_window ? max(0, first - window + 1) : 0;
+  const int t0 = (lo / kKeys) * kKeys;
+  const int ntiles = hi > lo ? (hi - t0 + kKeys - 1) / kKeys : 0;
+
+  if (threadIdx.x == 0) {
+    mbar_init(sm.q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(sm.k_full + s, 1);
+      mbar_init(sm.v_full + s, 1);
+      mbar_init(sm.empty + s, 8);                     // one per consumer warp
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 256) {
+    // producer warpgroup: gives its registers to the consumers; one lane
+    // issues every copy
+    setmaxnreg_dec<24>();
+    if (threadIdx.x == 256) {
+      mbar_expect_tx(sm.q_full, 2 * NB * kQBoxBytes);
+      for (int w = 0; w < 2; ++w)
+        for (int x = 0; x < NB; ++x)
+          tma_load_3d(sm.q + (w * NB + x) * kQBoxBytes, &qmap, sm.q_full,
+                      x * kBox, q0 + w * kWgRows, bh);
+      for (int j = 0; j < ntiles; ++j) {
+        const int s = j % kStages;
+        if (j >= kStages) mbar_wait(sm.empty + s, ((j / kStages) & 1) ^ 1);
+        const int c0 = t0 + j * kKeys;
+        mbar_expect_tx(sm.k_full + s, NB * kKVBoxBytes);
+        for (int x = 0; x < NB; ++x)
+          tma_load_3d(sm.k + (s * NB + x) * kKVBoxBytes, &kmap,
+                      sm.k_full + s, x * kBox, c0, bkv);
+        mbar_expect_tx(sm.v_full + s, NVB * kKVBoxBytes);
+        for (int x = 0; x < NVB; ++x)
+          tma_load_3d(sm.v + (s * NVB + x) * kKVBoxBytes, &vmap,
+                      sm.v_full + s, x * kBox, c0, bkv);
+      }
+    }
+    return;
+  }
+
+  // consumer warpgroup wg: query rows q0 + 64 wg + [0, 64)
+  setmaxnreg_inc<240>();
+  const int wg = threadIdx.x / 128;
+  const int t = threadIdx.x % 128;
+  const int warp = t / 32, lane = t % 32;
+  const int row_a = 16 * warp + lane / 4;             // and row_a + 8
+  const int pos_a = q0 + wg * kWgRows + row_a + off;
+  const int pos_first = q0 + wg * kWgRows + off;
+  const int pos_last = pos_first + kWgRows - 1;
+  const float scale2 = scale * kLog2e;                // exp(x) = exp2(x log2 e)
+  const unsigned char* qw = sm.q + wg * NB * kQBoxBytes;
+
+  float o[32 * NVB];
+#pragma unroll
+  for (int i = 0; i < 32 * NVB; ++i) o[i] = 0.f;
+  float m_a = kNegInf, m_b = kNegInf, l_a = 0.f, l_b = 0.f;
+  float al_a = 1.f, al_b = 1.f;           // the last softmax's rescales
+
+  // S_j = Q K_j^T (float32 accumulators, 64 x 128) over the NB boxes of
+  // D (columns past D are zeros in both operands): issued, not waited for
+  auto issue_s = [&](float (&sc)[64], int j) {
+    const int s = j % kStages;
+    const unsigned char* ks = sm.k + s * NB * kKVBoxBytes;
+    mbar_wait(sm.k_full + s, (j / kStages) & 1);
+#pragma unroll
+    for (int kk = 0; kk < 4 * NB; ++kk) {
+      const int x = kk >> 2, in = (kk & 3) * 32;
+      wgmma_ss_n128(sc, sw128_desc(qw + x * kQBoxBytes + in, 16, 1024),
+                    sw128_desc(ks + x * kKVBoxBytes + in, 16, 1024), kk > 0);
+    }
+    wgmma_commit();
+  };
+  // O += P_j V_j (V MN-major: 8-key groups 1024 B apart, 64-column boxes
+  // kKVBoxBytes apart; a k16 step is 16 keys = 2048 B): issued
+  auto issue_pv = [&](uint32_t (&pa)[8][4], int j) {
+    const int s = j % kStages;
+    const unsigned char* vs = sm.v + s * NVB * kKVBoxBytes;
+    mbar_wait(sm.v_full + s, (j / kStages) & 1);
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk)
+      pv_mma<NVB>(o, pa[kk], sw128_desc(vs + kk * 2048, kKVBoxBytes, 1024));
+    wgmma_commit();
+  };
+  auto softmax = [&](float (&sc)[64], int j) {
+    const int c0 = t0 + j * kKeys;
+    const bool need_mask = c0 + kKeys > Sk ||
+                           (causal && c0 + kKeys - 1 > pos_first) ||
+                           (has_window && c0 <= pos_last - window);
+    if (need_mask)
+      softmax_tile<true>(sc, m_a, m_b, l_a, l_b, al_a, al_b, scale2, c0,
+                         lane, pos_a, Sk, causal, has_window, window);
+    else
+      softmax_tile<false>(sc, m_a, m_b, l_a, l_b, al_a, al_b, scale2, c0,
+                          lane, pos_a, Sk, causal, has_window, window);
+  };
+  auto to_bf16 = [](const float (&sc)[64], uint32_t (&pa)[8][4]) {
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk)
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+        pa[kk][r] = pack_bf16(sc[8 * kk + 2 * r], sc[8 * kk + 2 * r + 1]);
+  };
+
+  // Software pipeline: while the tensor cores run P_{j-1} V_{j-1}, the
+  // warpgroup runs the softmax of S_j, which was issued just before it.
+  // O is rescaled by tile j-1's alpha before P_{j-1} V_{j-1} is issued,
+  // and P_j is written only after that product has read P_{j-1}.
+  float sc[64];
+  uint32_t pa[8][4];
+  mbar_wait(sm.q_full, 0);
+  if (ntiles > 0) {
+    fence_regs(sc);
+    wgmma_fence();
+    issue_s(sc, 0);
+    wgmma_wait<0>();
+    fence_regs(sc);
+    softmax(sc, 0);
+    to_bf16(sc, pa);
+  }
+  for (int j = 1; j < ntiles; ++j) {
+#pragma unroll
+    for (int i = 0; i < 32 * NVB; ++i) o[i] *= (i & 2) ? al_b : al_a;
+    fence_regs(sc);
+    fence_regs(o);
+    fence_regs(pa);
+    wgmma_fence();
+    issue_s(sc, j);
+    issue_pv(pa, j - 1);
+    wgmma_wait<1>();                                  // S_j is ready
+    fence_regs(sc);
+    softmax(sc, j);
+    wgmma_wait<0>();                                  // P_{j-1} V_{j-1} too
+    fence_regs(o);
+    fence_regs(pa);
+    if (lane == 0) mbar_arrive(sm.empty + (j - 1) % kStages);
+    to_bf16(sc, pa);
+  }
+  if (ntiles > 0) {
+#pragma unroll
+    for (int i = 0; i < 32 * NVB; ++i) o[i] *= (i & 2) ? al_b : al_a;
+    fence_regs(o);
+    fence_regs(pa);
+    wgmma_fence();
+    issue_pv(pa, ntiles - 1);
+    wgmma_wait<0>();
+    fence_regs(o);
+    fence_regs(pa);
+  }
+
+  // epilogue: l over the quad, O / l (0 where l == 0) in bf16
+#pragma unroll
+  for (int x = 1; x <= 2; x <<= 1) {
+    l_a += __shfl_xor_sync(0xffffffffu, l_a, x);
+    l_b += __shfl_xor_sync(0xffffffffu, l_b, x);
+  }
+  const float inv_a = l_a == 0.f ? 0.f : 1.f / l_a;
+  const float inv_b = l_b == 0.f ? 0.f : 1.f / l_b;
+  const int qa = q0 + wg * kWgRows + row_a;
+#pragma unroll
+  for (int i = 0; i < 32 * NVB; i += 2) {
+    const int row = qa + ((i & 2) ? 8 : 0);
+    const int col = 8 * (i >> 2) + 2 * (lane & 3);
+    if (row < Sq && col < Dv) {
+      const float inv = (i & 2) ? inv_b : inv_a;
+      *reinterpret_cast<__nv_bfloat162*>(
+          out + ((size_t)bh * Sq + row) * Dv + col) =
+          __floats2bfloat162_rn(o[i] * inv, o[i + 1] * inv);
+    }
+  }
+}
+
+// cuTensorMapEncodeTiled through the runtime's driver entry point, so the
+// library needs no -lcuda.
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                cudaEnableDefault, &q) == cudaSuccess &&
+        q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A [planes, rows, cols] bf16 tensor as boxes of 64 columns x box_rows
+// rows, 128-byte swizzled; elements past its edges read as zeros.
+int make_map(CUtensorMap* map, const void* ptr, int planes, int rows,
+             int cols, int box_rows) {
+  EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return (int)cudaErrorNotSupported;
+  const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)rows,
+                              (cuuint64_t)planes};
+  const cuuint64_t strides[2] = {(cuuint64_t)cols * 2,
+                                 (cuuint64_t)rows * cols * 2};
+  const cuuint32_t box[3] = {(cuuint32_t)kBox, (cuuint32_t)box_rows, 1};
+  const cuuint32_t estr[3] = {1, 1, 1};
+  CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+                  const_cast<void*>(ptr), dims, strides, box, estr,
+                  CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                  CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                  CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+template <int NB, int NVB>
+int launch_wgmma(const void* q, const void* k, const void* v, void* out,
+                 int B, int Hq, int Hkv, int Sq, int Sk, int D, int Dv,
+                 float scale, int causal, int has_window, int window,
+                 cudaStream_t stream) {
+  CUtensorMap qmap, kmap, vmap;
+  int e = make_map(&qmap, q, B * Hq, Sq, D, kWgRows);
+  if (e == 0) e = make_map(&kmap, k, B * Hkv, Sk, D, kKeys);
+  if (e == 0) e = make_map(&vmap, v, B * Hkv, Sk, Dv, kKeys);
+  if (e != 0) return e;
+  const size_t smem = wg_smem_bytes(NB, NVB);
+  e = prepare(flash_wgmma_kernel<NB, NVB>, smem);
+  if (e != 0) return e;
+  const dim3 grid(B * Hq, (Sq + kQRows - 1) / kQRows);
+  flash_wgmma_kernel<NB, NVB><<<grid, kWgThreads, smem, stream>>>(
+      qmap, kmap, vmap, static_cast<__nv_bfloat16*>(out), Hq, Hkv, Sq, Sk,
+      Dv, scale, causal, has_window, window);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // C entry point: pointers and the stream as void*, shapes as int; returns
@@ -154,4 +555,26 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
                                  scale, causal, has_window, window, st);
   return launch<float>(q, k, v, out, B, Hq, Hkv, Sq, Sk, D, Dv, scale, causal,
                        has_window, window, st);
+}
+
+// The tensor-core route: bf16 q [B,Hq,Sq,D], k [B,Hkv,Sk,D],
+// v [B,Hkv,Sk,Dv], out [B,Hq,Sq,Dv], contiguous and 16-byte aligned, D and
+// Dv multiples of 16 up to 128 (the wrapper checks). Returns the
+// cudaError_t of the launch (0 = success).
+extern "C" int flash_attention_fwd_wgmma(const void* q, const void* k,
+                                         const void* v, void* out, int B,
+                                         int Hq, int Hkv, int Sq, int Sk,
+                                         int D, int Dv, float scale,
+                                         int causal, int has_window,
+                                         int window, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (D % 16 != 0 || Dv % 16 != 0 || D > 128 || Dv > 128)
+    return (int)cudaErrorInvalidValue;
+  auto go = [&](auto fn) {
+    return fn(q, k, v, out, B, Hq, Hkv, Sq, Sk, D, Dv, scale, causal,
+              has_window, window, st);
+  };
+  if (D > 64)
+    return Dv > 64 ? go(launch_wgmma<2, 2>) : go(launch_wgmma<2, 1>);
+  return Dv > 64 ? go(launch_wgmma<1, 2>) : go(launch_wgmma<1, 1>);
 }

@@ -32,6 +32,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
+_ENTRIES: Dict[Tuple[str, str], ctypes._CFuncPtr] = {}
 # ptxas register / shared-memory report of each build, by source name
 BUILD_LOGS: Dict[str, str] = {}
 
@@ -141,10 +142,14 @@ def window_args(window, sq: int, sk: int) -> Tuple[int, int]:
 
 
 def entry(source: str, name: str, argtypes: List) -> ctypes._CFuncPtr:
-    """The C entry ``name`` of ``csrc/<source>`` (returns cudaError_t)."""
-    fn = getattr(load_library(source), name)
-    fn.argtypes = argtypes
-    fn.restype = ctypes.c_int
+    """The C entry ``name`` of ``csrc/<source>`` (returns cudaError_t),
+    typed once and cached."""
+    fn = _ENTRIES.get((source, name))
+    if fn is None:
+        fn = getattr(load_library(source), name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _ENTRIES[(source, name)] = fn
     return fn
 
 

@@ -4,7 +4,9 @@ Ports ``repro/kernels/decode_attention/kernel.py``: the fused
 single-pass online-softmax kernel (``_fused_kernel``) and the
 ``exact_two_pass`` pair (``_rowmax_kernel`` then ``_attend_kernel``),
 hand-written in CUDA C++ in ``repro_torch/csrc/decode_attention.cu``
-(see the note there for the bound and the design).
+(see the note there for the bound and the design). The fused kernel
+runs a thread-block cluster of ``cluster_size(S, block_k)`` CTAs per
+(batch, kv head), each owning a slice of every ``block_k`` tile.
 
 The device of the tensors decides the route: CUDA tensors launch the
 kernel (or raise), CPU tensors take the plain PyTorch version, which
@@ -27,6 +29,8 @@ from repro_torch.kernels import build
 NEG_INF = -1e30
 SOURCE = "decode_attention.cu"
 MAX_HEAD_DIM = 256          # the kernels hold a key row in 8 registers/lane
+MAX_CLUSTER = 4             # CTAs of the fused kernel per (batch, kv head)
+MIN_CLUSTER_KEYS = 32       # keys of a tile each CTA of a cluster keeps
 
 LAUNCHES = {"decode_attention_fused": 0, "decode_attention_rowmax": 0,
             "decode_attention_attend": 0}
@@ -39,7 +43,7 @@ def reset_launch_counts() -> None:
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = {
-    "decode_attention_fused": [_P] * 5 + [_I] * 8 + [_F, _I, _F, _P],
+    "decode_attention_fused": [_P] * 5 + [_I] * 9 + [_F, _I, _F, _P],
     "decode_attention_rowmax": [_P] * 4 + [_I] * 7 + [_F, _P],
     "decode_attention_attend": [_P] * 6 + [_I] * 8 + [_F, _I, _F, _P],
 }
@@ -47,6 +51,20 @@ _ARGTYPES = {
 
 def _entry(name: str):
     return build.entry(SOURCE, name, _ARGTYPES[name])
+
+
+def cluster_size(s: int, block_k: int) -> int:
+    """CTAs of the fused kernel's cluster for a ring of ``s`` rows at
+    ``block_k``: the most of 4, 3, 2 that splits a tile of
+    ``min(block_k, s)`` keys into equal slices of at least
+    ``MIN_CLUSTER_KEYS`` keys, else 1. At the serving shape (S=512,
+    block_k 512 or 128) that is 4; a short ring shrinks the cluster so
+    that no CTA is left with too few keys."""
+    bk = min(block_k, s)
+    for c in range(MAX_CLUSTER, 1, -1):
+        if bk % c == 0 and bk // c >= MIN_CLUSTER_KEYS:
+            return c
+    return 1
 
 
 # ---------------------------------------------------------------------------
@@ -174,7 +192,7 @@ def fused(q, k, v, mask, *, threshold=None, scale=None, block_k=512):
         return fused_plain(q, k, v, mask, threshold=threshold, scale=scale,
                            block_k=block_k)
     b, hq, hkv, s, d, dv, bk = _check(q, k, v, mask, block_k)
-    build.check_launch("decode_attention", (q, k, v), (mask,), (d,),
+    build.check_launch("decode_attention", (q, k, v), (mask,), (d, dv),
                        MAX_HEAD_DIM)
     scale = d ** -0.5 if scale is None else scale
     out = torch.empty((b, hq, dv), dtype=q.dtype, device=q.device)
@@ -182,7 +200,8 @@ def fused(q, k, v, mask, *, threshold=None, scale=None, block_k=512):
     err = _entry("decode_attention_fused")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
         out.data_ptr(), int(q.dtype == torch.bfloat16), b, hq, hkv, s, d,
-        dv, bk, scale, has_thr, thr, build.stream(q.device))
+        dv, bk, cluster_size(s, block_k), scale, has_thr, thr,
+        build.stream(q.device))
     build.raise_on(err, "decode_attention_fused")
     LAUNCHES["decode_attention_fused"] += 1
     return out

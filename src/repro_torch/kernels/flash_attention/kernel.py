@@ -2,9 +2,12 @@
 
 Ports ``repro/kernels/flash_attention/kernel.py::_flash_kernel``:
 causal / sliding-window GQA attention with an online softmax over kv
-tiles, query rows offset by ``seq_k - seq_q``. The kernel is hand-written
-CUDA C++ in ``repro_torch/csrc/flash_attention.cu`` (see the note there
-for the bound and the design).
+tiles, query rows offset by ``seq_k - seq_q``. The kernels are
+hand-written CUDA C++ in ``repro_torch/csrc/flash_attention.cu`` (see the
+note there for the bound and the design), one per route, chosen from the
+dtype and head dims before the launch (``kernel_route``): bf16 with D and
+Dv multiples of 16 up to 128 runs on the tensor cores (wgmma + TMA),
+float32 and every other head dim on the CUDA cores.
 
 The device of the tensors decides the route: CUDA tensors launch the
 kernel (or raise), CPU tensors take the plain PyTorch version, which
@@ -12,7 +15,7 @@ repeats the Pallas kernel's arithmetic kv tile by kv tile (scale after
 the dot, masked scores at -1e30, running max, l == 0 -> 0). There is no
 fallback from the kernel to the plain version.
 
-``LAUNCHES`` counts kernel launches (plain calls do not count).
+``LAUNCHES`` counts kernel launches by route (plain calls do not count).
 """
 from __future__ import annotations
 
@@ -27,7 +30,8 @@ NEG_INF = -1e30
 SOURCE = "flash_attention.cu"
 MAX_HEAD_DIM = 128          # a thread holds 8 value columns (8 x 16)
 
-LAUNCHES = {"flash_attention": 0}
+# launches per route: the tensor-core kernel and the CUDA-core kernel
+LAUNCHES = {"flash_attention_wgmma": 0, "flash_attention_simt": 0}
 
 
 def reset_launch_counts() -> None:
@@ -36,7 +40,25 @@ def reset_launch_counts() -> None:
 
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_ARGTYPES = [_P] * 4 + [_I] * 8 + [_F, _I, _I, _I, _P]
+_ARGTYPES = {
+    "flash_attention_simt": ("flash_attention_fwd",
+                             [_P] * 4 + [_I] * 8 + [_F, _I, _I, _I, _P]),
+    "flash_attention_wgmma": ("flash_attention_fwd_wgmma",
+                              [_P] * 4 + [_I] * 7 + [_F, _I, _I, _I, _P]),
+}
+
+
+def kernel_route(dtype: torch.dtype, d: int, dv: int, aligned: bool = True,
+                 scale: float = 1.0) -> str:
+    """The kernel a CUDA call takes, decided before the launch:
+    ``"flash_attention_wgmma"`` for bf16 with D and Dv multiples of 16 up
+    to 128, 16-byte aligned q/k/v (what the wgmma tiles and TMA take) and
+    a positive scale (its softmax takes the row max of unscaled scores),
+    else ``"flash_attention_simt"`` (float32, other head dims)."""
+    if dtype == torch.bfloat16 and aligned and scale > 0 and \
+            all(x % 16 == 0 and 0 < x <= MAX_HEAD_DIM for x in (d, dv)):
+        return "flash_attention_wgmma"
+    return "flash_attention_simt"
 
 
 def _check(q, k, v, block_q, block_k) -> Tuple[int, ...]:
@@ -102,8 +124,8 @@ def flash_attention(
 ) -> torch.Tensor:
     """Kernel #4 on CUDA tensors, its plain version on CPU tensors (the
     reference's arguments minus ``interpret``). ``block_q``/``block_k``
-    fix the shape contract and the plain version's tiles; the kernel
-    tiles the work its own way."""
+    fix the shape contract and the plain version's tiles; the kernels
+    tile the work their own way."""
     if build.route(q) == "plain":
         return flash_attention_plain(q, k, v, causal=causal, window=window,
                                      scale=scale, block_q=block_q,
@@ -114,10 +136,16 @@ def flash_attention(
     scale = d ** -0.5 if scale is None else scale
     has_window, win = build.window_args(window, sq, sk)
     out = torch.empty((b, hq, sq, dv), dtype=q.dtype, device=q.device)
-    err = build.entry(SOURCE, "flash_attention_fwd", _ARGTYPES)(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        int(q.dtype == torch.bfloat16), b, hq, hkv, sq, sk, d, dv, scale,
-        int(causal), has_window, win, build.stream(q.device))
-    build.raise_on(err, "flash_attention")
-    LAUNCHES["flash_attention"] += 1
+    name = kernel_route(q.dtype, d, dv, all(t.data_ptr() % 16 == 0
+                                            for t in (q, k, v)), scale)
+    fn = build.entry(SOURCE, *_ARGTYPES[name])
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
+    shape = (b, hq, hkv, sq, sk, d, dv, scale, int(causal), has_window, win,
+             build.stream(q.device))
+    if name == "flash_attention_wgmma":
+        err = fn(*ptrs, *shape)
+    else:
+        err = fn(*ptrs, int(q.dtype == torch.bfloat16), *shape)
+    build.raise_on(err, name)
+    LAUNCHES[name] += 1
     return out

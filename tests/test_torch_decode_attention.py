@@ -158,3 +158,63 @@ def test_cuda_kernels_match_plain(cuda, block_k, threshold):
     want2 = tk.attend_plain(tq, tk_, tv, tm, rm, threshold=threshold,
                             block_k=block_k)
     np.testing.assert_allclose(N(out2), N(want2), **tol("bfloat16"))
+
+
+@pytest.mark.parametrize("s,block_k,want", [
+    (512, 512, 4), (512, 128, 4), (2048, 512, 4), (256, 512, 4),
+    (128, 128, 4), (96, 512, 3), (64, 512, 2), (64, 32, 1), (32, 512, 1),
+    (16, 512, 1), (100, 512, 2), (512, 64, 2),
+])
+def test_cluster_size(s, block_k, want):
+    """CTAs per (batch, kv head) of the fused kernel: as many as 4 while
+    each keeps at least 32 keys of a tile, so a short ring shrinks it."""
+    c = tk.cluster_size(s, block_k)
+    assert c == want
+    bk = min(block_k, s)
+    assert bk % c == 0 and (c == 1 or bk // c >= tk.MIN_CLUSTER_KEYS)
+
+
+def test_launch_checks_cover_both_head_dims():
+    """The fused kernel's launch checks bound Dv as well as D."""
+    from repro_torch.kernels import build
+    _, (tq, tk_, tv, tm) = _inputs(5, 1, 4, 2, 64, 32, "float32")
+    build.check_launch("decode_attention", (tq, tk_, tv), (tm,), (32, 256),
+                       tk.MAX_HEAD_DIM)
+    with pytest.raises(ValueError, match="head dims"):
+        build.check_launch("decode_attention", (tq, tk_, tv), (tm,),
+                           (32, 320), tk.MAX_HEAD_DIM)
+    with pytest.raises(ValueError, match="contiguous"):
+        build.check_launch("decode_attention", (tq, tk_, tv),
+                           (tm[:, :, ::2],), (32, 32), tk.MAX_HEAD_DIM)
+
+
+# (b, hq, hkv, s, d, dtype, block_k, threshold): G, D, S, dtype and tile
+# edges of the cluster kernel
+FUSED_CASES = [
+    (2, 4, 4, 512, 128, "bfloat16", 512, None),    # G = 1
+    (2, 16, 2, 512, 128, "bfloat16", 128, 3.0),    # G = 8, several tiles
+    (2, 6, 2, 512, 256, "bfloat16", 512, 3.0),     # D = 256
+    (2, 6, 2, 32, 64, "bfloat16", 512, None),      # S = 32: cluster of 1
+    (2, 6, 2, 64, 64, "float32", 512, 3.0),        # S = 64: cluster of 2
+    (1, 4, 2, 96, 16, "float32", 512, None),       # the TINY ring: 3
+    (4, 24, 8, 512, 128, "float32", 512, None),    # float32
+    (4, 24, 8, 512, 128, "bfloat16", 128, 3.0),    # threshold, 4 tiles
+    (1, 6, 2, 128, 20, "bfloat16", 64, 3.0),       # rows not 16-B aligned
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", FUSED_CASES, ids=str)
+def test_cuda_fused_cluster_matches_plain(cuda, case):
+    """On the card: the cluster-split fused kernel vs its plain version;
+    the all-masked row outputs 0."""
+    b, hq, hkv, s, d, dtype, block_k, threshold = case
+    _, tt = _inputs(s + d + hq, b, hq, hkv, s, d, dtype)
+    tq, tk_, tv, tm = [t.to(cuda) for t in tt]
+    before = tk.LAUNCHES["decode_attention_fused"]
+    out = tk.fused(tq, tk_, tv, tm, threshold=threshold, block_k=block_k)
+    assert tk.LAUNCHES["decode_attention_fused"] == before + 1
+    want = tk.fused_plain(tq, tk_, tv, tm, threshold=threshold,
+                          block_k=block_k)
+    np.testing.assert_allclose(N(out), N(want), **tol(dtype))
+    assert np.abs(N(out)[0, hq - 1]).max() == 0.0

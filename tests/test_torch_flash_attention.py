@@ -141,3 +141,67 @@ def test_cuda_flash_matches_plain(cuda, sq, window, dtype):
     out = tfk.flash_attention(tq, tk_, tv, window=window)
     want = tfk.flash_attention_plain(tq, tk_, tv, window=window)
     np.testing.assert_allclose(N(out), N(want), **tol(dtype))
+
+
+@pytest.mark.parametrize("dtype,d,dv,aligned,scale,want", [
+    (torch.bfloat16, 128, 128, True, 0.09, "flash_attention_wgmma"),
+    (torch.bfloat16, 64, 64, True, 0.125, "flash_attention_wgmma"),
+    (torch.bfloat16, 128, 64, True, 1.0, "flash_attention_wgmma"),
+    (torch.bfloat16, 16, 96, True, 0.25, "flash_attention_wgmma"),
+    (torch.bfloat16, 72, 72, True, 0.1, "flash_attention_simt"),   # not x16
+    (torch.bfloat16, 128, 40, True, 0.1, "flash_attention_simt"),
+    (torch.bfloat16, 144, 144, True, 0.1, "flash_attention_simt"),  # > 128
+    (torch.bfloat16, 128, 128, False, 0.1, "flash_attention_simt"),
+    (torch.bfloat16, 128, 128, True, -0.1, "flash_attention_simt"),
+    (torch.float32, 128, 128, True, 0.1, "flash_attention_simt"),
+])
+def test_kernel_route_by_dtype_and_head_dims(dtype, d, dv, aligned, scale,
+                                            want):
+    """The route a CUDA call takes is a function of dtype, head dims,
+    alignment and the scale's sign, decided before the launch."""
+    assert tfk.kernel_route(dtype, d, dv, aligned, scale) == want
+    assert set(tfk.LAUNCHES) == {"flash_attention_wgmma",
+                                 "flash_attention_simt"}
+
+
+# (b, hq, hkv, sq, sk, d, dv, window): the tensor-core route's edges
+WGMMA_CASES = [
+    (1, 4, 2, 96, 96, 128, 128, None),      # under one tile
+    (1, 24, 8, 128, 2048, 128, 128, None),  # continuation, Sq=128
+    (1, 4, 2, 512, 512, 128, 128, 100),     # window not a tile multiple
+    (2, 4, 2, 256, 256, 64, 64, None),      # D = Dv = 64
+    (1, 4, 1, 200, 328, 32, 96, 150),       # short D, Dv in two boxes
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", WGMMA_CASES, ids=str)
+def test_cuda_flash_wgmma_route_matches_plain(cuda, case):
+    """On the card: bf16 calls take the tensor-core kernel and agree
+    with the plain version."""
+    b, hq, hkv, sq, sk, d, dv, window = case
+    _, tt = _qkv(sq + d, b, hq, hkv, sq, sk, d, dv, "bfloat16")
+    tq, tk_, tv = [t.to(cuda) for t in tt]
+    tfk.reset_launch_counts()
+    out = tfk.flash_attention(tq, tk_, tv, window=window, block_q=8,
+                              block_k=8)
+    assert tfk.LAUNCHES == {"flash_attention_wgmma": 1,
+                            "flash_attention_simt": 0}
+    want = tfk.flash_attention_plain(tq, tk_, tv, window=window,
+                                     block_q=8, block_k=8)
+    np.testing.assert_allclose(N(out), N(want), **tol("bfloat16"))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,d", [("float32", 128), ("bfloat16", 72)])
+def test_cuda_flash_simt_route_matches_plain(cuda, dtype, d):
+    """On the card: float32, and bf16 at a head dim the wgmma tiles do
+    not take, run the CUDA-core kernel."""
+    _, tt = _qkv(d, 1, 4, 2, 256, 256, d, d, dtype)
+    tq, tk_, tv = [t.to(cuda) for t in tt]
+    tfk.reset_launch_counts()
+    out = tfk.flash_attention(tq, tk_, tv, window=160)
+    assert tfk.LAUNCHES == {"flash_attention_wgmma": 0,
+                            "flash_attention_simt": 1}
+    want = tfk.flash_attention_plain(tq, tk_, tv, window=160)
+    np.testing.assert_allclose(N(out), N(want), **tol(dtype))
