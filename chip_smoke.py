@@ -34,30 +34,35 @@ first phase that does not hold:
    512-row continuation; every bf16 call must take the tensor-core
    route) and the sparse row-max / attend kernels #5/#6
    (random per-query-head map of density 0.5, diagonal kept, thresholds
-   None and 3.0) against their plain versions within 2e-2, each timed
-   over inputs larger than L2 beside its plain version, its bound and
-   (for #4) ``scaled_dot_product_attention``, #4 and SDPA also by device
-   time per call; (b) the public
+   None and 3.0; every bf16 attend must take #6's tensor-core route)
+   against their plain versions within 2e-2, each timed over inputs
+   larger than L2 beside its plain version, its bound and (for #4)
+   ``scaled_dot_product_attention``, #4, #6 and SDPA also by device time
+   per call, #6 printed beside #4 on the same q/k/v; (b) the public
    ``a3_attention`` in modes off / conservative / aggressive on layer 0's
    q/k/v of the full-width model (2048 random tokens) and on clustered
    keys: live-block fraction, selection and kernel ms, op ms, peak
    memory, error against off, and launch counts (off: one #4 on the
-   tensor-core route; A^3: one #5 and one #6); (c) the same op on the card vs the CPU at a small
-   float32 shape: block maps identical, outputs within 1e-4;
+   tensor-core route; A^3: one #5 and one #6 on its tensor-core route);
+   (c) the same op on the card vs the CPU at a small float32 shape:
+   block maps identical, outputs within 1e-4, the CUDA-core routes taken;
 8. xLSTM: (a) the chunkwise mLSTM kernel #7 against its plain version at
    xlstm-350m's heads (B=4, H=4, S=2048, D=256, bf16 streams, float32
    gates, chunk 256) from the zero state, from a random carried state
    (the final state compared too), at the served prefill shape (S=512)
-   and at an odd S=300, within 2e-4, then its time over inputs larger
-   than L2 beside its plain version and its bound (no single PyTorch call
+   and at an odd S=300, within 2e-4, all four on the tensor-core route,
+   then its time over inputs larger than L2 by events and by device time
+   beside its plain version and its bound (no single PyTorch call
    computes it); (b) main path: serves xlstm-350m at full width (24
    layers, 21 mLSTM + 3 sLSTM, random bf16 weights from seed 0; 4 slots,
    8 requests of 512-token prompts, 16 new tokens, decode_block 1 and 4)
    and checks that kernel #7 ran once per mLSTM layer per prefill
-   dispatch; (c) the TINY_XL f32 engine on the card vs the CPU: greedy
-   tokens identical.
+   dispatch, on its tensor-core route only; then one prefill dispatch
+   under the profiler: its device busy time and share, and #7's part;
+   (c) the TINY_XL f32 engine on the card vs the CPU: greedy tokens
+   identical, #7 on its CUDA-core route.
 
-Prints one JSON line of per-kernel numbers (rows #1 and #4 with
+Prints one JSON line of per-kernel numbers (rows #1, #4, #6 and #7 with
 ``device_ms``, the profiler's device time per launch), then, last,
 ``{"ok": true, "device": {...}}``. Exits non-zero, with no result line,
 when CUDA is unavailable or the port's sources are not beside the script.
@@ -120,12 +125,14 @@ def cuda_ms(fn, arg_sets, iters):
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, arg_sets, iters):
+def device_ms(fn, arg_sets, iters, per_launch=False):
     """Device time per call by ``torch.profiler``: the self device time
     of every kernel launched over ``iters`` calls cycling through
-    ``arg_sets``, over ``iters``; None when the profiler saw no device
-    activity. Beside ``cuda_ms`` it separates the kernels' time from
-    the host's enqueue."""
+    ``arg_sets``, over ``iters`` (with ``per_launch``, for a wrapper that
+    launches one kernel a call, over the kernel launches the profiler
+    recorded); None when the profiler saw no device activity. Beside
+    ``cuda_ms`` it separates the kernels' time from the host's
+    enqueue."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -137,9 +144,10 @@ def device_ms(fn, arg_sets, iters):
         for i in range(iters):
             fn(*arg_sets[i % len(arg_sets)])
         torch.cuda.synchronize()
-    total_us = sum(e.self_device_time_total for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA)
-    return total_us / 1e3 / iters if total_us > 0 else None
+    dev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    total_us = sum(e.self_device_time_total for e in dev)
+    n = sum(e.count for e in dev) if per_launch else iters
+    return total_us / 1e3 / n if total_us > 0 and n > 0 else None
 
 
 def fmt_ms(ms):
@@ -285,7 +293,7 @@ def phase_kernels(dev):
         ms=cuda_ms(lambda *x: tk.fused(*x), sets, 200),
         plain_ms=cuda_ms(lambda *x: tk.fused_plain(*x), sets, 20),
         library_ms=cuda_ms(sdpa, sdpa_sets, 200), bound=fused_bound,
-        device_ms=device_ms(lambda *x: tk.fused(*x), sets, 200),
+        device_ms=device_ms(lambda *x: tk.fused(*x), sets, 200, True),
         library_device_ms=device_ms(sdpa, sdpa_sets, 200))
     log(f"  fused: cluster of {tk.cluster_size(SHAPE['s'], 512)} CTAs per "
         f"(batch, kv head), {SHAPE['b'] * SHAPE['hkv']} clusters")
@@ -382,6 +390,31 @@ def profile_steps(fn, steps=3):
     return (total_us / 1e3 / steps, sum(e.count for e in dev) / steps,
             [(e.key[:60], e.self_device_time_total / 1e3 / steps)
              for e in top])
+
+
+def profile_named(fn, name, steps=2):
+    """(device ms per call, kernels per call, device ms per call of the
+    kernels whose name contains ``name``) by torch.profiler over
+    ``steps`` calls after a warm-up; (None, 0, 0) when the profiler saw
+    no device activity."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            fn()
+        torch.cuda.synchronize()
+    dev = [e for e in prof.key_averages()
+           if e.device_type == DeviceType.CUDA]
+    total_us = sum(e.self_device_time_total for e in dev)
+    if not dev or total_us <= 0:
+        return None, 0, 0.0
+    named = sum(e.self_device_time_total for e in dev if name in e.key)
+    return (total_us / 1e3 / steps, sum(e.count for e in dev) / steps,
+            named / 1e3 / steps)
 
 
 def phase_serve(dev, cfg):
@@ -648,6 +681,7 @@ def phase_prefill_kernels(dev):
     e, ok = max_err(rm, ak.sparse_rowmax_plain(q, k, idx, cnt))
     check(ok, f"sparse row-max kernel disagrees: {e}")
     errs["rowmax"] = e
+    ak.reset_launch_counts()
     for thr in (None, T_CONS):
         out = ak.sparse_attend(q, k, v, idx, cnt, rm, threshold=thr)
         e, ok = max_err(out, ak.sparse_attend_plain(q, k, v, idx, cnt, rm,
@@ -658,6 +692,11 @@ def phase_prefill_kernels(dev):
         f"rowmax {errs['rowmax']:.3g}, attend {errs['attend']:.3g} "
         f"(thresholds None and {T_CONS}; tolerance atol {TOL['atol']} + "
         f"rtol {TOL['rtol']})")
+    check(ak.LAUNCHES == {"a3_sparse_rowmax": 0, "a3_sparse_attend_wgmma": 2,
+                          "a3_sparse_attend_simt": 0},
+          f"bf16 sparse attend calls at phi4 width took {ak.LAUNCHES}, "
+          f"expected the tensor-core route twice")
+    log(f"  sparse attend routes at phi4 width, bf16: {ak.LAUNCHES}")
     sync(dev)
 
     # timed: each over 4 input sets (> L2), as the path calls it
@@ -676,7 +715,8 @@ def phase_prefill_kernels(dev):
         library_ms=cuda_ms(sdpa, sets, 50),
         bound=bound(qkv_bytes + b * hq * s * d * 2,
                     4 * d * b * hq * flash_pairs(s, s)),
-        device_ms=device_ms(lambda *x: fk.flash_attention(*x), sets, 50),
+        device_ms=device_ms(lambda *x: fk.flash_attention(*x), sets, 50,
+                            True),
         library_device_ms=device_ms(sdpa, sets, 50))
     rsets = [(x[0], x[1], *m) for x, m in zip(sets, maps)]
     rms = [ak.sparse_rowmax(*a) for a in rsets]
@@ -698,13 +738,15 @@ def phase_prefill_kernels(dev):
     asets = [(x[0], x[1], x[2], *m, rm) for x, m, rm in zip(sets, maps, rms)]
     res["attend"] = dict(
         ms=cuda_ms(lambda *x: ak.sparse_attend(*x, threshold=T_CONS), asets,
-                   20),
+                   50),
         plain_ms=cuda_ms(lambda *x: ak.sparse_attend_plain(
             *x, threshold=T_CONS), asets, 3),
         library_ms=None,
         bound=mean_bound(lambda n: (q_bytes + n[2] * d * 2 + n[3] * d * 2
                                     + map_bytes + b * hq * s * 4 + o_bytes,
-                                    2 * d * n[0] + 2 * d * n[1])))
+                                    2 * d * n[0] + 2 * d * n[1])),
+        device_ms=device_ms(lambda *x: ak.sparse_attend(*x, threshold=T_CONS),
+                            asets, 50, True))
     n0 = need[0]
     log(f"  timed map: {n0[0] / (b * hq * flash_pairs(s, s)):.3f} of the "
         f"causal pairs admitted, {n0[1] / max(n0[0], 1):.3f} of those kept "
@@ -720,6 +762,11 @@ def phase_prefill_kernels(dev):
         f"{fmt_ms(r['device_ms'])}, SDPA {fmt_ms(r['library_device_ms'])}; "
         f"by the event loop: kernel {r['ms']:.4f} ms, SDPA "
         f"{r['library_ms']:.4f} ms [{CARD}]")
+    a = res["attend"]
+    log(f"  sparse attend (#6, t={T_CONS}) beside flash (#4) on the same "
+        f"q/k/v: #6 {a['ms']:.4f} ms by events, {fmt_ms(a['device_ms'])} "
+        f"device; #4 {r['ms']:.4f} ms by events, {fmt_ms(r['device_ms'])} "
+        f"device [{CARD}]")
     return errs, res
 
 
@@ -773,7 +820,8 @@ def phase_prefill_path(model, cfg, dev):
     from repro_torch.kernels.flash_attention import kernel as fk
 
     launches = {"flash_attention_wgmma": 0, "flash_attention_simt": 0,
-                "a3_sparse_rowmax": 0, "a3_sparse_attend": 0}
+                "a3_sparse_rowmax": 0, "a3_sparse_attend_wgmma": 0,
+                "a3_sparse_attend_simt": 0}
     nq = PREFILL["s"] // 128
     tri = PREFILL["b"] * PREFILL["hkv"] * nq * (nq + 1) // 2
     tril = torch.ones(nq, nq, dtype=torch.bool, device=dev).tril()
@@ -801,7 +849,8 @@ def phase_prefill_path(model, cfg, dev):
             want = {"flash_attention_wgmma": int(mode == "off"),
                     "flash_attention_simt": 0,
                     "a3_sparse_rowmax": int(mode != "off"),
-                    "a3_sparse_attend": int(mode != "off")}
+                    "a3_sparse_attend_wgmma": int(mode != "off"),
+                    "a3_sparse_attend_simt": 0}
             check(got == want or dev.type != "cuda",
                   f"a3_attention ({data}, {mode}) launched "
                                f"{got}, expected {want}")
@@ -840,7 +889,9 @@ def phase_prefill_cpu(dev):
     (tolerance 1e-4)."""
     import torch
     from repro_torch.config import A3Config
+    from repro_torch.kernels.a3_attention import kernel as ak
     from repro_torch.kernels.a3_attention import ops as aops
+    from repro_torch.kernels.flash_attention import kernel as fk
     g = torch.Generator().manual_seed(11)
     q = torch.randint(-1, 2, (1, 6, 512, 64), generator=g).float()
     k = torch.randint(-1, 2, (1, 2, 512, 64), generator=g).float()
@@ -849,7 +900,17 @@ def phase_prefill_cpu(dev):
                      ("conservative", A3Config.conservative()),
                      ("aggressive", A3Config.aggressive())):
         want = aops.a3_attention(q, k, v, a3)
+        fk.reset_launch_counts()
+        ak.reset_launch_counts()
         got = aops.a3_attention(q.to(dev), k.to(dev), v.to(dev), a3).cpu()
+        routes = {**fk.LAUNCHES, **ak.LAUNCHES}
+        check(routes == {"flash_attention_wgmma": 0,
+                         "flash_attention_simt": int(mode == "off"),
+                         "a3_sparse_rowmax": int(mode != "off"),
+                         "a3_sparse_attend_wgmma": 0,
+                         "a3_sparse_attend_simt": int(mode != "off")},
+              f"f32 a3_attention ({mode}) took {routes}, expected the "
+              f"CUDA-core routes")
         same = True
         if mode != "off":
             for a, b_ in zip(aops.candidate_block_map_for_heads(
@@ -861,7 +922,8 @@ def phase_prefill_cpu(dev):
         check(same and ok, f"a3_attention card vs CPU ({mode}): maps "
                            f"identical {same}, max_abs_err {e}")
         log(f"  a3_attention f32 a3={mode}: card vs CPU block maps "
-            f"identical, max_abs_err {e:.3g} (tolerance 1e-4)")
+            f"identical, max_abs_err {e:.3g} (tolerance 1e-4); routes "
+            f"{routes}")
 
 
 # ---------------------------------------------------------------------------
@@ -918,6 +980,7 @@ def phase_mlstm_kernel(dev):
     from repro_torch.kernels.mlstm_chunk import kernel as mk
 
     err = 0.0
+    mk.reset_launch_counts()
     for name, s, with_state in (("zero state", None, False),
                                 ("carried state", None, True),
                                 ("carried state, S=512", 512, True),
@@ -940,18 +1003,37 @@ def phase_mlstm_kernel(dev):
         log(f"  mlstm_chunk ({name}) vs plain: h max_abs_err {e:.3g}, "
             f"final C/n/m within tolerance (atol {XL_TOL['atol']} + rtol "
             f"{XL_TOL['rtol']})")
+    check(mk.LAUNCHES == {"mlstm_chunk_wgmma": 4, "mlstm_chunk_simt": 0},
+          f"bf16 mlstm_chunk calls at xlstm-350m width took {mk.LAUNCHES}, "
+          f"expected the tensor-core route four times")
+    log(f"  mlstm_chunk routes at xlstm-350m width, bf16: {mk.LAUNCHES}")
     sets = [mlstm_inputs(400 + i, dev)[0] for i in range(N_XL_SETS)]
     kw = dict(chunk=XL["chunk"], scale=XL["d"] ** -0.5)
     res = dict(
-        ms=cuda_ms(lambda *x: mk.mlstm_chunk_kernel(*x, **kw), sets, 6),
+        ms=cuda_ms(lambda *x: mk.mlstm_chunk_kernel(*x, **kw), sets, 20),
         plain_ms=cuda_ms(lambda *x: mk.mlstm_chunk_plain(*x, **kw), sets, 6),
         library_ms=None,
         bound=bound(*mlstm_need(XL["b"], XL["h"], XL["s"], XL["chunk"],
-                                XL["d"], XL["d"], False)))
+                                XL["d"], XL["d"], False)),
+        device_ms=device_ms(lambda *x: mk.mlstm_chunk_kernel(*x, **kw), sets,
+                            20, True))
     log(f"  mlstm_chunk (B=4, H=4, S=2048, D=256, chunk 256, zero state): "
-        f"kernel {res['ms']:.4f} ms, plain {res['plain_ms']:.4f} ms, library"
-        f" not applicable, bound {res['bound'][0]:.4f} ms "
-        f"({res['bound'][1]}) [{CARD}]")
+        f"kernel {res['ms']:.4f} ms by events, {fmt_ms(res['device_ms'])} "
+        f"device, plain {res['plain_ms']:.4f} ms, library not applicable, "
+        f"bound {res['bound'][0]:.4f} ms ({res['bound'][1]}) [{CARD}]")
+    # the grid the wrapper chose (t_split) beside one CTA per value slice
+    chosen = mk.t_split(XL["b"] * XL["h"], XL["d"])
+    t_split = mk.t_split
+    mk.t_split = lambda bh, dv, sms=mk.SMS: 1
+    try:
+        one = cuda_ms(lambda *x: mk.mlstm_chunk_kernel(*x, **kw), sets, 20)
+        one_dev = device_ms(lambda *x: mk.mlstm_chunk_kernel(*x, **kw), sets,
+                            20, True)
+    finally:
+        mk.t_split = t_split
+    log(f"  mlstm_chunk grid: {chosen} CTAs per (batch x head, 64 value "
+        f"columns) {res['ms']:.4f} ms ({fmt_ms(res['device_ms'])} device); "
+        f"one CTA {one:.4f} ms ({fmt_ms(one_dev)} device) [{CARD}]")
     return err, res
 
 
@@ -996,7 +1078,10 @@ def phase_xlstm_serve(dev):
               "an xLSTM request did not finish with its full budget")
         check(all(0 <= x < cfg.vocab_size for o in outs for x in o),
               "an xLSTM token lies outside the vocabulary")
-        return outs, eng.stats, dt, mk.LAUNCHES["mlstm_chunk"]
+        check(mk.LAUNCHES["mlstm_chunk_simt"] == 0,
+              f"the bf16 xlstm-350m serve took {mk.LAUNCHES}, expected the "
+              f"tensor-core route only")
+        return outs, eng.stats, dt, mk.launches()
 
     serve(prompts[:1], 1, 2)                     # warm-up, not measured
     launches, runs = 0, {}
@@ -1021,19 +1106,36 @@ def phase_xlstm_serve(dev):
     toks = torch.from_numpy(np.stack(prompts[:4]).astype(np.int32)).to(dev)
     pos = torch.zeros((4,), dtype=torch.int32, device=dev)
     length = torch.full((4,), 512, dtype=torch.int32, device=dev)
+    def dispatch():
+        decoder.prefill_chunk(model, cfg, cache, toks, pos, length)
+
     for _ in range(2):                           # the first call warms up
         sync(dev)
         t = time.perf_counter()
-        decoder.prefill_chunk(model, cfg, cache, toks, pos, length)
+        dispatch()
         sync(dev)
     pms = (time.perf_counter() - t) * 1e3
     args, st = mlstm_inputs(500, dev, 512, True)
-    kms = cuda_ms(lambda: mk.mlstm_chunk_kernel(
-        *args, chunk=XL["chunk"], scale=XL["d"] ** -0.5, state=st,
-        return_state=True), [()], 10)
+
+    def served():
+        return mk.mlstm_chunk_kernel(*args, chunk=XL["chunk"],
+                                     scale=XL["d"] ** -0.5, state=st,
+                                     return_state=True)
+
+    kms = cuda_ms(served, [()], 20)
+    kdev = device_ms(served, [()], 20, True)
     log(f"  prefill dispatch (4 lanes x 512 tokens): {pms:.1f} ms; kernel "
-        f"#7 at its shape (B=4, H=4, S=512, carried state) {kms:.4f} ms x "
-        f"{n_mlstm} launches = {kms * n_mlstm:.1f} ms of it [{CARD}]")
+        f"#7 at its shape (B=4, H=4, S=512, carried state) {kms:.4f} ms by "
+        f"events, {fmt_ms(kdev)} device, x {n_mlstm} launches [{CARD}]")
+    busy, n_kernels, k7 = profile_named(dispatch, "mlstm_wgmma_kernel")
+    if busy is None:
+        log("    dispatch device time: not measured (the profiler saw no "
+            "device activity)")
+    else:
+        log(f"    profiler over one dispatch: device busy {busy:.3f} ms "
+            f"({busy / pms:.1%} of the {pms:.1f} ms dispatch), "
+            f"{n_kernels:.0f} kernels; #7 {k7:.3f} ms of it ({k7 / busy:.1%}"
+            f" of the busy time) [{CARD}]")
     fn = step_fn(model, cfg, A3Config(), False)
     ms = cuda_ms(fn, [()], 20)
     log(f"  decode_step: {ms:.3f} ms per step (B=4, {cfg.num_layers} "
@@ -1067,10 +1169,11 @@ def phase_tiny_xl(dev):
     outs = card_vs_cpu_tokens(tiny_xl, dev, A3Config(),
                               mk.reset_launch_counts)
     log(f"  TINY_XL f32: card vs CPU greedy tokens {n_same(outs)}/30 "
-        f"identical; card mlstm_chunk launches {mk.LAUNCHES['mlstm_chunk']}")
-    check(outs["cuda"] == outs["cpu"] and mk.LAUNCHES["mlstm_chunk"] > 0,
+        f"identical; card mlstm_chunk launches {mk.LAUNCHES}")
+    check(outs["cuda"] == outs["cpu"] and mk.LAUNCHES["mlstm_chunk_simt"] > 0
+          and mk.LAUNCHES["mlstm_chunk_wgmma"] == 0,
           "TINY_XL f32 tokens differ between the card and the CPU, or "
-          "kernel #7 did not run")
+          "kernel #7 did not run on its CUDA-core route")
 
 
 # ---------------------------------------------------------------------------
@@ -1157,7 +1260,7 @@ def main() -> int:
             ("a3_sparse_rowmax", "rowmax", "a3_attention.cu",
              "a3_attention/kernel.py", 60, "a3_sparse_rowmax"),
             ("a3_sparse_attend", "attend", "a3_attention.cu",
-             "a3_attention/kernel.py", 94, "a3_sparse_attend")):
+             "a3_attention/kernel.py", 94, "a3_sparse_attend_wgmma")):
         r = ptimes[key]
         rows.append({"name": name, "route": "cuda",
                      "source": f"src/repro_torch/csrc/{src}",
@@ -1175,7 +1278,8 @@ def main() -> int:
                  "launches": xl_launches, "max_abs_err": xerr,
                  "ms": xtimes["ms"], "plain_ms": xtimes["plain_ms"],
                  "bound_ms": xtimes["bound"][0],
-                 "bound_by": xtimes["bound"][1], "library_ms": None})
+                 "bound_by": xtimes["bound"][1], "library_ms": None,
+                 "device_ms": xtimes["device_ms"]})
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,6 @@
-// A^3 block-sparse prefill attention for Hopper (sm_90a): two kernels,
-// each with a plain C entry point loaded through ctypes by
-// repro_torch/kernels/a3_attention/kernel.py.
+// A^3 block-sparse prefill attention for Hopper (sm_90a): two passes,
+// pass 2 with two routes, each kernel with a plain C entry point loaded
+// through ctypes by repro_torch/kernels/a3_attention/kernel.py.
 //
 //   a3_sparse_rowmax  replaces repro/kernels/a3_attention/kernel.py
 //                     ::_sparse_rowmax_kernel (pass 1: the true masked row
@@ -24,21 +24,47 @@
 // half-dense map that is ~6-7 GFLOP per pass, a few microseconds of
 // tensor-core time, over ~13-30 MB of q/k/v/out: bound by operations.
 //
-// Design (simple and right, not fast yet): a CUDA block reads its own
-// kv_indices row and count (this replaces scalar prefetch) and loops only
-// over the `count` live blocks (the TPU grid runs maxb steps and
-// predicates the dead ones off). Its 64 rows are (query, head) pairs of
-// one q block taken query-major across the GQA group — the group folded
-// into the rows, as the Pallas kernel folds it into the q tile — so one
-// staging of a live K/V sub-tile serves every head of the group. A q
-// block of 128 x G rows spans ceil(128 G / 64) CUDA blocks (shared memory
-// holds 64 rows), each reading the map of the q block its rows belong to.
+// Pass 2 has two routes, chosen by the wrapper before the launch:
+//
+//   a3_sparse_attend_wgmma  bf16, D and Dv multiples of 16 up to 128,
+//                           block_q = block_k = 128, 16-byte aligned: the
+//                           tensor-core kernel (attend_wgmma_kernel)
+//   a3_sparse_attend        float32 and every other call: the CUDA-core
+//                           kernel (attend_kernel)
+//
+// attend_wgmma_kernel runs on kernel #4's engine (wgmma_attention.cuh):
+// a CTA owns the 128 rows of one q block of one q head, in two consumer
+// warpgroups of 64 rows, and a producer warpgroup streams by TMA only
+// the K/V tiles of the CTA's live list (read and compacted once, dead
+// ids and blocks wholly above the diagonal or outside the window
+// dropped) through the 3-stage ring. The row max comes from pass 1, so
+// the weights need no online rescale of O: p = exp(s - rowmax) for the
+// kept entries, the per-element mask only on tiles that cross the
+// diagonal or the window edge, P rounded to bf16 for P.V, as #4 does.
+// The GQA group is not folded into the rows: the heads of a group read
+// the same K/V tiles, which L2 serves. Its bound is #4's at most, and
+// the same things hold it above that (the weights' share of the
+// special-function unit and issue slots beside the wgmma).
+//
+// Pass 1 (rowmax_kernel) and the CUDA-core attend_kernel are the simple
+// design on attention_tile.cuh: a CUDA block reads its own kv_indices
+// row and count (this replaces scalar prefetch) and loops only over the
+// `count` live blocks (the TPU grid runs maxb steps and predicates the
+// dead ones off). Its 64 rows are (query, head) pairs of one q block
+// taken query-major across the GQA group — the group folded into the
+// rows, as the Pallas kernel folds it into the q tile — so one staging
+// of a live K/V sub-tile serves every head of the group. A q block of
+// 128 x G rows spans ceil(128 G / 64) CUDA blocks (shared memory holds
+// 64 rows), each reading the map of the q block its rows belong to.
 // Sub-tiles that lie wholly above the causal diagonal or outside the
 // window for the block's rows are skipped (exact: nothing is admitted).
-// Arithmetic is float32 on the CUDA cores (attention_tile.cuh), far above
-// the operations bound: tensor-core tiles come in later work.
+// Arithmetic is float32 on the CUDA cores, about 100x above the
+// operations bound; pass 1 moving onto the tensor-core engine is the
+// next step.
 
 #include "attention_tile.cuh"
+#include "hopper.cuh"
+#include "wgmma_attention.cuh"
 
 namespace {
 
@@ -203,6 +229,281 @@ attend_kernel(const T* __restrict__ q, const T* __restrict__ k,
   emit(sm, acc, out, g.Dv);
 }
 
+// ---------------------------------------------------------------------------
+// the tensor-core route of the attend kernel (bf16, 128 x 128 blocks)
+// ---------------------------------------------------------------------------
+
+// Weights of one 64 x 128 score tile held in wgmma accumulator registers
+// (element i of a lane at row row_a + 8 * ((i >> 1) & 1) of the
+// warpgroup, column c0 + 8 * (i >> 2) + 2 * (lane % 4) + (i & 1)): raw
+// q.k in, p = exp(s - rowmax) out for the kept entries (admitted and
+// s >= rowmax - thr, i.e. s >= cut), 0 for the rest; rm2 is the row max
+// in the log2 domain; l_a / l_b gather the lane's share of its two rows'
+// sums. MASK applies the causal / window mask per element (only tiles
+// that cross an edge).
+template <bool MASK>
+__device__ __forceinline__ void sparse_weights(
+    float (&sc)[64], float cut_a, float cut_b, float rm2_a, float rm2_b,
+    float& l_a, float& l_b, float scale, int c0, int lane, int pos_a,
+    int causal, int has_window, int window) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) {
+    const float s = sc[i] * scale;
+    bool keep = s >= ((i & 2) ? cut_b : cut_a);
+    if (MASK) {
+      const int col = c0 + 8 * (i >> 2) + 2 * (lane & 3) + (i & 1);
+      const int pos = pos_a + ((i & 2) ? 8 : 0);
+      keep = keep && allowed(pos, col, causal, has_window, window);
+    }
+    const float p = keep ? hopper::fast_exp2(fmaf(s, wgattn::kLog2e,
+                                                  -((i & 2) ? rm2_b : rm2_a)))
+                         : 0.f;
+    sc[i] = p;
+    if (i & 2) l_b += p;
+    else l_a += p;
+  }
+}
+
+// Shared memory of attend_wgmma_kernel: flash_wgmma_kernel's (Q, the K/V
+// ring, barriers), then the live list's barrier, the CTA's visited block
+// ids and their count.
+size_t attend_wg_smem_bytes(int nb, int nvb, int maxb) {
+  return wgattn::wg_smem_bytes(nb, nvb) + 8 + 4 * ((size_t)maxb + 1);
+}
+
+template <int NB, int NVB>
+__global__ void __launch_bounds__(wgattn::kWgThreads, 1)
+attend_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
+                    const __grid_constant__ CUtensorMap kmap,
+                    const __grid_constant__ CUtensorMap vmap,
+                    const int* __restrict__ kv_idx,
+                    const int* __restrict__ kv_cnt,
+                    const float* __restrict__ rowmax,
+                    __nv_bfloat16* __restrict__ out, int Hq, int Hkv, int Sq,
+                    int Sk, int Dv, int maxb, float scale, int causal,
+                    int has_window, int window, int has_thr, float thr) {
+  using namespace hopper;
+  using namespace wgattn;
+  extern __shared__ __align__(1024) unsigned char wg_raw[];
+  const WgSmem sm = wg_carve(wg_raw, NB, NVB);
+  uint64_t* list_full = sm.empty + kStages;
+  int* tiles = reinterpret_cast<int*>(list_full + 1);      // [maxb]
+  int* n_tiles = tiles + maxb;
+  const int bh = blockIdx.x;                          // b * Hq + h
+  const int b = bh / Hq, h = bh % Hq;
+  const int bkv = b * Hkv + h / (Hq / Hkv);
+  const int nq = gridDim.y;
+  const int iq = nq - 1 - blockIdx.y;                 // heaviest first
+  const int q0 = iq * kQRows;
+  const int off = Sk - Sq;                            // query i sits at i + off
+  const int first = q0 + off, last = q0 + kQRows - 1 + off;
+
+  if (threadIdx.x == 0) {
+    mbar_init(sm.q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(sm.k_full + s, 1);
+      mbar_init(sm.v_full + s, 1);
+      mbar_init(sm.empty + s, 8);                     // one per consumer warp
+    }
+    mbar_init(list_full, 1);
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 256) {
+    // producer warpgroup, as in flash_wgmma_kernel, over the live list
+    setmaxnreg_dec<24>();
+    if (threadIdx.x == 256) {
+      mbar_expect_tx(sm.q_full, 2 * NB * kQBoxBytes);
+      for (int w = 0; w < 2; ++w)
+        for (int x = 0; x < NB; ++x)
+          tma_load_3d(sm.q + (w * NB + x) * kQBoxBytes, &qmap, sm.q_full,
+                      x * kBox, q0 + w * kWgRows, bh);
+      // while Q loads: the live list, compacted to the blocks some row of
+      // the CTA admits (ids outside [0, Sk / 128) are dead)
+      const long long map = (long long)bkv * nq + iq;
+      const int count = min(kv_cnt[map], maxb);
+      const int nk = Sk / kKeys;
+      int ntiles = 0;
+      for (int c = 0; c < count; ++c) {
+        const int jk = kv_idx[map * maxb + c];
+        if (jk < 0 || jk >= nk) continue;
+        const int c0 = jk * kKeys;
+        if (causal && c0 > last) continue;
+        if (has_window && c0 + kKeys - 1 <= first - window) continue;
+        tiles[ntiles++] = jk;
+      }
+      *n_tiles = ntiles;
+      mbar_arrive(list_full);                         // release: list written
+      for (int j = 0; j < ntiles; ++j) {
+        const int s = j % kStages;
+        if (j >= kStages) mbar_wait(sm.empty + s, ((j / kStages) & 1) ^ 1);
+        const int c0 = tiles[j] * kKeys;
+        mbar_expect_tx(sm.k_full + s, NB * kKVBoxBytes);
+        for (int x = 0; x < NB; ++x)
+          tma_load_3d(sm.k + (s * NB + x) * kKVBoxBytes, &kmap,
+                      sm.k_full + s, x * kBox, c0, bkv);
+        mbar_expect_tx(sm.v_full + s, NVB * kKVBoxBytes);
+        for (int x = 0; x < NVB; ++x)
+          tma_load_3d(sm.v + (s * NVB + x) * kKVBoxBytes, &vmap,
+                      sm.v_full + s, x * kBox, c0, bkv);
+      }
+    }
+    return;
+  }
+
+  // consumer warpgroup wg: query rows q0 + 64 wg + [0, 64)
+  setmaxnreg_inc<240>();
+  const int wg = threadIdx.x / 128;
+  const int t = threadIdx.x % 128;
+  const int warp = t / 32, lane = t % 32;
+  const int row_a = 16 * warp + lane / 4;             // and row_a + 8
+  const int qa = q0 + wg * kWgRows + row_a;
+  const int pos_a = qa + off;
+  const int pos_first = q0 + wg * kWgRows + off;
+  const int pos_last = pos_first + kWgRows - 1;
+  const float rm_a = rowmax[(size_t)bh * Sq + qa];
+  const float rm_b = rowmax[(size_t)bh * Sq + qa + 8];
+  const float no_cut = __int_as_float(0xff800000);         // -inf: keep all
+  const float cut_a = has_thr ? rm_a - thr : no_cut;       // keep s >= cut
+  const float cut_b = has_thr ? rm_b - thr : no_cut;
+  const float rm2_a = rm_a * kLog2e, rm2_b = rm_b * kLog2e;
+  const unsigned char* qw = sm.q + wg * NB * kQBoxBytes;
+  mbar_wait(list_full, 0);
+  const int ntiles = *n_tiles;
+
+  float o[32 * NVB];
+#pragma unroll
+  for (int i = 0; i < 32 * NVB; ++i) o[i] = 0.f;
+  float l_a = 0.f, l_b = 0.f;
+
+  auto issue_s = [&](float (&sc)[64], int j) {
+    const int s = j % kStages;
+    const unsigned char* ks = sm.k + s * NB * kKVBoxBytes;
+    mbar_wait(sm.k_full + s, (j / kStages) & 1);
+#pragma unroll
+    for (int kk = 0; kk < 4 * NB; ++kk) {
+      const int x = kk >> 2, in = (kk & 3) * 32;
+      wgmma_ss_n128(sc, sw128_desc(qw + x * kQBoxBytes + in, 16, 1024),
+                    sw128_desc(ks + x * kKVBoxBytes + in, 16, 1024), kk > 0);
+    }
+    wgmma_commit();
+  };
+  auto issue_pv = [&](uint32_t (&pa)[8][4], int j) {
+    const int s = j % kStages;
+    const unsigned char* vs = sm.v + s * NVB * kKVBoxBytes;
+    mbar_wait(sm.v_full + s, (j / kStages) & 1);
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk)
+      pv_mma<NVB>(o, pa[kk], sw128_desc(vs + kk * 2048, kKVBoxBytes, 1024));
+    wgmma_commit();
+  };
+  auto weights = [&](float (&sc)[64], int j) {
+    const int c0 = tiles[j] * kKeys;
+    const bool need_mask = (causal && c0 + kKeys - 1 > pos_first) ||
+                           (has_window && c0 <= pos_last - window);
+    if (need_mask)
+      sparse_weights<true>(sc, cut_a, cut_b, rm2_a, rm2_b, l_a, l_b, scale,
+                           c0, lane, pos_a, causal, has_window, window);
+    else
+      sparse_weights<false>(sc, cut_a, cut_b, rm2_a, rm2_b, l_a, l_b, scale,
+                            c0, lane, pos_a, causal, has_window, window);
+  };
+  auto to_bf16 = [](const float (&sc)[64], uint32_t (&pa)[8][4]) {
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk)
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+        pa[kk][r] = pack_bf16(sc[8 * kk + 2 * r], sc[8 * kk + 2 * r + 1]);
+  };
+
+  // flash_wgmma_kernel's software pipeline without the rescale (the row
+  // max is given): S_j and P_{j-1} V_{j-1} are issued together and the
+  // weights of S_j are formed while the tensor cores finish the product.
+  float sc[64];
+  uint32_t pa[8][4];
+  mbar_wait(sm.q_full, 0);
+  if (ntiles > 0) {
+    fence_regs(sc);
+    wgmma_fence();
+    issue_s(sc, 0);
+    wgmma_wait<0>();
+    fence_regs(sc);
+    weights(sc, 0);
+    to_bf16(sc, pa);
+  }
+  for (int j = 1; j < ntiles; ++j) {
+    fence_regs(sc);
+    fence_regs(o);
+    fence_regs(pa);
+    wgmma_fence();
+    issue_s(sc, j);
+    issue_pv(pa, j - 1);
+    wgmma_wait<1>();                                  // S_j is ready
+    fence_regs(sc);
+    weights(sc, j);
+    wgmma_wait<0>();                                  // P_{j-1} V_{j-1} too
+    fence_regs(o);
+    fence_regs(pa);
+    if (lane == 0) mbar_arrive(sm.empty + (j - 1) % kStages);
+    to_bf16(sc, pa);
+  }
+  if (ntiles > 0) {
+    fence_regs(o);
+    fence_regs(pa);
+    wgmma_fence();
+    issue_pv(pa, ntiles - 1);
+    wgmma_wait<0>();
+    fence_regs(o);
+    fence_regs(pa);
+  }
+
+  // epilogue: l over the quad, O / l (0 where l == 0) in bf16
+#pragma unroll
+  for (int x = 1; x <= 2; x <<= 1) {
+    l_a += __shfl_xor_sync(0xffffffffu, l_a, x);
+    l_b += __shfl_xor_sync(0xffffffffu, l_b, x);
+  }
+  const float inv_a = l_a == 0.f ? 0.f : 1.f / l_a;
+  const float inv_b = l_b == 0.f ? 0.f : 1.f / l_b;
+#pragma unroll
+  for (int i = 0; i < 32 * NVB; i += 2) {
+    const int row = qa + ((i & 2) ? 8 : 0);
+    const int col = 8 * (i >> 2) + 2 * (lane & 3);
+    if (col < Dv) {
+      const float inv = (i & 2) ? inv_b : inv_a;
+      *reinterpret_cast<__nv_bfloat162*>(
+          out + ((size_t)bh * Sq + row) * Dv + col) =
+          __floats2bfloat162_rn(o[i] * inv, o[i + 1] * inv);
+    }
+  }
+}
+
+template <int NB, int NVB>
+int launch_attend_wgmma(const void* q, const void* k, const void* v,
+                        const void* idx, const void* cnt, const void* rowmax,
+                        void* out, int B, int Hq, int Hkv, int Sq, int Sk,
+                        int D, int Dv, int maxb, float scale, int causal,
+                        int has_window, int window, int has_thr, float thr,
+                        cudaStream_t stream) {
+  using namespace wgattn;
+  CUtensorMap qmap, kmap, vmap;
+  int e = hopper::make_map(&qmap, q, B * Hq, Sq, D, kWgRows);
+  if (e == 0) e = hopper::make_map(&kmap, k, B * Hkv, Sk, D, kKeys);
+  if (e == 0) e = hopper::make_map(&vmap, v, B * Hkv, Sk, Dv, kKeys);
+  if (e != 0) return e;
+  const size_t smem = attend_wg_smem_bytes(NB, NVB, maxb);
+  e = prepare(attend_wgmma_kernel<NB, NVB>, smem);
+  if (e != 0) return e;
+  const dim3 grid(B * Hq, Sq / kQRows);
+  attend_wgmma_kernel<NB, NVB><<<grid, kWgThreads, smem, stream>>>(
+      qmap, kmap, vmap, static_cast<const int*>(idx),
+      static_cast<const int*>(cnt), static_cast<const float*>(rowmax),
+      static_cast<__nv_bfloat16*>(out), Hq, Hkv, Sq, Sk, Dv, maxb, scale,
+      causal, has_window, window, has_thr, thr);
+  return (int)cudaGetLastError();
+}
+
 Geometry geometry(int Hq, int Hkv, int Sq, int Sk, int D, int Dv, int bq,
                   int bk, int maxb, int causal, int has_window, int window) {
   return Geometry{Hq, Hkv, Sq, Sk, D, Dv, bq, bk, Sq / bq, Sk / bk, maxb,
@@ -283,6 +584,30 @@ int a3_sparse_attend(const void* q, const void* k, const void* v,
                                         scale, has_thr, thr, st);
   return launch_attend<float>(q, k, v, idx, cnt, rowmax, out, B, g, scale,
                               has_thr, thr, st);
+}
+
+// The tensor-core route of the attend kernel: bf16 q/k/v/out as above,
+// 16-byte aligned, D and Dv multiples of 16 up to 128, block_q = block_k
+// = 128 (the wrapper checks). Returns the cudaError_t of the launch.
+int a3_sparse_attend_wgmma(const void* q, const void* k, const void* v,
+                           const void* idx, const void* cnt,
+                           const void* rowmax, void* out, int B, int Hq,
+                           int Hkv, int Sq, int Sk, int D, int Dv, int maxb,
+                           float scale, int causal, int has_window,
+                           int window, int has_thr, float thr, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (D % 16 != 0 || Dv % 16 != 0 || D > 128 || Dv > 128 ||
+      Sq % wgattn::kQRows != 0 || Sk % wgattn::kKeys != 0)
+    return (int)cudaErrorInvalidValue;
+  auto go = [&](auto fn) {
+    return fn(q, k, v, idx, cnt, rowmax, out, B, Hq, Hkv, Sq, Sk, D, Dv,
+              maxb, scale, causal, has_window, window, has_thr, thr, st);
+  };
+  if (D > 64)
+    return Dv > 64 ? go(launch_attend_wgmma<2, 2>)
+                   : go(launch_attend_wgmma<2, 1>);
+  return Dv > 64 ? go(launch_attend_wgmma<1, 2>)
+                 : go(launch_attend_wgmma<1, 1>);
 }
 
 }  // extern "C"

@@ -23,7 +23,9 @@
 // kernel is bound by operations, i.e. by the tensor cores.
 //
 // flash_wgmma_kernel (the bf16 route) puts both products on the tensor
-// cores. A CTA owns 128 query rows of one (batch, head): two consumer
+// cores (its CTA shape, K/V ring and P.V product live in
+// wgmma_attention.cuh, which a3_attention.cu's tensor-core attend kernel
+// shares). A CTA owns 128 query rows of one (batch, head): two consumer
 // warpgroups of 64 rows each and one producer warpgroup, which hands its
 // registers to the consumers (setmaxnreg 24 / 240: the accumulators of S,
 // O and P need ~180 a thread) and has one lane load the CTA's Q once and
@@ -56,10 +58,12 @@
 
 #include "attention_tile.cuh"
 #include "hopper.cuh"
+#include "wgmma_attention.cuh"
 
 namespace {
 
 using namespace tile;
+using namespace wgattn;
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads, 2)
@@ -168,67 +172,6 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
 // ---------------------------------------------------------------------------
 // the tensor-core route (bf16)
 // ---------------------------------------------------------------------------
-
-constexpr int kWgRows = 64;                 // query rows of a consumer WG
-constexpr int kQRows = 2 * kWgRows;         // query rows of a CTA
-constexpr int kKeys = 128;                  // keys of a kv tile
-constexpr int kStages = 3;                  // K/V ring depth
-constexpr int kWgThreads = 3 * 128;        // two consumer WGs + producer WG
-constexpr int kBox = 64;                    // columns of a TMA box (128 B)
-constexpr int kQBoxBytes = kWgRows * kBox * 2;     // 8 KB
-constexpr int kKVBoxBytes = kKeys * kBox * 2;      // 16 KB
-constexpr float kLog2e = 1.4426950408889634f;
-
-// Shared memory of one CTA, all boxes 1024-byte aligned: Q [2 WGs][nb],
-// K [stage][nb], V [stage][nvb] (nb = ceil(D/64), nvb = ceil(Dv/64)
-// boxes), then the barriers.
-struct WgSmem {
-  unsigned char* q;
-  unsigned char* k;
-  unsigned char* v;
-  uint64_t* q_full;
-  uint64_t* k_full;                         // [kStages]
-  uint64_t* v_full;                         // [kStages]
-  uint64_t* empty;                          // [kStages]
-};
-
-size_t wg_smem_bytes(int nb, int nvb) {
-  return 1024 + (size_t)2 * nb * kQBoxBytes +
-         (size_t)kStages * (nb + nvb) * kKVBoxBytes + 8 * (1 + 3 * kStages);
-}
-
-__device__ inline WgSmem wg_carve(unsigned char* raw, int nb, int nvb) {
-  unsigned char* base = reinterpret_cast<unsigned char*>(
-      (reinterpret_cast<uintptr_t>(raw) + 1023) & ~(uintptr_t)1023);
-  WgSmem s;
-  s.q = base;
-  s.k = s.q + (size_t)2 * nb * kQBoxBytes;
-  s.v = s.k + (size_t)kStages * nb * kKVBoxBytes;
-  uint64_t* bars =
-      reinterpret_cast<uint64_t*>(s.v + (size_t)kStages * nvb * kKVBoxBytes);
-  s.q_full = bars;
-  s.k_full = bars + 1;
-  s.v_full = bars + 1 + kStages;
-  s.empty = bars + 1 + 2 * kStages;
-  return s;
-}
-
-// O accumulator columns: 64 per box of Dv, a 64 x (64 nvb) tile.
-template <int NVB>
-__device__ __forceinline__ void pv_mma(float (&o)[32 * NVB],
-                                       const uint32_t (&a)[4], uint64_t db);
-template <>
-__device__ __forceinline__ void pv_mma<1>(float (&o)[32],
-                                          const uint32_t (&a)[4],
-                                          uint64_t db) {
-  hopper::wgmma_rs_n64_tb(o, a, db);
-}
-template <>
-__device__ __forceinline__ void pv_mma<2>(float (&o)[64],
-                                          const uint32_t (&a)[4],
-                                          uint64_t db) {
-  hopper::wgmma_rs_n128_tb(o, a, db);
-}
 
 // Online softmax of one 64 x 128 score tile held in wgmma accumulator
 // registers: element i of a lane sits at row row_a + 8 * ((i >> 1) & 1)
@@ -476,57 +419,15 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
   }
 }
 
-// cuTensorMapEncodeTiled through the runtime's driver entry point, so the
-// library needs no -lcuda.
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                cudaEnableDefault, &q) == cudaSuccess &&
-        q == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// A [planes, rows, cols] bf16 tensor as boxes of 64 columns x box_rows
-// rows, 128-byte swizzled; elements past its edges read as zeros.
-int make_map(CUtensorMap* map, const void* ptr, int planes, int rows,
-             int cols, int box_rows) {
-  EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return (int)cudaErrorNotSupported;
-  const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)rows,
-                              (cuuint64_t)planes};
-  const cuuint64_t strides[2] = {(cuuint64_t)cols * 2,
-                                 (cuuint64_t)rows * cols * 2};
-  const cuuint32_t box[3] = {(cuuint32_t)kBox, (cuuint32_t)box_rows, 1};
-  const cuuint32_t estr[3] = {1, 1, 1};
-  CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
-                  const_cast<void*>(ptr), dims, strides, box, estr,
-                  CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                  CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                  CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
-}
-
 template <int NB, int NVB>
 int launch_wgmma(const void* q, const void* k, const void* v, void* out,
                  int B, int Hq, int Hkv, int Sq, int Sk, int D, int Dv,
                  float scale, int causal, int has_window, int window,
                  cudaStream_t stream) {
   CUtensorMap qmap, kmap, vmap;
-  int e = make_map(&qmap, q, B * Hq, Sq, D, kWgRows);
-  if (e == 0) e = make_map(&kmap, k, B * Hkv, Sk, D, kKeys);
-  if (e == 0) e = make_map(&vmap, v, B * Hkv, Sk, Dv, kKeys);
+  int e = hopper::make_map(&qmap, q, B * Hq, Sq, D, kWgRows);
+  if (e == 0) e = hopper::make_map(&kmap, k, B * Hkv, Sk, D, kKeys);
+  if (e == 0) e = hopper::make_map(&vmap, v, B * Hkv, Sk, Dv, kKeys);
   if (e != 0) return e;
   const size_t smem = wg_smem_bytes(NB, NVB);
   e = prepare(flash_wgmma_kernel<NB, NVB>, smem);

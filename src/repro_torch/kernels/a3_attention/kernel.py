@@ -10,7 +10,11 @@ row max over the live blocks; pass 2 (``_sparse_attend_kernel``) drops
 every score more than ``threshold`` nats below it, then does the exp-sum
 and P.V. Both are hand-written CUDA C++ in
 ``repro_torch/csrc/a3_attention.cu`` (see the note there for the bound
-and the design).
+and the design). The attend kernel has two routes, chosen before the
+launch (``attend_route``): bf16 with 128 x 128 blocks and head dims
+multiples of 16 up to 128 runs on the tensor cores (kernel #4's wgmma +
+TMA engine, one q head per CTA); float32, other blocks and other head
+dims on the CUDA cores, with the GQA group folded into the rows.
 
 The device of the tensors decides the route: CUDA tensors launch the
 kernels (or raise), CPU tensors take the plain PyTorch versions, which
@@ -23,8 +27,8 @@ both routes.
 are the reference's jnp helpers as torch ops; their maps equal the
 reference's exactly (stable sort, live blocks first).
 
-``LAUNCHES`` counts kernel launches per kernel (plain calls do not
-count).
+``LAUNCHES`` counts kernel launches per kernel and route (plain calls
+do not count).
 """
 from __future__ import annotations
 
@@ -39,7 +43,10 @@ NEG_INF = -1e30
 SOURCE = "a3_attention.cu"
 MAX_HEAD_DIM = 128          # a thread holds 8 value columns (8 x 16)
 
-LAUNCHES = {"a3_sparse_rowmax": 0, "a3_sparse_attend": 0}
+# launches per kernel; the attend kernel per route (tensor-core, CUDA-core)
+LAUNCHES = {"a3_sparse_rowmax": 0, "a3_sparse_attend_wgmma": 0,
+            "a3_sparse_attend_simt": 0}
+WGMMA_BLOCK = 128           # the tensor-core attend's q and kv block
 
 
 def reset_launch_counts() -> None:
@@ -48,10 +55,31 @@ def reset_launch_counts() -> None:
 
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# kernel (route) -> (C entry, argtypes)
 _ARGTYPES = {
-    "a3_sparse_rowmax": [_P] * 5 + [_I] * 10 + [_F, _I, _I, _I, _P],
-    "a3_sparse_attend": [_P] * 7 + [_I] * 11 + [_F] + [_I] * 4 + [_F, _P],
+    "a3_sparse_rowmax": ("a3_sparse_rowmax",
+                         [_P] * 5 + [_I] * 10 + [_F, _I, _I, _I, _P]),
+    "a3_sparse_attend_simt": ("a3_sparse_attend",
+                              [_P] * 7 + [_I] * 11 + [_F] + [_I] * 4
+                              + [_F, _P]),
+    "a3_sparse_attend_wgmma": ("a3_sparse_attend_wgmma",
+                               [_P] * 7 + [_I] * 8 + [_F] + [_I] * 4
+                               + [_F, _P]),
 }
+
+
+def attend_route(dtype: torch.dtype, d: int, dv: int, bq: int, bk: int,
+                 aligned: bool = True) -> str:
+    """The attend kernel (#6) a CUDA call takes, decided before the
+    launch: ``"a3_sparse_attend_wgmma"`` for bf16 with D and Dv multiples
+    of 16 up to 128, 128 x 128 blocks (``block_q``/``block_k`` after
+    clamping to Sq/Sk) and 16-byte aligned q/k/v (what the wgmma tiles
+    and TMA take), else ``"a3_sparse_attend_simt"``."""
+    if dtype == torch.bfloat16 and aligned and \
+            bq == bk == WGMMA_BLOCK and \
+            all(x % 16 == 0 and 0 < x <= MAX_HEAD_DIM for x in (d, dv)):
+        return "a3_sparse_attend_wgmma"
+    return "a3_sparse_attend_simt"
 
 
 # ---------------------------------------------------------------------------
@@ -238,8 +266,7 @@ def sparse_rowmax(q, k, kv_indices, kv_counts, *, causal=True, window=None,
     has_win, win = build.window_args(window, sq, sk)
     out = torch.empty((b, hkv, hq // hkv, sq), dtype=torch.float32,
                       device=q.device)
-    err = build.entry(SOURCE, "a3_sparse_rowmax",
-                      _ARGTYPES["a3_sparse_rowmax"])(
+    err = build.entry(SOURCE, *_ARGTYPES["a3_sparse_rowmax"])(
         q.data_ptr(), k.data_ptr(), kv_indices.data_ptr(),
         kv_counts.data_ptr(), out.data_ptr(), int(q.dtype == torch.bfloat16),
         b, hq, hkv, sq, sk, d, bq, bk, maxb, scale, int(causal), has_win,
@@ -269,15 +296,20 @@ def sparse_attend(q, k, v, kv_indices, kv_counts, rowmax, *, threshold=None,
     has_win, win = build.window_args(window, sq, sk)
     has_thr, thr = (0, 0.0) if threshold is None else (1, float(threshold))
     out = torch.empty((b, hq, sq, dv), dtype=q.dtype, device=q.device)
-    err = build.entry(SOURCE, "a3_sparse_attend",
-                      _ARGTYPES["a3_sparse_attend"])(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_indices.data_ptr(),
-        kv_counts.data_ptr(), rowmax.data_ptr(), out.data_ptr(),
-        int(q.dtype == torch.bfloat16), b, hq, hkv, sq, sk, d, dv, bq, bk,
-        maxb, scale, int(causal), has_win, win, has_thr, thr,
-        build.stream(q.device))
-    build.raise_on(err, "a3_sparse_attend")
-    LAUNCHES["a3_sparse_attend"] += 1
+    name = attend_route(q.dtype, d, dv, bq, bk,
+                        all(t.data_ptr() % 16 == 0 for t in (q, k, v)))
+    fn = build.entry(SOURCE, *_ARGTYPES[name])
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_indices.data_ptr(),
+            kv_counts.data_ptr(), rowmax.data_ptr(), out.data_ptr())
+    tail = (scale, int(causal), has_win, win, has_thr, thr,
+            build.stream(q.device))
+    if name == "a3_sparse_attend_wgmma":
+        err = fn(*ptrs, b, hq, hkv, sq, sk, d, dv, maxb, *tail)
+    else:
+        err = fn(*ptrs, int(q.dtype == torch.bfloat16), b, hq, hkv, sq, sk,
+                 d, dv, bq, bk, maxb, *tail)
+    build.raise_on(err, name)
+    LAUNCHES[name] += 1
     return out
 
 

@@ -5,7 +5,10 @@ chunkwise-parallel mLSTM forward, sequential over chunks of L = min(chunk,
 S) tokens, quadratic gate-decay attention inside a chunk and the (C, n, m)
 matrix-memory state carried between chunks. The kernel is hand-written
 CUDA C++ in ``repro_torch/csrc/mlstm_chunk.cu`` (see the note there for
-the bound and the design).
+the bound and the design), with two routes chosen before the launch
+(``kernel_route``): bf16 streams with Dk and Dv multiples of 64 up to 256
+and a chunk length L that is a multiple of 64 run on the tensor cores
+(wgmma + TMA); float32 streams and every other shape on the CUDA cores.
 
 Beyond the Pallas kernel, both routes take an optional carried state
 ``state = (C [B,H,Dk,Dv], n [B,H,Dk], m [B,H])`` (float32; None = zeros
@@ -21,7 +24,7 @@ kernel (or raise), CPU tensors take the plain PyTorch version, which
 repeats the Pallas kernel's arithmetic chunk by chunk. There is no
 fallback from the kernel to the plain version.
 
-``LAUNCHES`` counts kernel launches (plain calls do not count).
+``LAUNCHES`` counts kernel launches by route (plain calls do not count).
 """
 from __future__ import annotations
 
@@ -37,7 +40,9 @@ SOURCE = "mlstm_chunk.cu"
 MAX_HEAD_DIM = 256          # a 64-row q tile of Dk + 1 floats in shared memory
 MAX_CHUNK = 256             # gate arrays of one chunk in shared memory
 
-LAUNCHES = {"mlstm_chunk": 0}
+# launches per route: the tensor-core kernel and the CUDA-core kernel
+LAUNCHES = {"mlstm_chunk_wgmma": 0, "mlstm_chunk_simt": 0}
+WGMMA_TILE = 64             # the tensor-core route's strip and column tile
 
 State = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -48,7 +53,41 @@ def reset_launch_counts() -> None:
 
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_ARGTYPES = [_P] * 12 + [_I] * 6 + [_F, _P]
+_ARGTYPES = {
+    "mlstm_chunk_simt": ("mlstm_chunk_fwd", [_P] * 12 + [_I] * 6 + [_F, _P]),
+    "mlstm_chunk_wgmma": ("mlstm_chunk_fwd_wgmma",
+                          [_P] * 12 + [_I] * 5 + [_F, _I, _P]),
+}
+SMS = 132                   # streaming multiprocessors of an H100 SXM
+
+
+def launches() -> int:
+    """Launches of kernel #7 over both routes."""
+    return sum(LAUNCHES.values())
+
+
+def t_split(bh: int, dv: int, sms: int = SMS) -> int:
+    """CTAs per (batch x head, 64 value columns) of the tensor-core
+    route: 2 (the pair splits each chunk's t strips and both carry the
+    state) while the doubled grid still fits one wave of the card's
+    SMs, else 1."""
+    return 2 if 2 * bh * (dv // WGMMA_TILE) <= sms else 1
+
+
+def kernel_route(dtype: torch.dtype, dk: int, dv: int, chunk_len: int,
+                 aligned: bool = True) -> str:
+    """The kernel a CUDA call takes, decided before the launch:
+    ``"mlstm_chunk_wgmma"`` for bf16 streams with Dk and Dv multiples of
+    64 up to 256, a chunk length L = min(chunk, S) that is a multiple of
+    64 (the strips of the wgmma tiles; a short last chunk is fine) and
+    16-byte aligned q/k/v (what TMA takes), else ``"mlstm_chunk_simt"``
+    (float32 streams, other head dims, other chunk lengths)."""
+    if dtype == torch.bfloat16 and aligned and \
+            chunk_len % WGMMA_TILE == 0 and 0 < chunk_len <= MAX_CHUNK and \
+            all(x % WGMMA_TILE == 0 and 0 < x <= MAX_HEAD_DIM
+                for x in (dk, dv)):
+        return "mlstm_chunk_wgmma"
+    return "mlstm_chunk_simt"
 
 
 def _check(q, k, v, log_i, log_f, chunk, state) -> Tuple[int, ...]:
@@ -152,11 +191,18 @@ def mlstm_chunk_kernel(q, k, v, log_i, log_f, *, chunk: int = 256,
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     st_in = state if state is not None else (None, None, None)
     st_out = final if return_state else (None, None, None)
-    err = build.entry(SOURCE, "mlstm_chunk_fwd", _ARGTYPES)(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), log_i.data_ptr(),
-        log_f.data_ptr(), *map(ptr, st_in), out.data_ptr(), *map(ptr, st_out),
-        int(q.dtype == torch.bfloat16), b * h, s, dk, dv, L, scale,
-        build.stream(dev))
-    build.raise_on(err, "mlstm_chunk")
-    LAUNCHES["mlstm_chunk"] += 1
+    name = kernel_route(q.dtype, dk, dv, L, all(t.data_ptr() % 16 == 0
+                                               for t in (q, k, v)))
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), log_i.data_ptr(),
+            log_f.data_ptr(), *map(ptr, st_in), out.data_ptr(),
+            *map(ptr, st_out))
+    fn = build.entry(SOURCE, *_ARGTYPES[name])
+    if name == "mlstm_chunk_wgmma":
+        err = fn(*ptrs, b * h, s, dk, dv, L, scale, t_split(b * h, dv),
+                 build.stream(dev))
+    else:
+        err = fn(*ptrs, int(q.dtype == torch.bfloat16), b * h, s, dk, dv, L,
+                 scale, build.stream(dev))
+    build.raise_on(err, name)
+    LAUNCHES[name] += 1
     return (out, final) if return_state else out

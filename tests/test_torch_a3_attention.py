@@ -381,3 +381,105 @@ def test_cuda_a3_attention_matches_cpu(cuda, mode):
                 tops.candidate_block_map_for_heads(tt[0], tt[1], cfg)):
             assert torch.equal(g.cpu(), w)
     np.testing.assert_allclose(N(got), N(want), rtol=1e-4, atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# the attend kernel's routes (#6)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype,d,dv,bq,bk,aligned,want", [
+    (torch.bfloat16, 128, 128, 128, 128, True, "a3_sparse_attend_wgmma"),
+    (torch.bfloat16, 64, 64, 128, 128, True, "a3_sparse_attend_wgmma"),
+    (torch.bfloat16, 32, 96, 128, 128, True, "a3_sparse_attend_wgmma"),
+    (torch.bfloat16, 128, 128, 64, 128, True, "a3_sparse_attend_simt"),
+    (torch.bfloat16, 128, 128, 128, 32, True, "a3_sparse_attend_simt"),
+    (torch.bfloat16, 72, 72, 128, 128, True, "a3_sparse_attend_simt"),
+    (torch.bfloat16, 128, 40, 128, 128, True, "a3_sparse_attend_simt"),
+    (torch.bfloat16, 144, 144, 128, 128, True, "a3_sparse_attend_simt"),
+    (torch.bfloat16, 128, 128, 128, 128, False, "a3_sparse_attend_simt"),
+    (torch.float32, 128, 128, 128, 128, True, "a3_sparse_attend_simt"),
+])
+def test_attend_route_by_dtype_head_dims_and_blocks(dtype, d, dv, bq, bk,
+                                                    aligned, want):
+    """The attend kernel a CUDA call takes is a function of dtype, head
+    dims, block sizes and alignment, decided before the launch."""
+    assert tak.attend_route(dtype, d, dv, bq, bk, aligned) == want
+    assert set(tak.LAUNCHES) == {"a3_sparse_rowmax", "a3_sparse_attend_wgmma",
+                                 "a3_sparse_attend_simt"}
+
+
+def _attend_map(kind, b, hkv, nq, device):
+    """kv_indices / kv_counts per kv head: "empty" (no live block),
+    "full" (every block), or "random" (density 0.5) where q block 0 sees
+    only the block above its diagonal (its rows keep nothing: l == 0) and
+    q block 2 lists two dead ids (-1 and nq + 3) beside blocks 0 and 2."""
+    if kind == "empty":
+        bm = np.zeros((b, hkv, nq, nq), dtype=bool)
+    elif kind == "full":
+        bm = np.ones((b, hkv, nq, nq), dtype=bool)
+    else:
+        bm = _random_map(31, b, hkv, nq, nq, 0.5)
+        bm[:, :, 0] = False
+        bm[:, :, 0, 1] = True
+    idx, cnt = tak.build_block_map(torch.from_numpy(bm))
+    if kind == "random":
+        idx[:, :, 2, :4] = torch.tensor([-1, 0, nq + 3, 2], dtype=torch.int32)
+        cnt[:, :, 2] = 4
+    return idx.to(device), cnt.to(device)
+
+
+SPARSE_WGMMA_CASES = [(kind, g, window, thr)
+                      for kind in ("empty", "full", "random")
+                      for g in (1, 3, 8)
+                      for window, thr in ((None, 3.0), (200, None))]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", SPARSE_WGMMA_CASES, ids=str)
+def test_cuda_sparse_attend_wgmma_route_matches_plain(cuda, case):
+    """On the card: bf16 attend calls with 128 x 128 blocks take the
+    tensor-core kernel and agree with the plain version on empty, full
+    and random live lists (rows with l == 0, dead ids), GQA groups 1, 3
+    and 8, a window, with and without a threshold."""
+    kind, g, window, thr = case
+    b, hkv, s, d = 2, 2, 512, 128
+    _, tt = _qkv(40 + g, b, g * hkv, hkv, s, d, "bfloat16")
+    tq, tk_, tv = [t.to(cuda) for t in tt]
+    idx, cnt = _attend_map(kind, b, hkv, s // 128, cuda)
+    rm = tak.sparse_rowmax(tq, tk_, idx, cnt, window=window)
+    tak.reset_launch_counts()
+    out = tak.sparse_attend(tq, tk_, tv, idx, cnt, rm, threshold=thr,
+                            window=window)
+    assert tak.LAUNCHES == {"a3_sparse_rowmax": 0,
+                            "a3_sparse_attend_wgmma": 1,
+                            "a3_sparse_attend_simt": 0}
+    want = tak.sparse_attend_plain(tq, tk_, tv, idx, cnt, rm, threshold=thr,
+                                   window=window)
+    np.testing.assert_allclose(N(out), N(want), **tol("bfloat16"))
+    if kind != "full":
+        assert bool((out[:, :, :128] == 0).all())      # l == 0 -> 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,d,block", [("float32", 128, 128),
+                                           ("bfloat16", 72, 128),
+                                           ("bfloat16", 128, 64)])
+def test_cuda_sparse_attend_simt_route_matches_plain(cuda, dtype, d, block):
+    """On the card: float32, and bf16 at a head dim or block size the
+    tensor-core route does not take, run the CUDA-core attend kernel."""
+    b, hkv, g, s = 1, 2, 3, 512
+    _, tt = _qkv(50, b, g * hkv, hkv, s, d, dtype)
+    tq, tk_, tv = [t.to(cuda) for t in tt]
+    nq = s // block
+    bm = torch.from_numpy(_random_map(51, b, hkv, nq, nq, 0.5)).to(cuda)
+    idx, cnt = tak.build_block_map(bm)
+    kw = dict(block_q=block, block_k=block)
+    rm = tak.sparse_rowmax(tq, tk_, idx, cnt, **kw)
+    tak.reset_launch_counts()
+    out = tak.sparse_attend(tq, tk_, tv, idx, cnt, rm, threshold=3.0, **kw)
+    assert tak.LAUNCHES == {"a3_sparse_rowmax": 0,
+                            "a3_sparse_attend_wgmma": 0,
+                            "a3_sparse_attend_simt": 1}
+    want = tak.sparse_attend_plain(tq, tk_, tv, idx, cnt, rm, threshold=3.0,
+                                   **kw)
+    np.testing.assert_allclose(N(out), N(want), **tol(dtype))

@@ -244,9 +244,197 @@ def test_cuda_kernel_matches_plain(cuda, b, h, s, dk, dv, chunk, with_state,
     state = tuple(torch.from_numpy(a).to(cuda)
                   for a in _state(s, b, h, dk, dv)) if with_state else None
     kw = dict(chunk=chunk, scale=dk ** -0.5, state=state, return_state=True)
-    before = tmk.LAUNCHES["mlstm_chunk"]
+    before = tmk.launches()
     h_k, st_k = tmk.mlstm_chunk_kernel(*tt, **kw)
-    assert tmk.LAUNCHES["mlstm_chunk"] == before + 1
+    assert tmk.launches() == before + 1
+    h_p, st_p = tmk.mlstm_chunk_plain(*tt, **kw)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(N(h_k), N(h_p), **SEQ)
+    for name, a, w in zip("Cnm", st_k, st_p):
+        np.testing.assert_allclose(N(a), N(w), **SEQ, err_msg=name)
+
+
+# ---------------------------------------------------------------------------
+# the tensor-core route (mlstm_chunk_wgmma)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype,dk,dv,chunk_len,aligned,want", [
+    (torch.bfloat16, 256, 256, 256, True, "mlstm_chunk_wgmma"),   # xlstm-350m
+    (torch.bfloat16, 64, 64, 64, True, "mlstm_chunk_wgmma"),
+    (torch.bfloat16, 128, 192, 128, True, "mlstm_chunk_wgmma"),
+    (torch.bfloat16, 256, 256, 192, True, "mlstm_chunk_wgmma"),
+    (torch.bfloat16, 256, 256, 100, True, "mlstm_chunk_simt"),    # L % 64
+    (torch.bfloat16, 256, 256, 23, True, "mlstm_chunk_simt"),     # L = S < 64
+    (torch.bfloat16, 48, 80, 64, True, "mlstm_chunk_simt"),       # not x64
+    (torch.bfloat16, 256, 320, 256, True, "mlstm_chunk_simt"),    # Dv > 256
+    (torch.bfloat16, 256, 256, 256, False, "mlstm_chunk_simt"),   # unaligned
+    (torch.float32, 256, 256, 256, True, "mlstm_chunk_simt"),     # f32 streams
+])
+def test_kernel_route_by_dtype_head_dims_and_chunk(dtype, dk, dv, chunk_len,
+                                                   aligned, want):
+    """The route a CUDA call takes is a function of the streams' dtype,
+    the head dims, the chunk length and alignment, decided before the
+    launch."""
+    assert tmk.kernel_route(dtype, dk, dv, chunk_len, aligned) == want
+    assert set(tmk.LAUNCHES) == {"mlstm_chunk_wgmma", "mlstm_chunk_simt"}
+
+
+@pytest.mark.parametrize("bh,dv,want", [(16, 256, 2), (1, 64, 2),
+                                        (33, 128, 2), (34, 128, 1),
+                                        (32, 256, 1)])
+def test_t_split_fills_one_wave(bh, dv, want):
+    """The tensor-core route doubles its grid (a pair of CTAs per chunk
+    and value slice) only while 2 x B*H x Dv/64 CTAs fit the 132 SMs of
+    an H100 in one wave: xlstm-350m's B*H = 16 at Dv = 256 runs 128."""
+    assert tmk.t_split(bh, dv) == want
+
+
+def _split(x):
+    """float32 -> (hi, lo) bf16 values (as float32) with hi + lo ~= x."""
+    hi = x.bfloat16().float()
+    return hi, (x - hi).bfloat16().float()
+
+
+def _split3(x):
+    """float32 -> (hi, mid + lo) from three bf16 values (as float32)."""
+    hi, _ = _split(x)
+    mid, lo = _split(x - hi)
+    return hi, mid + lo
+
+
+def _once(x):
+    """One rounding to bf16 (the design the split replaces)."""
+    return x.bfloat16().float(), torch.zeros_like(x)
+
+
+def _split_bf16_emulation(q, k, v, log_i, log_f, *, chunk, scale, state,
+                          split=_split, split_c=_split3):
+    """The tensor-core route's arithmetic in torch: q.k^T of bf16 streams
+    accumulated in float32; the decayed scores s and the state update's
+    v * w_r split into bf16 hi + lo, the state C into hi + mid + lo,
+    every product of two bf16 operands accumulated in float32; the
+    gates, n, den and h in float32."""
+    b, h, s, dk = q.shape
+    dv = v.shape[-1]
+    C, n, m = (t.clone() for t in state)
+    out = torch.empty((b, h, s, dv))
+    for c0 in range(0, s, chunk):
+        c1 = min(c0 + chunk, s)
+        qc, kc, vc = (t[:, :, c0:c1].float() for t in (q, k, v))
+        li = log_i[:, :, c0:c1]
+        f_cum = torch.cumsum(log_f[:, :, c0:c1], -1)
+        f_tot = f_cum[..., -1]
+        dmat = f_cum[..., :, None] - f_cum[..., None, :] + li[..., None, :]
+        causal = torch.ones((c1 - c0, c1 - c0), dtype=torch.bool).tril()
+        dmat = torch.where(causal, dmat, -1e30)
+        m_row = torch.maximum(dmat.amax(-1), f_cum + m[..., None])
+        sc = (qc @ kc.transpose(-1, -2)) * scale * torch.exp(
+            dmat - m_row[..., None])
+        inter_w = torch.exp(f_cum + m[..., None] - m_row)
+        s_hi, s_lo = split(sc)
+        c_hi, c_lo = split_c(C)
+        num = s_hi @ vc + s_lo @ vc + inter_w[..., None] * (qc @ c_hi
+                                                            + qc @ c_lo)
+        den = sc.sum(-1) + inter_w * torch.einsum("bhtk,bhk->bht", qc, n)
+        den = torch.maximum(den.abs(), torch.exp(-m_row))
+        out[:, :, c0:c1] = num / den[..., None]
+        wr_log = f_tot[..., None] - f_cum + li
+        m_new = torch.maximum(f_tot + m, wr_log.amax(-1))
+        f_eff = torch.exp(f_tot + m - m_new)
+        wr = scale * torch.exp(wr_log - m_new[..., None])
+        vw_hi, vw_lo = split(vc * wr[..., None])
+        C = f_eff[..., None, None] * C + kc.transpose(-1, -2) @ vw_hi \
+            + kc.transpose(-1, -2) @ vw_lo
+        n = f_eff[..., None] * n + (kc * wr[..., None]).sum(-2)
+        m = m_new
+    return out, (C, n, m)
+
+
+@pytest.mark.parametrize("s,with_state", [(512, True), (300, False)])
+def test_split_bf16_arithmetic_reaches_the_tolerance(s, with_state):
+    """At xlstm-350m's heads (Dk = Dv = 256, chunk 256, bf16 streams)
+    the tensor-core route's split-bf16 arithmetic stays within the
+    2e-4 (atol + rtol) of kernel #7's check against the plain version,
+    for h and the final (C, n, m); rounding s, C and v * w_r once to
+    bf16 would not."""
+    arrs = _inputs(s, 1, 2, s, 256, 256)
+    tt = _t(arrs, torch.bfloat16)
+    st = tuple(torch.from_numpy(a) for a in _state(s, 1, 2, 256, 256)) \
+        if with_state else (torch.zeros(1, 2, 256, 256), torch.zeros(1, 2, 256),
+                            torch.full((1, 2), -1e30))
+    want, wst = tmk.mlstm_chunk_plain(*tt, chunk=256, scale=1 / 16,
+                                      state=st, return_state=True)
+    got, gst = _split_bf16_emulation(*tt, chunk=256, scale=1 / 16, state=st)
+    np.testing.assert_allclose(N(got), N(want), **SEQ)
+    for name, a, w in zip("Cnm", gst, wst):
+        np.testing.assert_allclose(N(a), N(w), **SEQ, err_msg=name)
+    once, _ = _split_bf16_emulation(*tt, chunk=256, scale=1 / 16, state=st,
+                                    split=_once, split_c=_once)
+    assert not torch.allclose(once, want, **SEQ)
+
+
+def _cuda_state(kind, seed, b, h, dk, dv, device):
+    """None (zero state), a random carried state, or a zero state whose
+    m is -1e30 (the model's fresh lanes)."""
+    if kind == "zero":
+        return None
+    if kind == "m0_neg":
+        return (torch.zeros((b, h, dk, dv), device=device),
+                torch.zeros((b, h, dk), device=device),
+                torch.full((b, h), -1e30, device=device))
+    return tuple(torch.from_numpy(a).to(device)
+                 for a in _state(seed, b, h, dk, dv))
+
+
+WGMMA_CASES = [(s, kind, d, bh, 256) for s, kind in ((2048, "zero"),
+                                                     (512, "carried"),
+                                                     (300, "zero"))
+               for d in (64, 128, 256) for bh in ((1, 1), (4, 4))] + [
+    (512, "m0_neg", 256, (4, 4), 256), (200, "carried", 192, (2, 1), 128),
+    (2048, "carried", 256, (4, 4), 256),
+    (512, "carried", 256, (4, 8), 256)]         # one CTA a slice (t_split 1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", WGMMA_CASES, ids=str)
+def test_cuda_wgmma_route_matches_plain(cuda, case):
+    """On the card: bf16 streams at head dims the tensor-core route takes
+    run on it and agree with the plain version (h and the final state)
+    within 2e-4: S=2048 from the zero state and from a carried one,
+    S=512 from a carried one, S=300 (a 44-row last chunk), a zero state
+    with m = -1e30, chunk 128 with a 72-row last chunk, B*H 1 and 16
+    (a pair of CTAs per value slice) and 32 (one CTA per slice)."""
+    s, kind, d, (b, h), chunk = case
+    arrs = _inputs(s + d + b, b, h, s, d, d)
+    tt = _t(arrs, torch.bfloat16, cuda)
+    state = _cuda_state(kind, s + d, b, h, d, d, cuda)
+    kw = dict(chunk=chunk, scale=d ** -0.5, state=state, return_state=True)
+    tmk.reset_launch_counts()
+    h_k, st_k = tmk.mlstm_chunk_kernel(*tt, **kw)
+    assert tmk.LAUNCHES == {"mlstm_chunk_wgmma": 1, "mlstm_chunk_simt": 0}
+    h_p, st_p = tmk.mlstm_chunk_plain(*tt, **kw)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(h_k).all())
+    np.testing.assert_allclose(N(h_k), N(h_p), **SEQ)
+    for name, a, w in zip("Cnm", st_k, st_p):
+        np.testing.assert_allclose(N(a), N(w), **SEQ, err_msg=name)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,d,chunk", [("float32", 256, 256),
+                                           ("bfloat16", 48, 256),
+                                           ("bfloat16", 256, 100)])
+def test_cuda_simt_route_matches_plain(cuda, dtype, d, chunk):
+    """On the card: float32 streams, and bf16 at a head dim or chunk
+    length the tensor-core route does not take, run the CUDA-core
+    kernel."""
+    arrs = _inputs(d + chunk, 2, 2, 300, d, d)
+    tt = _t(arrs, getattr(torch, dtype), cuda)
+    state = _cuda_state("carried", d, 2, 2, d, d, cuda)
+    kw = dict(chunk=chunk, scale=d ** -0.5, state=state, return_state=True)
+    tmk.reset_launch_counts()
+    h_k, st_k = tmk.mlstm_chunk_kernel(*tt, **kw)
+    assert tmk.LAUNCHES == {"mlstm_chunk_wgmma": 0, "mlstm_chunk_simt": 1}
     h_p, st_p = tmk.mlstm_chunk_plain(*tt, **kw)
     torch.cuda.synchronize()
     np.testing.assert_allclose(N(h_k), N(h_p), **SEQ)
