@@ -34,18 +34,25 @@ first phase that does not hold:
    512-row continuation; every bf16 call must take the tensor-core
    route) and the sparse row-max / attend kernels #5/#6
    (random per-query-head map of density 0.5, diagonal kept, thresholds
-   None and 3.0; every bf16 attend must take #6's tensor-core route)
-   against their plain versions within 2e-2, each timed over inputs
-   larger than L2 beside its plain version, its bound and (for #4)
-   ``scaled_dot_product_attention``, #4, #6 and SDPA also by device time
-   per call, #6 printed beside #4 on the same q/k/v; (b) the public
+   None and 3.0, bf16 and float32; the bf16 pair must take the
+   tensor-core routes of both, the float32 pair both CUDA-core routes)
+   against their plain versions within 2e-2, and at threshold 0 every
+   row that admits an entry must keep its maximum (a non-zero output
+   row); each kernel timed over inputs larger than L2 beside its plain
+   version, its bound and (for #4) ``scaled_dot_product_attention``,
+   #4, #5, #6 and SDPA also by device time per call, #6 printed beside
+   #4 on the same q/k/v; (b) the public
    ``a3_attention`` in modes off / conservative / aggressive on layer 0's
    q/k/v of the full-width model (2048 random tokens) and on clustered
    keys: live-block fraction, selection and kernel ms, op ms, peak
    memory, error against off, and launch counts (off: one #4 on the
-   tensor-core route; A^3: one #5 and one #6 on its tensor-core route);
-   (c) the same op on the card vs the CPU at a small float32 shape:
-   block maps identical, outputs within 1e-4, the CUDA-core routes taken;
+   tensor-core route; A^3: one #5 and one #6, both on their tensor-core
+   routes); (c) the same op on the card vs the CPU at a small float32
+   shape: block maps identical, outputs within 1e-4, the CUDA-core
+   routes taken; (d) #4-#6 at gemma3-4b's attention width (Hq=8, Hkv=4,
+   S=2048, D=Dv=256; bf16 and float32, causal and window 1024) against
+   their plain versions, all on their CUDA-core routes, then their times
+   in bf16 beside SDPA's at the same shape;
 8. xLSTM: (a) the chunkwise mLSTM kernel #7 against its plain version at
    xlstm-350m's heads (B=4, H=4, S=2048, D=256, bf16 streams, float32
    gates, chunk 256) from the zero state, from a random carried state
@@ -62,7 +69,7 @@ first phase that does not hold:
    (c) the TINY_XL f32 engine on the card vs the CPU: greedy tokens
    identical, #7 on its CUDA-core route.
 
-Prints one JSON line of per-kernel numbers (rows #1, #4, #6 and #7 with
+Prints one JSON line of per-kernel numbers (rows #1 and #4-#7 with
 ``device_ms``, the profiler's device time per launch), then, last,
 ``{"ok": true, "device": {...}}``. Exits non-zero, with no result line,
 when CUDA is unavailable or the port's sources are not beside the script.
@@ -164,18 +171,27 @@ def bound(nbytes, flops):
 
 def ptxas_report(text):
     """(kernel, "N registers, S bytes spill stores, ...") per function of
-    an ``nvcc -Xptxas -v`` log; the kernel is the mangled name's
-    identifier and template arguments, shortened."""
+    an ``nvcc -Xptxas -v`` log, with ptxas's note where it serialised a
+    kernel's wgmma; the kernel is the mangled name's identifier and
+    template arguments, shortened."""
     import re
+
+    def shorten(mangled):
+        short = re.search(r"([a-z_]+_kernel)I(\w*?)EEv", mangled)
+        return f"{short.group(1)}<{short.group(2)}>" if short \
+            else mangled[-40:]
+
     out, name = [], None
     for ln in text.splitlines():
         m = re.search(r"Function properties for (\S+)", ln)
+        serial = re.search(r"\(C7514\).*function '(\S+)'", ln)
         if m:
-            name = m.group(1)
-            short = re.search(r"([a-z_]+_kernel)I(\w*?)EEv", name)
-            name = f"{short.group(1)}<{short.group(2)}>" if short \
-                else name[-40:]
-        elif name and ("spill" in ln or "registers" in ln):
+            name = shorten(m.group(1))
+        elif serial:
+            out.append((shorten(serial.group(1)),
+                        "wgmma serialized by ptxas (C7514)"))
+        elif name and ("spill" in ln or "registers" in ln) and \
+                "(C75" not in ln:
             out.append((name, ln.strip().replace("ptxas info    : ", "")))
     report = {}
     for fn, props in out:
@@ -605,12 +621,12 @@ def prefill_inputs(seed, dev, sq=None):
     return q.bfloat16(), k.bfloat16(), v.bfloat16()
 
 
-def random_map(seed, dev, density=0.5):
+def random_map(seed, dev, density=0.5, shape=PREFILL):
     """A per-query-head block map of the given density, diagonal kept,
     unioned per kv head as the kernels take it."""
     import torch
     from repro_torch.kernels.a3_attention import kernel as ak
-    b, hq, hkv, s = (PREFILL[x] for x in ("b", "hq", "hkv", "s"))
+    b, hq, hkv, s = (shape[x] for x in ("b", "hq", "hkv", "s"))
     nq = s // 128
     g = torch.Generator(device=dev).manual_seed(seed)
     bm = torch.rand((b, hq, nq, nq), generator=g, device=dev) < density
@@ -677,26 +693,33 @@ def phase_prefill_kernels(dev):
           f"the tensor-core route three times")
     log(f"  flash routes at phi4 width, bf16: {fk.LAUNCHES}")
     idx, cnt = random_map(100, dev)
-    rm = ak.sparse_rowmax(q, k, idx, cnt)
-    e, ok = max_err(rm, ak.sparse_rowmax_plain(q, k, idx, cnt))
-    check(ok, f"sparse row-max kernel disagrees: {e}")
-    errs["rowmax"] = e
-    ak.reset_launch_counts()
-    for thr in (None, T_CONS):
-        out = ak.sparse_attend(q, k, v, idx, cnt, rm, threshold=thr)
-        e, ok = max_err(out, ak.sparse_attend_plain(q, k, v, idx, cnt, rm,
-                                                    threshold=thr))
-        check(ok, f"sparse attend kernel disagrees (thr={thr}): {e}")
-        errs["attend"] = max(errs["attend"], e)
+    for dtype, route in (("bf16", "wgmma"), ("f32", "simt")):
+        qq, kk, vv = (q, k, v) if dtype == "bf16" else \
+            (q.float(), k.float(), v.float())
+        ak.reset_launch_counts()
+        rm = ak.sparse_rowmax(qq, kk, idx, cnt)
+        e, ok = max_err(rm, ak.sparse_rowmax_plain(qq, kk, idx, cnt))
+        check(ok, f"sparse row-max kernel disagrees ({dtype}): {e}")
+        errs["rowmax"] = max(errs["rowmax"], e)
+        for thr in (None, T_CONS):
+            out = ak.sparse_attend(qq, kk, vv, idx, cnt, rm, threshold=thr)
+            e, ok = max_err(out, ak.sparse_attend_plain(
+                qq, kk, vv, idx, cnt, rm, threshold=thr))
+            check(ok, f"sparse attend kernel disagrees ({dtype}, "
+                      f"thr={thr}): {e}")
+            errs["attend"] = max(errs["attend"], e)
+        want = {name: 0 for name in ak.LAUNCHES}
+        want.update({f"a3_sparse_rowmax_{route}": 1,
+                     f"a3_sparse_attend_{route}": 2})
+        check(ak.LAUNCHES == want,
+              f"{dtype} sparse calls at phi4 width took {ak.LAUNCHES}, "
+              f"expected {want}")
+        log(f"  sparse routes at phi4 width, {dtype}: {ak.LAUNCHES}")
     log(f"  sparse (density 0.5, diagonal kept) vs plain: max_abs_err "
         f"rowmax {errs['rowmax']:.3g}, attend {errs['attend']:.3g} "
-        f"(thresholds None and {T_CONS}; tolerance atol {TOL['atol']} + "
-        f"rtol {TOL['rtol']})")
-    check(ak.LAUNCHES == {"a3_sparse_rowmax": 0, "a3_sparse_attend_wgmma": 2,
-                          "a3_sparse_attend_simt": 0},
-          f"bf16 sparse attend calls at phi4 width took {ak.LAUNCHES}, "
-          f"expected the tensor-core route twice")
-    log(f"  sparse attend routes at phi4 width, bf16: {ak.LAUNCHES}")
+        f"(bf16 and f32, thresholds None and {T_CONS}; tolerance atol "
+        f"{TOL['atol']} + rtol {TOL['rtol']})")
+    threshold_zero_check(q, k, v, idx, cnt)
     sync(dev)
 
     # timed: each over 4 input sets (> L2), as the path calls it
@@ -730,11 +753,13 @@ def phase_prefill_kernels(dev):
         return bound(sum(nb) / len(nb), sum(fl) / len(fl))
 
     res["rowmax"] = dict(
-        ms=cuda_ms(lambda *x: ak.sparse_rowmax(*x), rsets, 20),
+        ms=cuda_ms(lambda *x: ak.sparse_rowmax(*x), rsets, 50),
         plain_ms=cuda_ms(lambda *x: ak.sparse_rowmax_plain(*x), rsets, 3),
         library_ms=None,
         bound=mean_bound(lambda n: (q_bytes + n[2] * d * 2 + map_bytes
-                                    + b * hq * s * 4, 2 * d * n[0])))
+                                    + b * hq * s * 4, 2 * d * n[0])),
+        device_ms=device_ms(lambda *x: ak.sparse_rowmax(*x), rsets, 50,
+                            True))
     asets = [(x[0], x[1], x[2], *m, rm) for x, m, rm in zip(sets, maps, rms)]
     res["attend"] = dict(
         ms=cuda_ms(lambda *x: ak.sparse_attend(*x, threshold=T_CONS), asets,
@@ -762,12 +787,37 @@ def phase_prefill_kernels(dev):
         f"{fmt_ms(r['device_ms'])}, SDPA {fmt_ms(r['library_device_ms'])}; "
         f"by the event loop: kernel {r['ms']:.4f} ms, SDPA "
         f"{r['library_ms']:.4f} ms [{CARD}]")
-    a = res["attend"]
+    a, m = res["attend"], res["rowmax"]
     log(f"  sparse attend (#6, t={T_CONS}) beside flash (#4) on the same "
         f"q/k/v: #6 {a['ms']:.4f} ms by events, {fmt_ms(a['device_ms'])} "
         f"device; #4 {r['ms']:.4f} ms by events, {fmt_ms(r['device_ms'])} "
         f"device [{CARD}]")
+    pair = None if None in (m["device_ms"], a["device_ms"]) \
+        else m["device_ms"] + a["device_ms"]
+    log(f"  sparse row max (#5): {m['ms']:.4f} ms by events, "
+        f"{fmt_ms(m['device_ms'])} device; #5 + #6 {fmt_ms(pair)} device "
+        f"[{CARD}]")
     return errs, res
+
+
+def threshold_zero_check(q, k, v, idx, cnt):
+    """At threshold 0 the attend pass keeps exactly the entries equal to
+    the row-max pass's maximum, so every row that admits an entry must
+    return a non-zero row (V at its argmax), in bf16 (the tensor-core
+    pair) and float32 (the CUDA-core pair)."""
+    from repro_torch.kernels.a3_attention import kernel as ak
+    b, hq, sq, _ = q.shape
+    admits = (ak.sparse_rowmax_plain(q, k, idx, cnt) > ak.NEG_INF)
+    admits = admits.reshape(b, hq, sq)
+    for dtype in ("bf16", "f32"):
+        qq, kk, vv = (q, k, v) if dtype == "bf16" else \
+            (q.float(), k.float(), v.float())
+        out = ak.a3_sparse_attention(qq, kk, vv, idx, cnt, threshold=0.0)
+        lost = int(((out == 0).all(-1) & admits).sum())
+        check(lost == 0, f"threshold 0 ({dtype}): {lost} of "
+                         f"{int(admits.sum())} admitting rows came back 0")
+        log(f"  threshold 0 ({dtype}): all {int(admits.sum())} admitting "
+            f"rows keep their maximum (non-zero output)")
 
 
 def clustered_qkv(seed, dev, n_clusters=8, spread=0.15):
@@ -820,8 +870,8 @@ def phase_prefill_path(model, cfg, dev):
     from repro_torch.kernels.flash_attention import kernel as fk
 
     launches = {"flash_attention_wgmma": 0, "flash_attention_simt": 0,
-                "a3_sparse_rowmax": 0, "a3_sparse_attend_wgmma": 0,
-                "a3_sparse_attend_simt": 0}
+                "a3_sparse_rowmax_wgmma": 0, "a3_sparse_rowmax_simt": 0,
+                "a3_sparse_attend_wgmma": 0, "a3_sparse_attend_simt": 0}
     nq = PREFILL["s"] // 128
     tri = PREFILL["b"] * PREFILL["hkv"] * nq * (nq + 1) // 2
     tril = torch.ones(nq, nq, dtype=torch.bool, device=dev).tril()
@@ -848,7 +898,8 @@ def phase_prefill_path(model, cfg, dev):
                   f"misshapen output")
             want = {"flash_attention_wgmma": int(mode == "off"),
                     "flash_attention_simt": 0,
-                    "a3_sparse_rowmax": int(mode != "off"),
+                    "a3_sparse_rowmax_wgmma": int(mode != "off"),
+                    "a3_sparse_rowmax_simt": 0,
                     "a3_sparse_attend_wgmma": int(mode != "off"),
                     "a3_sparse_attend_simt": 0}
             check(got == want or dev.type != "cuda",
@@ -906,7 +957,8 @@ def phase_prefill_cpu(dev):
         routes = {**fk.LAUNCHES, **ak.LAUNCHES}
         check(routes == {"flash_attention_wgmma": 0,
                          "flash_attention_simt": int(mode == "off"),
-                         "a3_sparse_rowmax": int(mode != "off"),
+                         "a3_sparse_rowmax_wgmma": 0,
+                         "a3_sparse_rowmax_simt": int(mode != "off"),
                          "a3_sparse_attend_wgmma": 0,
                          "a3_sparse_attend_simt": int(mode != "off")},
               f"f32 a3_attention ({mode}) took {routes}, expected the "
@@ -924,6 +976,91 @@ def phase_prefill_cpu(dev):
         log(f"  a3_attention f32 a3={mode}: card vs CPU block maps "
             f"identical, max_abs_err {e:.3g} (tolerance 1e-4); routes "
             f"{routes}")
+
+
+GEMMA = dict(b=1, hq=8, hkv=4, s=2048, d=256)     # gemma3-4b's attention
+
+
+def phase_head_dim_256(dev):
+    """[7](d): kernels #4-#6 at gemma3-4b's attention width (head dim
+    256, which the tensor-core routes do not take) in bf16 and float32,
+    causal and with a 1024 window, against their plain versions, every
+    call on a CUDA-core route; then, bf16 causal over 4 input sets (64 MB
+    > L2), each kernel's time, #4 beside SDPA's at the same shape."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.a3_attention import kernel as ak
+    from repro_torch.kernels.flash_attention import kernel as fk
+    b, hq, hkv, s, d = (GEMMA[x] for x in ("b", "hq", "hkv", "s", "d"))
+
+    def qkv(seed):
+        g = torch.Generator(device=dev).manual_seed(seed)
+        return tuple(torch.randn(sh, generator=g, device=dev).bfloat16()
+                     for sh in ((b, hq, s, d), (b, hkv, s, d),
+                                (b, hkv, s, d)))
+
+    q, k, v = qkv(400)
+    idx, cnt = random_map(400, dev, shape=GEMMA)
+    errs = {"flash": 0.0, "rowmax": 0.0, "attend": 0.0}
+    for dtype in ("bf16", "f32"):
+        qq, kk, vv = (q, k, v) if dtype == "bf16" else \
+            (q.float(), k.float(), v.float())
+        for window in (None, 1024):
+            fk.reset_launch_counts()
+            ak.reset_launch_counts()
+            got = {"flash": (fk.flash_attention(qq, kk, vv, window=window),
+                             fk.flash_attention_plain(qq, kk, vv,
+                                                      window=window))}
+            rm = ak.sparse_rowmax(qq, kk, idx, cnt, window=window)
+            got["rowmax"] = (rm, ak.sparse_rowmax_plain(qq, kk, idx, cnt,
+                                                        window=window))
+            got["attend"] = (
+                ak.sparse_attend(qq, kk, vv, idx, cnt, rm, threshold=T_CONS,
+                                 window=window),
+                ak.sparse_attend_plain(qq, kk, vv, idx, cnt, rm,
+                                       threshold=T_CONS, window=window))
+            for name, (out, want) in got.items():
+                e, ok = max_err(out, want)
+                check(ok and out.shape == want.shape,
+                      f"{name} at head dim 256 ({dtype}, window {window}) "
+                      f"disagrees with its plain version: {e}")
+                errs[name] = max(errs[name], e)
+            routes = {**fk.LAUNCHES, **ak.LAUNCHES}
+            want = {name: int(name.endswith("_simt")) for name in routes}
+            check(routes == want, f"head dim 256 ({dtype}) took {routes}, "
+                                  f"expected the CUDA-core routes")
+    log(f"  #4-#6 at head dim 256 vs plain (bf16 and f32, causal and "
+        f"window 1024, t={T_CONS}): max_abs_err flash {errs['flash']:.3g}, "
+        f"rowmax {errs['rowmax']:.3g}, attend {errs['attend']:.3g}; every "
+        f"call on its CUDA-core route")
+
+    sets = [qkv(410 + i) for i in range(4)]
+    maps = [random_map(410 + i, dev, shape=GEMMA) for i in range(4)]
+    rsets = [(x[0], x[1], *m) for x, m in zip(sets, maps)]
+    asets = [(*x, *m, ak.sparse_rowmax(*r))
+             for x, m, r in zip(sets, maps, rsets)]
+
+    def sdpa(*x):
+        return F.scaled_dot_product_attention(*x, is_causal=True,
+                                              enable_gqa=True)
+
+    res = {
+        "flash": (cuda_ms(lambda *x: fk.flash_attention(*x), sets, 10),
+                  device_ms(lambda *x: fk.flash_attention(*x), sets, 10,
+                            True)),
+        "SDPA": (cuda_ms(sdpa, sets, 20), device_ms(sdpa, sets, 20)),
+        "rowmax": (cuda_ms(lambda *x: ak.sparse_rowmax(*x), rsets, 10),
+                   device_ms(lambda *x: ak.sparse_rowmax(*x), rsets, 10,
+                             True)),
+        "attend": (cuda_ms(lambda *x: ak.sparse_attend(
+            *x, threshold=T_CONS), asets, 10), device_ms(
+            lambda *x: ak.sparse_attend(*x, threshold=T_CONS), asets, 10,
+            True)),
+    }
+    log("  at head dim 256, bf16 causal (density-0.5 maps for #5/#6): "
+        + "; ".join(f"{n} {ms:.4f} ms by events, {fmt_ms(dms)} device"
+                    for n, (ms, dms) in res.items()) + f" [{CARD}]")
+    return res
 
 
 # ---------------------------------------------------------------------------
@@ -1229,6 +1366,9 @@ def main() -> int:
     perrs, ptimes = phase_prefill_kernels(dev)
     prefill_launches = phase_prefill_path(model, cfg, dev)
     phase_prefill_cpu(dev)
+    log("[7d] kernels #4-#6 at gemma3-4b's attention width (B=1, Hq=8, "
+        "Hkv=4, S=2048, D=256)")
+    phase_head_dim_256(dev)
     log(f"  phase [7] took {time.perf_counter() - t7:.1f} s")
     log("[8] xLSTM: chunkwise mLSTM kernel #7 at xlstm-350m width (B=4, "
         "H=4, S=2048, D=256, bf16 streams), xlstm-350m serving, TINY_XL")
@@ -1258,7 +1398,7 @@ def main() -> int:
             ("flash_attention", "flash", "flash_attention.cu",
              "flash_attention/kernel.py", 23, "flash_attention_wgmma"),
             ("a3_sparse_rowmax", "rowmax", "a3_attention.cu",
-             "a3_attention/kernel.py", 60, "a3_sparse_rowmax"),
+             "a3_attention/kernel.py", 60, "a3_sparse_rowmax_wgmma"),
             ("a3_sparse_attend", "attend", "a3_attention.cu",
              "a3_attention/kernel.py", 94, "a3_sparse_attend_wgmma")):
         r = ptimes[key]

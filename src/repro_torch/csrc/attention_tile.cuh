@@ -9,7 +9,9 @@
 // a 16 x 16 thread grid (each thread 4 rows x 4 columns), lets one warp
 // per row apply the masks and the softmax arithmetic, then stages the
 // values in the same buffer and accumulates P.V in registers (each
-// thread 4 rows x up to 8 value columns). Everything is float32 on the
+// thread 4 rows x NC value columns, tx + 16 c: NC = 8 for Dv up to 128,
+// 16 up to 256; kernels pick NC on the host with value_cols). Everything
+// is float32 on the
 // CUDA cores: bf16 inputs are widened on load (exact), as the Pallas
 // kernels widen them to float32 before their dots.
 #pragma once
@@ -25,7 +27,9 @@ constexpr int kRows = 64;        // query rows per CUDA block
 constexpr int kCols = 64;        // key rows per sub-tile
 constexpr int kThreads = 256;    // 16 x 16 thread grid
 constexpr int kWarps = kThreads / 32;
-// head dims up to 128: a thread holds 8 value columns (tx + 16 c)
+
+// Value columns a thread holds for a value width Dv (at most 256).
+inline int value_cols(int Dv) { return Dv > 128 ? 16 : 8; }
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
@@ -150,7 +154,8 @@ __device__ void score_tile(const Smem& sm, int D, float scale) {
 // acc[i][c] (row ty*4+i, value column tx+16c) += sum_j p[row][j] v[j][col]
 // over the first ncols staged value rows; with rescale, acc is first
 // multiplied by each row's alpha.
-__device__ void accumulate_pv(const Smem& sm, float (&acc)[4][8], int Dv,
+template <int NC>
+__device__ void accumulate_pv(const Smem& sm, float (&acc)[4][NC], int Dv,
                               int ncols, bool rescale) {
   const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
   if (rescale) {
@@ -158,28 +163,28 @@ __device__ void accumulate_pv(const Smem& sm, float (&acc)[4][8], int Dv,
     for (int i = 0; i < 4; ++i) {
       const float a = sm.rows->alpha[ty * 4 + i];
 #pragma unroll
-      for (int c = 0; c < 8; ++c) acc[i][c] *= a;
+      for (int c = 0; c < NC; ++c) acc[i][c] *= a;
     }
   }
   for (int j = 0; j < ncols; ++j) {
-    float p[4], vv[8];
+    float p[4], vv[NC];
 #pragma unroll
     for (int i = 0; i < 4; ++i) p[i] = sm.s[(ty * 4 + i) * (kCols + 1) + j];
 #pragma unroll
-    for (int c = 0; c < 8; ++c) {
+    for (int c = 0; c < NC; ++c) {
       const int col = tx + 16 * c;
       vv[c] = col < Dv ? sm.kv[j * Dv + col] : 0.f;
     }
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int c = 0; c < 8; ++c) acc[i][c] += p[i] * vv[c];
+      for (int c = 0; c < NC; ++c) acc[i][c] += p[i] * vv[c];
   }
 }
 
 // out[row] = l == 0 ? 0 : acc / l, in the output type.
-template <typename T>
-__device__ void emit(const Smem& sm, const float (&acc)[4][8],
+template <int NC, typename T>
+__device__ void emit(const Smem& sm, const float (&acc)[4][NC],
                      T* __restrict__ out, int Dv) {
   const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
 #pragma unroll
@@ -189,7 +194,7 @@ __device__ void emit(const Smem& sm, const float (&acc)[4][8],
     const float l = sm.rows->l[r];
     const long long o = sm.rows->o_off[r];
 #pragma unroll
-    for (int c = 0; c < 8; ++c) {
+    for (int c = 0; c < NC; ++c) {
       const int col = tx + 16 * c;
       if (col < Dv) out[o + col] = from_f32<T>(l == 0.f ? 0.f : acc[i][c] / l);
     }

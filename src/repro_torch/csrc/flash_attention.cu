@@ -7,8 +7,9 @@
 //   flash_attention_fwd_wgmma  bf16, D and Dv multiples of 16 up to 128,
 //                              16-byte aligned inputs, a positive scale:
 //                              the tensor-core kernel (flash_wgmma_kernel)
-//   flash_attention_fwd        float32 and every other call: the
-//                              CUDA-core kernel (flash_kernel)
+//   flash_attention_fwd        float32 and every other call (head dims
+//                              up to 256): the CUDA-core kernel
+//                              (flash_kernel)
 //
 // Both replace repro/kernels/flash_attention/kernel.py::_flash_kernel
 // (online softmax over kv tiles; query rows offset by seq_k - seq_q;
@@ -51,10 +52,12 @@
 // Against the plain version that is a relative error of about 2^-9 per
 // weight, inside the 2e-2 bf16 tolerance.
 //
-// flash_kernel (float32 and other head dims) is the simple CUDA-core
-// design: a block owns 64 query rows and loops over 64-key tiles of the
-// admitted column range; scores and P.V run in float32 through
-// shared-memory tiles (attention_tile.cuh).
+// flash_kernel (float32 and other head dims, D and Dv up to 256) is the
+// simple CUDA-core design: a block owns 64 query rows and loops over
+// 64-key tiles of the admitted column range; scores and P.V run in
+// float32 through shared-memory tiles (attention_tile.cuh), a thread
+// holding 8 value columns for Dv up to 128 and 16 up to 256 (at
+// D = Dv = 256 the tiles take 147 KB of shared memory, one block an SM).
 
 #include "attention_tile.cuh"
 #include "hopper.cuh"
@@ -65,7 +68,7 @@ namespace {
 using namespace tile;
 using namespace wgattn;
 
-template <typename T>
+template <typename T, int NC>
 __global__ void __launch_bounds__(kThreads, 2)
 flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
              const T* __restrict__ v, T* __restrict__ out, int Hq, int Hkv,
@@ -99,11 +102,11 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
   if (causal) hi = min(Sk, last + 1);
   if (has_window) lo = max(0, first - window + 1);
 
-  float acc[4][8];
+  float acc[4][NC];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int c = 0; c < 8; ++c) acc[i][c] = 0.f;
+    for (int c = 0; c < NC; ++c) acc[i][c] = 0.f;
 
   const long long kv0 = ((long long)b * Hkv + hk) * Sk;
   for (int c0 = lo; c0 < hi; c0 += kCols) {
@@ -153,15 +156,15 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
   emit(sm, acc, out, Dv);
 }
 
-template <typename T>
+template <typename T, int NC>
 int launch(const void* q, const void* k, const void* v, void* out, int B,
            int Hq, int Hkv, int Sq, int Sk, int D, int Dv, float scale,
            int causal, int has_window, int window, cudaStream_t stream) {
   const size_t smem = smem_bytes(D, Dv);
-  int e = prepare(flash_kernel<T>, smem);
+  int e = prepare(flash_kernel<T, NC>, smem);
   if (e != 0) return e;
   const dim3 grid((Sq + kRows - 1) / kRows, B * Hq);
-  flash_kernel<T><<<grid, kThreads, smem, stream>>>(
+  flash_kernel<T, NC><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(out), Hq, Hkv, Sq, Sk, D, Dv,
       scale, causal, has_window, window);
@@ -306,19 +309,11 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
   float m_a = kNegInf, m_b = kNegInf, l_a = 0.f, l_b = 0.f;
   float al_a = 1.f, al_b = 1.f;           // the last softmax's rescales
 
-  // S_j = Q K_j^T (float32 accumulators, 64 x 128) over the NB boxes of
-  // D (columns past D are zeros in both operands): issued, not waited for
-  auto issue_s = [&](float (&sc)[64], int j) {
+  // S_j = Q K_j^T once tile j has landed: issued, not waited for
+  auto issue_qk = [&](float (&sc)[64], int j) {
     const int s = j % kStages;
-    const unsigned char* ks = sm.k + s * NB * kKVBoxBytes;
     mbar_wait(sm.k_full + s, (j / kStages) & 1);
-#pragma unroll
-    for (int kk = 0; kk < 4 * NB; ++kk) {
-      const int x = kk >> 2, in = (kk & 3) * 32;
-      wgmma_ss_n128(sc, sw128_desc(qw + x * kQBoxBytes + in, 16, 1024),
-                    sw128_desc(ks + x * kKVBoxBytes + in, 16, 1024), kk > 0);
-    }
-    wgmma_commit();
+    issue_s<NB>(sc, qw, sm.k + s * NB * kKVBoxBytes);
   };
   // O += P_j V_j (V MN-major: 8-key groups 1024 B apart, 64-column boxes
   // kKVBoxBytes apart; a k16 step is 16 keys = 2048 B): issued
@@ -361,7 +356,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
   if (ntiles > 0) {
     fence_regs(sc);
     wgmma_fence();
-    issue_s(sc, 0);
+    issue_qk(sc, 0);
     wgmma_wait<0>();
     fence_regs(sc);
     softmax(sc, 0);
@@ -374,7 +369,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
     fence_regs(o);
     fence_regs(pa);
     wgmma_fence();
-    issue_s(sc, j);
+    issue_qk(sc, j);
     issue_pv(pa, j - 1);
     wgmma_wait<1>();                                  // S_j is ready
     fence_regs(sc);
@@ -443,19 +438,23 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* out,
 
 // C entry point: pointers and the stream as void*, shapes as int; returns
 // the cudaError_t of the launch (0 = success). q [B,Hq,Sq,D], k [B,Hkv,Sk,D],
-// v [B,Hkv,Sk,Dv], out [B,Hq,Sq,Dv], all contiguous; is_bf16 selects
-// __nv_bfloat16 inputs and output, else float32.
+// v [B,Hkv,Sk,Dv], out [B,Hq,Sq,Dv], all contiguous, D and Dv up to 256;
+// is_bf16 selects __nv_bfloat16 inputs and output, else float32.
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
                                    void* out, int is_bf16, int B, int Hq,
                                    int Hkv, int Sq, int Sk, int D, int Dv,
                                    float scale, int causal, int has_window,
                                    int window, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (D > 256 || Dv > 256) return (int)cudaErrorInvalidValue;
+  auto go = [&](auto fn) {
+    return fn(q, k, v, out, B, Hq, Hkv, Sq, Sk, D, Dv, scale, causal,
+              has_window, window, st);
+  };
+  const bool wide = tile::value_cols(Dv) == 16;
   if (is_bf16)
-    return launch<__nv_bfloat16>(q, k, v, out, B, Hq, Hkv, Sq, Sk, D, Dv,
-                                 scale, causal, has_window, window, st);
-  return launch<float>(q, k, v, out, B, Hq, Hkv, Sq, Sk, D, Dv, scale, causal,
-                       has_window, window, st);
+    return wide ? go(launch<__nv_bfloat16, 16>) : go(launch<__nv_bfloat16, 8>);
+  return wide ? go(launch<float, 16>) : go(launch<float, 8>);
 }
 
 // The tensor-core route: bf16 q [B,Hq,Sq,D], k [B,Hkv,Sk,D],

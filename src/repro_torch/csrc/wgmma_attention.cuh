@@ -1,7 +1,8 @@
 // The tensor-core attention engine shared by flash_attention.cu (kernel
-// #4's bf16 route) and a3_attention.cu (kernel #6's bf16 route) for
-// Hopper (sm_90a): the CTA shape, the shared-memory carve-up of the Q
-// block and the K/V ring, and the P.V product. A CTA owns 128 query rows
+// #4's bf16 route) and a3_attention.cu (the bf16 routes of kernels #5 and
+// #6) for Hopper (sm_90a): the CTA shape, the S = Q K^T tile, the
+// shared-memory carve-up of the Q block and the K/V ring, and the P.V
+// product. A CTA owns 128 query rows
 // of one (batch, head) in two consumer warpgroups of 64 rows; a producer
 // warpgroup streams 128-key K and V tiles by TMA (64-column boxes,
 // 128-byte swizzle) through a kStages-deep ring of mbarriers.
@@ -20,6 +21,27 @@ constexpr int kBox = 64;                    // columns of a TMA box (128 B)
 constexpr int kQBoxBytes = kWgRows * kBox * 2;     // 8 KB
 constexpr int kKVBoxBytes = kKeys * kBox * 2;      // 16 KB
 constexpr float kLog2e = 1.4426950408889634f;
+
+// S = Q K^T of one consumer warpgroup and one 128-key tile, a 64 x 128
+// float32 accumulator over the NB boxes of D (columns past D are zeros in
+// both operands): Q from the warpgroup's boxes at qw, K from the tile's
+// boxes at ks, both K-major, the k16 steps in order; committed, not waited
+// for. Every tensor-core kernel that scores q.k calls this one function,
+// so A^3's row max (#5) and its weights (#6) sum each score in the same
+// order and agree to the bit.
+template <int NB>
+__device__ __forceinline__ void issue_s(float (&sc)[64],
+                                        const unsigned char* qw,
+                                        const unsigned char* ks) {
+#pragma unroll
+  for (int kk = 0; kk < 4 * NB; ++kk) {
+    const int x = kk >> 2, in = (kk & 3) * 32;
+    hopper::wgmma_ss_n128(
+        sc, hopper::sw128_desc(qw + x * kQBoxBytes + in, 16, 1024),
+        hopper::sw128_desc(ks + x * kKVBoxBytes + in, 16, 1024), kk > 0);
+  }
+  hopper::wgmma_commit();
+}
 
 // Shared memory of one CTA, all boxes 1024-byte aligned: Q [2 WGs][nb],
 // K [stage][nb], V [stage][nvb] (nb = ceil(D/64), nvb = ceil(Dv/64)

@@ -10,11 +10,15 @@ row max over the live blocks; pass 2 (``_sparse_attend_kernel``) drops
 every score more than ``threshold`` nats below it, then does the exp-sum
 and P.V. Both are hand-written CUDA C++ in
 ``repro_torch/csrc/a3_attention.cu`` (see the note there for the bound
-and the design). The attend kernel has two routes, chosen before the
-launch (``attend_route``): bf16 with 128 x 128 blocks and head dims
-multiples of 16 up to 128 runs on the tensor cores (kernel #4's wgmma +
-TMA engine, one q head per CTA); float32, other blocks and other head
-dims on the CUDA cores, with the GQA group folded into the rows.
+and the design). Each has two routes, and one decision before the
+launches (``sparse_route``) sends both passes down the same one: bf16
+with 128 x 128 blocks and head dims multiples of 16 up to 128 runs on
+the tensor cores (kernel #4's wgmma + TMA engine, one q head per CTA);
+float32, other blocks and other head dims (up to 256) on the CUDA
+cores, with the GQA group folded into the rows. Both passes of a route
+score q.k with the same code, so the attend pass's scores are the very
+floats whose maximum the row-max pass took, and threshold 0 keeps each
+row's maximum.
 
 The device of the tensors decides the route: CUDA tensors launch the
 kernels (or raise), CPU tensors take the plain PyTorch versions, which
@@ -41,12 +45,14 @@ from repro_torch.kernels import build
 
 NEG_INF = -1e30
 SOURCE = "a3_attention.cu"
-MAX_HEAD_DIM = 128          # a thread holds 8 value columns (8 x 16)
+MAX_HEAD_DIM = 256          # a CUDA-core thread holds 16 value columns
+WGMMA_MAX_HEAD_DIM = 128    # the tensor-core kernels' head dims
+WGMMA_BLOCK = 128           # the tensor-core kernels' q and kv block
+ROUTES = ("wgmma", "simt")  # tensor cores, CUDA cores
 
-# launches per kernel; the attend kernel per route (tensor-core, CUDA-core)
-LAUNCHES = {"a3_sparse_rowmax": 0, "a3_sparse_attend_wgmma": 0,
-            "a3_sparse_attend_simt": 0}
-WGMMA_BLOCK = 128           # the tensor-core attend's q and kv block
+# launches per kernel and route
+LAUNCHES = {f"a3_sparse_{kernel}_{route}": 0
+            for kernel in ("rowmax", "attend") for route in ROUTES}
 
 
 def reset_launch_counts() -> None:
@@ -57,8 +63,10 @@ def reset_launch_counts() -> None:
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # kernel (route) -> (C entry, argtypes)
 _ARGTYPES = {
-    "a3_sparse_rowmax": ("a3_sparse_rowmax",
-                         [_P] * 5 + [_I] * 10 + [_F, _I, _I, _I, _P]),
+    "a3_sparse_rowmax_simt": ("a3_sparse_rowmax",
+                              [_P] * 5 + [_I] * 10 + [_F, _I, _I, _I, _P]),
+    "a3_sparse_rowmax_wgmma": ("a3_sparse_rowmax_wgmma",
+                               [_P] * 5 + [_I] * 7 + [_F, _I, _I, _I, _P]),
     "a3_sparse_attend_simt": ("a3_sparse_attend",
                               [_P] * 7 + [_I] * 11 + [_F] + [_I] * 4
                               + [_F, _P]),
@@ -68,18 +76,34 @@ _ARGTYPES = {
 }
 
 
-def attend_route(dtype: torch.dtype, d: int, dv: int, bq: int, bk: int,
+def sparse_route(dtype: torch.dtype, d: int, dv: int, bq: int, bk: int,
                  aligned: bool = True) -> str:
-    """The attend kernel (#6) a CUDA call takes, decided before the
-    launch: ``"a3_sparse_attend_wgmma"`` for bf16 with D and Dv multiples
-    of 16 up to 128, 128 x 128 blocks (``block_q``/``block_k`` after
-    clamping to Sq/Sk) and 16-byte aligned q/k/v (what the wgmma tiles
-    and TMA take), else ``"a3_sparse_attend_simt"``."""
+    """The route both passes of a CUDA call take, decided before the
+    launches: ``"wgmma"`` (the tensor-core kernels) for bf16 with D and Dv
+    multiples of 16 up to 128, 128 x 128 blocks (``block_q``/``block_k``
+    after clamping to Sq/Sk) and 16-byte aligned q/k/v (what the wgmma
+    tiles and TMA take), else ``"simt"`` (the CUDA-core kernels)."""
     if dtype == torch.bfloat16 and aligned and \
             bq == bk == WGMMA_BLOCK and \
-            all(x % 16 == 0 and 0 < x <= MAX_HEAD_DIM for x in (d, dv)):
-        return "a3_sparse_attend_wgmma"
-    return "a3_sparse_attend_simt"
+            all(x % 16 == 0 and 0 < x <= WGMMA_MAX_HEAD_DIM for x in (d, dv)):
+        return "wgmma"
+    return "simt"
+
+
+def _aligned(*ts) -> bool:
+    return all(t.data_ptr() % 16 == 0 for t in ts)
+
+
+def _pick_route(route, dtype, d, dv, bq, bk, aligned) -> str:
+    """``route`` as given (checked against what the call can take), or
+    decided here when it is None."""
+    fits = sparse_route(dtype, d, dv, bq, bk, aligned)
+    if route is None:
+        return fits
+    if route not in ROUTES or (route == "wgmma" and fits != "wgmma"):
+        raise ValueError(f"route {route!r} does not take this call "
+                         f"(it takes {fits!r})")
+    return route
 
 
 # ---------------------------------------------------------------------------
@@ -252,8 +276,11 @@ def sparse_attend_plain(q, k, v, kv_indices, kv_counts, rowmax, *,
 # ---------------------------------------------------------------------------
 
 def sparse_rowmax(q, k, kv_indices, kv_counts, *, causal=True, window=None,
-                  scale=None, block_q=128, block_k=128):
-    """Kernel #5 on CUDA tensors, its plain version on CPU tensors."""
+                  scale=None, block_q=128, block_k=128, route=None):
+    """Kernel #5 on CUDA tensors, its plain version on CPU tensors.
+    ``route`` ("wgmma" / "simt") is the pair's route when
+    :func:`a3_sparse_attention` calls it; alone, the call decides from
+    (D, D)."""
     if build.route(q) == "plain":
         return sparse_rowmax_plain(q, k, kv_indices, kv_counts,
                                    causal=causal, window=window, scale=scale,
@@ -262,24 +289,32 @@ def sparse_rowmax(q, k, kv_indices, kv_counts, *, causal=True, window=None,
         q, k, None, kv_indices, kv_counts, block_q, block_k)
     build.check_launch("a3 sparse", (q, k), (kv_indices, kv_counts), (d,),
                        MAX_HEAD_DIM)
+    route = _pick_route(route, q.dtype, d, d, bq, bk, _aligned(q, k))
     scale = d ** -0.5 if scale is None else scale
     has_win, win = build.window_args(window, sq, sk)
     out = torch.empty((b, hkv, hq // hkv, sq), dtype=torch.float32,
                       device=q.device)
-    err = build.entry(SOURCE, *_ARGTYPES["a3_sparse_rowmax"])(
-        q.data_ptr(), k.data_ptr(), kv_indices.data_ptr(),
-        kv_counts.data_ptr(), out.data_ptr(), int(q.dtype == torch.bfloat16),
-        b, hq, hkv, sq, sk, d, bq, bk, maxb, scale, int(causal), has_win,
-        win, build.stream(q.device))
-    build.raise_on(err, "a3_sparse_rowmax")
-    LAUNCHES["a3_sparse_rowmax"] += 1
+    name = f"a3_sparse_rowmax_{route}"
+    fn = build.entry(SOURCE, *_ARGTYPES[name])
+    ptrs = (q.data_ptr(), k.data_ptr(), kv_indices.data_ptr(),
+            kv_counts.data_ptr(), out.data_ptr())
+    tail = (scale, int(causal), has_win, win, build.stream(q.device))
+    if route == "wgmma":
+        err = fn(*ptrs, b, hq, hkv, sq, sk, d, maxb, *tail)
+    else:
+        err = fn(*ptrs, int(q.dtype == torch.bfloat16), b, hq, hkv, sq, sk,
+                 d, bq, bk, maxb, *tail)
+    build.raise_on(err, name)
+    LAUNCHES[name] += 1
     return out
 
 
 def sparse_attend(q, k, v, kv_indices, kv_counts, rowmax, *, threshold=None,
                   causal=True, window=None, scale=None, block_q=128,
-                  block_k=128):
-    """Kernel #6 on CUDA tensors, its plain version on CPU tensors."""
+                  block_k=128, route=None):
+    """Kernel #6 on CUDA tensors, its plain version on CPU tensors.
+    ``route`` as for :func:`sparse_rowmax`; alone, the call decides from
+    (D, Dv)."""
     if build.route(q) == "plain":
         return sparse_attend_plain(q, k, v, kv_indices, kv_counts, rowmax,
                                    threshold=threshold, causal=causal,
@@ -292,18 +327,18 @@ def sparse_attend(q, k, v, kv_indices, kv_counts, rowmax, *, threshold=None,
     if rowmax.dtype != torch.float32 or \
             tuple(rowmax.shape) != (b, hkv, hq // hkv, sq):
         raise ValueError("rowmax must be float32 [B, Hkv, G, Sq]")
+    route = _pick_route(route, q.dtype, d, dv, bq, bk, _aligned(q, k, v))
     scale = d ** -0.5 if scale is None else scale
     has_win, win = build.window_args(window, sq, sk)
     has_thr, thr = (0, 0.0) if threshold is None else (1, float(threshold))
     out = torch.empty((b, hq, sq, dv), dtype=q.dtype, device=q.device)
-    name = attend_route(q.dtype, d, dv, bq, bk,
-                        all(t.data_ptr() % 16 == 0 for t in (q, k, v)))
+    name = f"a3_sparse_attend_{route}"
     fn = build.entry(SOURCE, *_ARGTYPES[name])
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_indices.data_ptr(),
             kv_counts.data_ptr(), rowmax.data_ptr(), out.data_ptr())
     tail = (scale, int(causal), has_win, win, has_thr, thr,
             build.stream(q.device))
-    if name == "a3_sparse_attend_wgmma":
+    if route == "wgmma":
         err = fn(*ptrs, b, hq, hkv, sq, sk, d, dv, maxb, *tail)
     else:
         err = fn(*ptrs, int(q.dtype == torch.bfloat16), b, hq, hkv, sq, sk,
@@ -328,7 +363,8 @@ def a3_sparse_attention(
     block_k: int = 128,
 ) -> torch.Tensor:
     """Block-sparse A^3 attention with the GQA group folded into the rows
-    (the reference's arguments minus ``interpret``): kernel #5, then #6.
+    (the reference's arguments minus ``interpret``): kernel #5, then #6,
+    both on the route :func:`sparse_route` picks for the pair.
 
     ``kv_indices``/``kv_counts`` are per kv head; per-query-head maps are
     unioned across each GQA group first (a superset)."""
@@ -344,6 +380,9 @@ def a3_sparse_attention(
                                                     group, nk)
     kw = dict(causal=causal, window=window, scale=scale, block_q=block_q,
               block_k=block_k)
+    kw["route"] = sparse_route(q.dtype, q.shape[3], v.shape[3],
+                               min(block_q, q.shape[2]),
+                               min(block_k, k.shape[2]), _aligned(q, k, v))
     rm = sparse_rowmax(q, k, kv_indices, kv_counts, **kw)
     return sparse_attend(q, k, v, kv_indices, kv_counts, rm,
                          threshold=threshold, **kw)

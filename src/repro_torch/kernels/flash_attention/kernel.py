@@ -7,7 +7,7 @@ hand-written CUDA C++ in ``repro_torch/csrc/flash_attention.cu`` (see the
 note there for the bound and the design), one per route, chosen from the
 dtype and head dims before the launch (``kernel_route``): bf16 with D and
 Dv multiples of 16 up to 128 runs on the tensor cores (wgmma + TMA),
-float32 and every other head dim on the CUDA cores.
+float32 and every other head dim (up to 256) on the CUDA cores.
 
 The device of the tensors decides the route: CUDA tensors launch the
 kernel (or raise), CPU tensors take the plain PyTorch version, which
@@ -28,7 +28,8 @@ from repro_torch.kernels import build
 
 NEG_INF = -1e30
 SOURCE = "flash_attention.cu"
-MAX_HEAD_DIM = 128          # a thread holds 8 value columns (8 x 16)
+MAX_HEAD_DIM = 256          # a CUDA-core thread holds 16 value columns
+WGMMA_MAX_HEAD_DIM = 128    # the tensor-core kernel's head dims
 
 # launches per route: the tensor-core kernel and the CUDA-core kernel
 LAUNCHES = {"flash_attention_wgmma": 0, "flash_attention_simt": 0}
@@ -54,9 +55,9 @@ def kernel_route(dtype: torch.dtype, d: int, dv: int, aligned: bool = True,
     ``"flash_attention_wgmma"`` for bf16 with D and Dv multiples of 16 up
     to 128, 16-byte aligned q/k/v (what the wgmma tiles and TMA take) and
     a positive scale (its softmax takes the row max of unscaled scores),
-    else ``"flash_attention_simt"`` (float32, other head dims)."""
+    else ``"flash_attention_simt"`` (float32, other head dims up to 256)."""
     if dtype == torch.bfloat16 and aligned and scale > 0 and \
-            all(x % 16 == 0 and 0 < x <= MAX_HEAD_DIM for x in (d, dv)):
+            all(x % 16 == 0 and 0 < x <= WGMMA_MAX_HEAD_DIM for x in (d, dv)):
         return "flash_attention_wgmma"
     return "flash_attention_simt"
 

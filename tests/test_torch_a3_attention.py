@@ -224,6 +224,24 @@ def test_sparse_small_blocks_and_window_match_pallas(jx, window=96):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("threshold", [None, 2.0])
+def test_sparse_plain_head_dim_256_matches_pallas(jx, threshold, dtype):
+    """gemma3-4b's head dim (D = Dv = 256) at S = 256 with 128 x 128
+    blocks, GQA 2: the plain versions of #5 and #6 against the Pallas
+    kernels in interpret mode."""
+    arrs, tt = _qkv(256 + int(threshold or 0), 1, 4, 2, 256, 256, dtype)
+    bm = _random_map(256, 1, 2, 2, 2, 0.5)
+    idx, cnt = jx.k.build_block_map(jx.jnp.asarray(bm))
+    ref = jx.k.a3_sparse_attention(*_jax(jx, arrs, dtype), idx, cnt,
+                                   threshold=threshold, causal=True,
+                                   interpret=True)
+    tidx, tcnt = tak.build_block_map(torch.from_numpy(bm))
+    out = tak.a3_sparse_attention(*tt, tidx, tcnt, threshold=threshold)
+    assert tuple(out.shape) == (1, 4, 256, 256) and out.dtype == tt[0].dtype
+    np.testing.assert_allclose(N(out), N(ref), **tol(dtype))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
 def test_sparse_ref_matches_jax_ref(jx, dtype):
     arrs, tt = _qkv(4, 1, 4, 2, 256, 32, dtype)
     bm = _random_map(4, 1, 2, 2, 2, 0.5)              # per kv head
@@ -236,7 +254,7 @@ def test_sparse_ref_matches_jax_ref(jx, dtype):
     np.testing.assert_allclose(N(out), N(ref), **tol(dtype))
 
 
-def test_cpu_route_is_plain_and_counts_no_launch():
+def test_cpu_route_is_plain_and_counts_launched():
     _, tt = _qkv(1, 1, 2, 1, 256, 32, "float32")
     tidx, tcnt = tak.build_block_map(torch.ones(1, 1, 2, 2, dtype=torch.bool))
     before = dict(tak.LAUNCHES)
@@ -384,28 +402,97 @@ def test_cuda_a3_attention_matches_cpu(cuda, mode):
 
 
 # ---------------------------------------------------------------------------
-# the attend kernel's routes (#6)
+# the routes of the pair (#5 and #6)
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("dtype,d,dv,bq,bk,aligned,want", [
-    (torch.bfloat16, 128, 128, 128, 128, True, "a3_sparse_attend_wgmma"),
-    (torch.bfloat16, 64, 64, 128, 128, True, "a3_sparse_attend_wgmma"),
-    (torch.bfloat16, 32, 96, 128, 128, True, "a3_sparse_attend_wgmma"),
-    (torch.bfloat16, 128, 128, 64, 128, True, "a3_sparse_attend_simt"),
-    (torch.bfloat16, 128, 128, 128, 32, True, "a3_sparse_attend_simt"),
-    (torch.bfloat16, 72, 72, 128, 128, True, "a3_sparse_attend_simt"),
-    (torch.bfloat16, 128, 40, 128, 128, True, "a3_sparse_attend_simt"),
-    (torch.bfloat16, 144, 144, 128, 128, True, "a3_sparse_attend_simt"),
-    (torch.bfloat16, 128, 128, 128, 128, False, "a3_sparse_attend_simt"),
-    (torch.float32, 128, 128, 128, 128, True, "a3_sparse_attend_simt"),
+    (torch.bfloat16, 128, 128, 128, 128, True, "wgmma"),
+    (torch.bfloat16, 64, 64, 128, 128, True, "wgmma"),
+    (torch.bfloat16, 32, 96, 128, 128, True, "wgmma"),
+    (torch.bfloat16, 128, 128, 64, 128, True, "simt"),
+    (torch.bfloat16, 128, 128, 128, 32, True, "simt"),
+    (torch.bfloat16, 72, 72, 128, 128, True, "simt"),
+    (torch.bfloat16, 128, 40, 128, 128, True, "simt"),
+    (torch.bfloat16, 144, 144, 128, 128, True, "simt"),
+    (torch.bfloat16, 256, 256, 128, 128, True, "simt"),
+    (torch.bfloat16, 128, 128, 128, 128, False, "simt"),
+    (torch.float32, 128, 128, 128, 128, True, "simt"),
+    (torch.float32, 256, 256, 128, 128, True, "simt"),
 ])
 def test_attend_route_by_dtype_head_dims_and_blocks(dtype, d, dv, bq, bk,
                                                     aligned, want):
-    """The attend kernel a CUDA call takes is a function of dtype, head
-    dims, block sizes and alignment, decided before the launch."""
-    assert tak.attend_route(dtype, d, dv, bq, bk, aligned) == want
-    assert set(tak.LAUNCHES) == {"a3_sparse_rowmax", "a3_sparse_attend_wgmma",
+    """The route a CUDA call of the pair takes is a function of dtype,
+    head dims, block sizes and alignment, decided before the launches;
+    each kernel counts its launches per route."""
+    assert tak.sparse_route(dtype, d, dv, bq, bk, aligned) == want
+    assert set(tak.LAUNCHES) == {"a3_sparse_rowmax_wgmma",
+                                 "a3_sparse_rowmax_simt",
+                                 "a3_sparse_attend_wgmma",
                                  "a3_sparse_attend_simt"}
+
+
+@pytest.fixture
+def fake_launches(monkeypatch):
+    """The wrappers' kernel route on CPU tensors with every C entry
+    replaced by a no-op that reports success: what each wrapper would
+    launch shows in ``LAUNCHES`` (the outputs are left unwritten)."""
+    from repro_torch.kernels import build
+    monkeypatch.setattr(build, "route", lambda t: "kernel")
+    monkeypatch.setattr(build, "entry", lambda *a: (lambda *x: 0))
+    monkeypatch.setattr(build, "stream", lambda dev: 0)
+    saved = dict(tak.LAUNCHES)
+    tak.reset_launch_counts()
+    yield
+    tak.LAUNCHES.update(saved)
+
+
+@pytest.mark.parametrize("dtype,d,dv,block,want", [
+    ("bfloat16", 128, 128, 128, "wgmma"),
+    ("bfloat16", 64, 32, 128, "wgmma"),
+    ("bfloat16", 128, 72, 128, "simt"),      # #5 alone would take wgmma
+    ("bfloat16", 128, 128, 64, "simt"),
+    ("bfloat16", 256, 256, 128, "simt"),
+    ("bfloat16", 128, 256, 128, "simt"),
+    ("float32", 128, 128, 128, "simt"),
+    ("float32", 256, 256, 128, "simt"),
+])
+def test_pair_takes_one_route_for_both_passes(fake_launches, dtype, d, dv,
+                                              block, want):
+    """a3_sparse_attention decides the route once: #5 and #6 always run
+    on the same engine (so they score q.k in the same order), and head
+    dims above 128 go to the CUDA-core kernels."""
+    _, tt = _qkv(3, 1, 4, 2, 256, d, dtype, dv=dv)
+    tidx, tcnt = tak.build_block_map(torch.ones(1, 2, 256 // block,
+                                                256 // block,
+                                                dtype=torch.bool))
+    tak.a3_sparse_attention(*tt, tidx, tcnt, threshold=0.0, block_q=block,
+                            block_k=block)
+    assert tak.LAUNCHES == {name: int(name.endswith(want))
+                            for name in tak.LAUNCHES}
+
+
+def test_rowmax_alone_routes_on_its_own_head_dim(fake_launches):
+    """Called alone, #5 decides from (D, D); a route the call cannot take
+    raises before any launch."""
+    _, tt = _qkv(3, 1, 4, 2, 256, 128, "bfloat16")
+    tidx, tcnt = tak.build_block_map(torch.ones(1, 2, 2, 2,
+                                                dtype=torch.bool))
+    tak.sparse_rowmax(tt[0], tt[1], tidx, tcnt)
+    tak.sparse_rowmax(tt[0], tt[1], tidx, tcnt, route="simt")
+    assert tak.LAUNCHES["a3_sparse_rowmax_wgmma"] == 1
+    assert tak.LAUNCHES["a3_sparse_rowmax_simt"] == 1
+    with pytest.raises(ValueError, match="route"):
+        tak.sparse_rowmax(tt[0].float(), tt[1].float(), tidx, tcnt,
+                          route="wgmma")
+    with pytest.raises(ValueError, match="route"):
+        tak.sparse_attend(*tt, tidx, tcnt, torch.zeros(1, 2, 2, 256),
+                          route="cuda")
+    assert sum(tak.LAUNCHES.values()) == 2
+
+
+def _launched(**routes):
+    """A LAUNCHES dict with the given counts and zeros elsewhere."""
+    return {name: routes.get(name, 0) for name in tak.LAUNCHES}
 
 
 def _attend_map(kind, b, hkv, nq, device):
@@ -450,9 +537,7 @@ def test_cuda_sparse_attend_wgmma_route_matches_plain(cuda, case):
     tak.reset_launch_counts()
     out = tak.sparse_attend(tq, tk_, tv, idx, cnt, rm, threshold=thr,
                             window=window)
-    assert tak.LAUNCHES == {"a3_sparse_rowmax": 0,
-                            "a3_sparse_attend_wgmma": 1,
-                            "a3_sparse_attend_simt": 0}
+    assert tak.LAUNCHES == _launched(a3_sparse_attend_wgmma=1)
     want = tak.sparse_attend_plain(tq, tk_, tv, idx, cnt, rm, threshold=thr,
                                    window=window)
     np.testing.assert_allclose(N(out), N(want), **tol("bfloat16"))
@@ -477,9 +562,137 @@ def test_cuda_sparse_attend_simt_route_matches_plain(cuda, dtype, d, block):
     rm = tak.sparse_rowmax(tq, tk_, idx, cnt, **kw)
     tak.reset_launch_counts()
     out = tak.sparse_attend(tq, tk_, tv, idx, cnt, rm, threshold=3.0, **kw)
-    assert tak.LAUNCHES == {"a3_sparse_rowmax": 0,
-                            "a3_sparse_attend_wgmma": 0,
-                            "a3_sparse_attend_simt": 1}
+    assert tak.LAUNCHES == _launched(a3_sparse_attend_simt=1)
     want = tak.sparse_attend_plain(tq, tk_, tv, idx, cnt, rm, threshold=3.0,
                                    **kw)
+    np.testing.assert_allclose(N(out), N(want), **tol(dtype))
+
+
+# ---------------------------------------------------------------------------
+# the row-max kernel's routes (#5), the pair at threshold 0, head dim 256
+# ---------------------------------------------------------------------------
+
+def _edge_map(kind, b, hkv, nq, nk, device):
+    """kv_indices / kv_counts per kv head over nq q blocks and nk kv
+    blocks (Sq <= Sk, queries at the end): "empty" (no live block),
+    "random" (density 0.5, where q block 0 lists only the last kv block,
+    which lies above its diagonal when Sq > 128, and the last q block
+    lists two dead ids, -1 and nk + 3, beside blocks 0 and nk - 1), or
+    "capped" (every block live but only 2 slots kept, with kv_counts
+    still above maxb)."""
+    if kind == "empty":
+        idx, cnt = tak.build_block_map(
+            torch.zeros(b, hkv, nq, nk, dtype=torch.bool))
+    elif kind == "capped":
+        idx, cnt = tak.build_block_map(
+            torch.ones(b, hkv, nq, nk, dtype=torch.bool), 2)
+        cnt[:] = nk + 1
+    else:
+        bm = _random_map(32, b, hkv, nq, nk, 0.5)
+        bm[:, :, 0] = False
+        bm[:, :, 0, nk - 1] = True
+        idx, cnt = tak.build_block_map(torch.from_numpy(bm))
+        idx[:, :, nq - 1, :4] = torch.tensor([-1, 0, nk + 3, nk - 1],
+                                             dtype=torch.int32)
+        cnt[:, :, nq - 1] = 4
+    return idx.to(device), cnt.to(device)
+
+
+ROWMAX_CASES = [(kind, g, sq, window)
+                for kind in ("empty", "random", "capped")
+                for g in (1, 3)
+                for sq, window in ((512, None), (512, 200), (256, None))]
+
+
+def _check_rowmax(cuda, dtype, d, block, case, route):
+    kind, g, sq, window = case
+    b, hkv, sk = 2, 2, 512
+    _, tt = _qkv(60 + g, b, g * hkv, hkv, sk, d, dtype)
+    tq, tk_ = tt[0][:, :, sk - sq:].contiguous().to(cuda), tt[1].to(cuda)
+    idx, cnt = _edge_map(kind, b, hkv, sq // block, sk // block, cuda)
+    kw = dict(window=window, block_q=block, block_k=block)
+    tak.reset_launch_counts()
+    rm = tak.sparse_rowmax(tq, tk_, idx, cnt, **kw)
+    assert tak.LAUNCHES == _launched(**{f"a3_sparse_rowmax_{route}": 1})
+    want = tak.sparse_rowmax_plain(tq, tk_, idx, cnt, **kw)
+    np.testing.assert_allclose(N(rm), N(want), **tol(dtype))
+    empty = want == tak.NEG_INF
+    assert bool((rm[empty] == tak.NEG_INF).all())     # -1e30, never -inf
+    if kind == "empty":
+        assert bool(empty.all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ROWMAX_CASES, ids=str)
+def test_cuda_sparse_rowmax_wgmma_route_matches_plain(cuda, case):
+    """On the card: bf16 row-max calls with 128 x 128 blocks take the
+    tensor-core kernel and agree with the plain version on empty, random
+    and capped live lists (rows with nothing admitted at -1e30, dead ids,
+    kv_counts above maxb), GQA groups 1 and 3, a window and a 256-row
+    continuation of a 512-key prefix."""
+    _check_rowmax(cuda, "bfloat16", 128, 128, case, "wgmma")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,d,block", [("float32", 128, 128),
+                                           ("bfloat16", 72, 128),
+                                           ("bfloat16", 128, 64),
+                                           ("bfloat16", 256, 128)])
+@pytest.mark.parametrize("case", [c for c in ROWMAX_CASES if c[1] == 3],
+                         ids=str)
+def test_cuda_sparse_rowmax_simt_route_matches_plain(cuda, case, dtype, d,
+                                                     block):
+    """On the card: float32, and bf16 at a head dim or block size the
+    tensor-core kernel does not take, run the CUDA-core row max, on the
+    same edge cases."""
+    _check_rowmax(cuda, dtype, d, block, case, "simt")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,d", [("bfloat16", 128), ("float32", 128),
+                                     ("bfloat16", 256)])
+def test_cuda_sparse_pair_threshold_zero_keeps_the_max(cuda, dtype, d):
+    """At threshold 0 pass 2 keeps exactly the entries equal to pass 1's
+    row max, so every row that admits an entry keeps its maximum and
+    returns a non-zero row (V at the argmax), as the reference does: the
+    two passes must score q.k in the same order. phi4-mini's attention
+    width at S = 2048 (gemma3-4b's at D = 256), a random map of density
+    0.5 with the diagonal kept."""
+    hq, hkv = (24, 8) if d == 128 else (8, 4)
+    _, tt = _qkv(70 + d, 1, hq, hkv, 2048, d, dtype)
+    tq, tk_, tv = [t.to(cuda) for t in tt]
+    bm = torch.from_numpy(_random_map(70, 1, hq, 16, 16, 0.5)).to(cuda)
+    idx, cnt = tak.union_block_map_gqa(*tak.build_block_map(bm),
+                                       hq // hkv, 16)
+    out = tak.a3_sparse_attention(tq, tk_, tv, idx, cnt, threshold=0.0)
+    admits = (tak.sparse_rowmax_plain(tq, tk_, idx, cnt) > tak.NEG_INF)
+    admits = admits.reshape(1, hq, 2048)
+    zero = (out == 0).all(-1)
+    assert bool(admits.all())                 # the diagonal is live
+    assert int((zero & admits).sum()) == 0, \
+        f"{int((zero & admits).sum())} admitting rows came back as 0"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("window,threshold", [(None, 3.0), (300, None)])
+def test_cuda_sparse_head_dim_256_matches_plain(cuda, window, threshold,
+                                                dtype):
+    """On the card: #5 and #6 at gemma3-4b's attention width (Hq=8,
+    Hkv=4, D = Dv = 256) take the CUDA-core kernels and agree with their
+    plain versions (#6 given #5's row max, as the pair runs)."""
+    _, tt = _qkv(80, 1, 8, 4, 512, 256, dtype)
+    tq, tk_, tv = [t.to(cuda) for t in tt]
+    idx, cnt = _edge_map("random", 1, 4, 4, 4, cuda)
+    tak.reset_launch_counts()
+    rm = tak.sparse_rowmax(tq, tk_, idx, cnt, window=window)
+    np.testing.assert_allclose(N(rm), N(tak.sparse_rowmax_plain(
+        tq, tk_, idx, cnt, window=window)), **tol(dtype))
+    out = tak.sparse_attend(tq, tk_, tv, idx, cnt, rm, threshold=threshold,
+                            window=window)
+    assert tak.LAUNCHES == _launched(a3_sparse_rowmax_simt=1,
+                                     a3_sparse_attend_simt=1)
+    want = tak.sparse_attend_plain(tq, tk_, tv, idx, cnt, rm,
+                                   threshold=threshold, window=window)
+    assert tuple(out.shape) == (1, 8, 512, 256)
     np.testing.assert_allclose(N(out), N(want), **tol(dtype))

@@ -151,6 +151,8 @@ def test_cuda_flash_matches_plain(cuda, sq, window, dtype):
     (torch.bfloat16, 72, 72, True, 0.1, "flash_attention_simt"),   # not x16
     (torch.bfloat16, 128, 40, True, 0.1, "flash_attention_simt"),
     (torch.bfloat16, 144, 144, True, 0.1, "flash_attention_simt"),  # > 128
+    (torch.bfloat16, 256, 256, True, 0.1, "flash_attention_simt"),
+    (torch.float32, 256, 256, True, 0.1, "flash_attention_simt"),
     (torch.bfloat16, 128, 128, False, 0.1, "flash_attention_simt"),
     (torch.bfloat16, 128, 128, True, -0.1, "flash_attention_simt"),
     (torch.float32, 128, 128, True, 0.1, "flash_attention_simt"),
@@ -204,4 +206,48 @@ def test_cuda_flash_simt_route_matches_plain(cuda, dtype, d):
     assert tfk.LAUNCHES == {"flash_attention_wgmma": 0,
                             "flash_attention_simt": 1}
     want = tfk.flash_attention_plain(tq, tk_, tv, window=160)
+    np.testing.assert_allclose(N(out), N(want), **tol(dtype))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("window", [None, 96])
+def test_flash_plain_head_dim_256_matches_pallas(jx, window, dtype):
+    """gemma3-4b's head dim (D = Dv = 256) at S = 256 with 128-row
+    blocks, GQA 2: the plain version against the Pallas kernel in
+    interpret mode."""
+    arrs, tt = _qkv(256, 1, 4, 2, 256, 256, 256, 256, dtype)
+    ref = jx.flash(*_jax(jx, arrs, dtype), causal=True, window=window,
+                   interpret=True)
+    out = tfk.flash_attention(*tt, causal=True, window=window)
+    assert tuple(out.shape) == (1, 4, 256, 256) and out.dtype == tt[0].dtype
+    np.testing.assert_allclose(N(out), N(ref), **tol(dtype))
+
+
+# (b, hq, hkv, sq, sk, d, dv, window): head dims above the tensor cores'
+HEAD_DIM_256_CASES = [
+    (1, 1, 1, 128, 128, 256, 256, None),     # the smallest input
+    (1, 8, 4, 2048, 2048, 256, 256, None),   # gemma3-4b's attention width
+    (1, 8, 4, 2048, 2048, 256, 256, 1024),   # and its sliding window
+    (1, 8, 4, 512, 2048, 256, 256, None),    # a continuation
+    (1, 4, 2, 256, 256, 256, 128, None),     # Dv = 128 beside D = 256
+    (1, 4, 2, 256, 256, 64, 200, 100),       # Dv in (128, 256]
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("case", HEAD_DIM_256_CASES, ids=str)
+def test_cuda_flash_head_dim_256_matches_plain(cuda, case, dtype):
+    """On the card: head dims up to 256 take the CUDA-core kernel (16
+    value columns a thread) and agree with the plain version; bf16
+    [1, 1, 128, 256] returns [1, 1, 128, 256]."""
+    b, hq, hkv, sq, sk, d, dv, window = case
+    _, tt = _qkv(d + dv, b, hq, hkv, sq, sk, d, dv, dtype)
+    tq, tk_, tv = [t.to(cuda) for t in tt]
+    tfk.reset_launch_counts()
+    out = tfk.flash_attention(tq, tk_, tv, window=window)
+    assert tfk.LAUNCHES == {"flash_attention_wgmma": 0,
+                            "flash_attention_simt": 1}
+    assert tuple(out.shape) == (b, hq, sq, dv) and out.dtype == tq.dtype
+    want = tfk.flash_attention_plain(tq, tk_, tv, window=window)
     np.testing.assert_allclose(N(out), N(want), **tol(dtype))
