@@ -11,13 +11,18 @@ first phase that does not hold:
 2. holds decode-attention kernels #1-#3 (fused, row max, attend) against
    their plain PyTorch versions at the serving shape (B=4, Hq=24, Hkv=8,
    S=512, D=128, bf16, random masks with empty rows), thresholds None and
-   3.0, block_k 512 and 128, within 2e-2; times each kernel with CUDA
+   3.0, block_k 512 and 128, within 2e-2, and the two-pass pair at
+   threshold 0 (every row that admits an entry keeps its maximum, bf16
+   and float32); prints each cluster size; times each kernel with CUDA
    events over inputs that exceed the 50 MB L2 (as the 32 layers of a
-   decode step do), its plain version, and the
+   decode step do) and by the device time per launch from
+   ``torch.profiler`` (the event loop measures the host's enqueue once a
+   call takes less device time than the wrapper's Python), beside its
+   plain version, its bound and, for #1, the
    ``scaled_dot_product_attention`` yardstick (timed only; the port never
-   calls it); for the fused kernel and SDPA also the device time per call
-   from ``torch.profiler`` (the event loop measures the host's enqueue
-   once a call takes less device time than the wrapper's Python);
+   calls it); then a long ring (S=4096, 2 input sets of 67 MB of K/V):
+   #1-#3 against their plain versions once, the threshold-0 check, and
+   each kernel by events and device time beside its bound;
 3. main path: serves phi4-mini-3.8b at full width (random bf16 weights
    from seed 0; 4 slots, max_len 512, 8 requests of 64-token prompts, 16
    new tokens) through ``ServeEngine`` with A^3 off at decode_block 1 and
@@ -52,7 +57,8 @@ first phase that does not hold:
    routes taken; (d) #4-#6 at gemma3-4b's attention width (Hq=8, Hkv=4,
    S=2048, D=Dv=256; bf16 and float32, causal and window 1024) against
    their plain versions, all on their CUDA-core routes, then their times
-   in bf16 beside SDPA's at the same shape;
+   in bf16 beside SDPA's at the same shape and their bounds, computed as
+   (a) computes them;
 8. xLSTM: (a) the chunkwise mLSTM kernel #7 against its plain version at
    xlstm-350m's heads (B=4, H=4, S=2048, D=256, bf16 streams, float32
    gates, chunk 256) from the zero state, from a random carried state
@@ -69,8 +75,9 @@ first phase that does not hold:
    (c) the TINY_XL f32 engine on the card vs the CPU: greedy tokens
    identical, #7 on its CUDA-core route.
 
-Prints one JSON line of per-kernel numbers (rows #1 and #4-#7 with
-``device_ms``, the profiler's device time per launch), then, last,
+Prints one JSON line of per-kernel numbers (every row with
+``device_ms``, the profiler's device time per launch; rows #1-#3 with
+``s4096``, the long ring's ms, device ms and bound), then, last,
 ``{"ok": true, "device": {...}}``. Exits non-zero, with no result line,
 when CUDA is unavailable or the port's sources are not beside the script.
 """
@@ -203,10 +210,11 @@ def ptxas_report(text):
 # phase 2: kernels vs plain versions
 # ---------------------------------------------------------------------------
 
-def make_inputs(seed, dev):
+def make_inputs(seed, dev, s=None):
     import torch
     g = torch.Generator(device=dev).manual_seed(seed)
-    b, hq, hkv, s, d = (SHAPE[k] for k in ("b", "hq", "hkv", "s", "d"))
+    b, hq, hkv, d = (SHAPE[k] for k in ("b", "hq", "hkv", "d"))
+    s = s or SHAPE["s"]
     q = torch.randn((b, hq, d), generator=g, device=dev).bfloat16()
     k = torch.randn((b, hkv, s, d), generator=g, device=dev).bfloat16()
     v = torch.randn((b, hkv, s, d), generator=g, device=dev).bfloat16()
@@ -241,8 +249,60 @@ def needed_bytes_flops(q, k, v, mask, keep, out_bytes, extra_in=0):
     return nbytes, flops
 
 
-def phase_kernels(dev):
+def mean_bound(needs):
+    """bound() of the mean (bytes, operations) over input sets."""
+    nb, fl = zip(*needs)
+    return bound(sum(nb) / len(nb), sum(fl) / len(fl))
+
+
+def decode_keep(q, k, mask, rm, thr):
+    """The entries the attend pass keeps: mask & s >= rowmax - thr."""
     import torch
+    hq, hkv, d = q.shape[1], k.shape[1], q.shape[2]
+    sc = torch.einsum("bhd,bhkd->bhk", q.float(),
+                      k.float().repeat_interleave(hq // hkv, 1))
+    return mask & (sc * d ** -0.5 >= rm[..., None] - thr)
+
+
+def decode_bounds(sets, rms, thr):
+    """Bounds of #1 (no threshold), #2 and #3 (threshold ``thr``, given
+    #2's row maxima ``rms``) over the input sets."""
+    b, hq, d = sets[0][0].shape
+    out = b * hq * d * 2
+    return {
+        "fused": mean_bound([needed_bytes_flops(q, k, v, m, m, out)
+                             for q, k, v, m in sets]),
+        "rowmax": mean_bound([needed_bytes_flops(q, k, None, m, m,
+                                                 b * hq * 4)
+                              for q, k, v, m in sets]),
+        "attend": mean_bound([needed_bytes_flops(
+            q, k, v, m, decode_keep(q, k, m, rm, thr), out,
+            extra_in=b * hq * 4) for (q, k, v, m), rm in zip(sets, rms)]),
+    }
+
+
+def two_pass_threshold_zero(q, k, v, mask, label):
+    """At threshold 0 the attend kernel (#3) keeps exactly the entries
+    whose score equals the row-max kernel's (#2) maximum, so every row
+    whose mask admits an entry must come back non-zero (V at its argmax),
+    in bf16 and float32: both kernels must score q.k into the same
+    floats."""
+    from repro_torch.kernels.decode_attention import kernel as tk
+    admits = mask.any(-1)
+    for dtype in ("bf16", "f32"):
+        qq, kk, vv = (q, k, v) if dtype == "bf16" else \
+            (q.float(), k.float(), v.float())
+        out = tk.attend(qq, kk, vv, mask, tk.rowmax(qq, kk, mask),
+                        threshold=0.0)
+        lost = int(((out == 0).all(-1) & admits).sum())
+        check(lost == 0, f"two-pass threshold 0 ({label}, {dtype}): {lost} "
+                         f"of {int(admits.sum())} admitting rows came back 0")
+    log(f"  two-pass threshold 0 ({label}, bf16 and f32): all "
+        f"{int(admits.sum())} admitting rows keep their maximum (non-zero "
+        f"output)")
+
+
+def phase_kernels(dev):
     import torch.nn.functional as F
     from repro_torch.kernels.decode_attention import kernel as tk
 
@@ -275,6 +335,7 @@ def phase_kernels(dev):
                 f"max_abs_err fused {errs['fused']:.3g} rowmax "
                 f"{errs['rowmax']:.3g} attend {errs['attend']:.3g} "
                 f"(tolerance atol {TOL['atol']} + rtol {TOL['rtol']})")
+    two_pass_threshold_zero(q, k, v, mask, f"S={SHAPE['s']}")
     sync(dev)
 
     # timed configuration: each kernel as its path calls it (block_k 512;
@@ -282,8 +343,6 @@ def phase_kernels(dev):
     # pair with the conservative threshold)
     thr = 3.0
     rms = [tk.rowmax(*(s_[0], s_[1], s_[3])) for s_ in sets]
-    b, hq = SHAPE["b"], SHAPE["hq"]
-    hkv, d = SHAPE["hkv"], SHAPE["d"]
     sdpa_sets = [(x[0][:, :, None], x[1], x[2], x[3][:, :, None])
                  for x in sets]
 
@@ -291,58 +350,98 @@ def phase_kernels(dev):
         return F.scaled_dot_product_attention(q4, k4, v4, attn_mask=m4,
                                               enable_gqa=True)
 
-    def keep_of(qq, kk, mm, rm=None):
-        sc = torch.einsum("bhd,bhkd->bhk", qq.float(),
-                          kk.float().repeat_interleave(hq // hkv, 1))
-        sc = sc * d ** -0.5
-        return mm if rm is None else mm & (sc >= rm[..., None] - thr)
-
-    def mean_bound(fn):
-        nb, fl = zip(*(fn(i) for i in range(N_SETS)))
-        return bound(sum(nb) / N_SETS, sum(fl) / N_SETS)
-
+    bounds = decode_bounds(sets, rms, thr)
     res = {}
-    fused_bound = mean_bound(lambda i: needed_bytes_flops(
-        sets[i][0], sets[i][1], sets[i][2], sets[i][3], sets[i][3],
-        b * hq * d * 2))
     res["fused"] = dict(
         ms=cuda_ms(lambda *x: tk.fused(*x), sets, 200),
         plain_ms=cuda_ms(lambda *x: tk.fused_plain(*x), sets, 20),
-        library_ms=cuda_ms(sdpa, sdpa_sets, 200), bound=fused_bound,
+        library_ms=cuda_ms(sdpa, sdpa_sets, 200), bound=bounds["fused"],
         device_ms=device_ms(lambda *x: tk.fused(*x), sets, 200, True),
         library_device_ms=device_ms(sdpa, sdpa_sets, 200))
     log(f"  fused: cluster of {tk.cluster_size(SHAPE['s'], 512)} CTAs per "
-        f"(batch, kv head), {SHAPE['b'] * SHAPE['hkv']} clusters")
-    rowmax_bound = mean_bound(lambda i: needed_bytes_flops(
-        sets[i][0], sets[i][1], None, sets[i][3], sets[i][3],
-        b * hq * 4))
+        f"(batch, kv head); two-pass: cluster of "
+        f"{tk.two_pass_cluster_size(SHAPE['s'])}; "
+        f"{SHAPE['b'] * SHAPE['hkv']} clusters each")
     rsets = [(x[0], x[1], x[3]) for x in sets]
     res["rowmax"] = dict(
         ms=cuda_ms(lambda *x: tk.rowmax(*x), rsets, 200),
         plain_ms=cuda_ms(lambda *x: tk.rowmax_plain(*x), rsets, 20),
-        library_ms=None, bound=rowmax_bound)
+        library_ms=None, bound=bounds["rowmax"],
+        device_ms=device_ms(lambda *x: tk.rowmax(*x), rsets, 200, True))
     asets = [(x[0], x[1], x[2], x[3], rm) for x, rm in zip(sets, rms)]
-    attend_bound = mean_bound(lambda i: needed_bytes_flops(
-        sets[i][0], sets[i][1], sets[i][2], sets[i][3],
-        keep_of(sets[i][0], sets[i][1], sets[i][3], rms[i]),
-        b * hq * d * 2, extra_in=b * hq * 4))
     res["attend"] = dict(
         ms=cuda_ms(lambda *x: tk.attend(*x, threshold=thr), asets, 200),
         plain_ms=cuda_ms(lambda *x: tk.attend_plain(*x, threshold=thr),
                          asets, 20),
-        library_ms=None, bound=attend_bound)
+        library_ms=None, bound=bounds["attend"],
+        device_ms=device_ms(lambda *x: tk.attend(*x, threshold=thr), asets,
+                            200, True))
     for name, r in res.items():
         lib = ("not applicable" if r["library_ms"] is None
                else f"{r['library_ms']:.4f} ms")
-        log(f"  {name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f}"
-            f" ms, library {lib}, bound {r['bound'][0]:.4f} ms "
+        log(f"  {name}: kernel {r['ms']:.4f} ms, device "
+            f"{fmt_ms(r['device_ms'])}, plain {r['plain_ms']:.4f} ms, "
+            f"library {lib}, bound {r['bound'][0]:.4f} ms "
             f"({r['bound'][1]}) [{CARD}]")
     r = res["fused"]
     log(f"  fused by device time per launch (torch.profiler): kernel "
         f"{fmt_ms(r['device_ms'])}, SDPA {fmt_ms(r['library_device_ms'])}; "
         f"by the event loop: kernel {r['ms']:.4f} ms, SDPA "
         f"{r['library_ms']:.4f} ms [{CARD}]")
+    for name, r in phase_long_ring(dev, errs, thr).items():
+        res[name]["s4096"] = r
     return errs, res
+
+
+LONG_S = 4096              # a long ring: 67 MB of K/V a set, > 50 MB of L2
+N_LONG_SETS = 2
+
+
+def phase_long_ring(dev, errs, thr):
+    """[2] at S=4096: #1-#3 against their plain versions once (block_k
+    512; #1 without threshold, the pair at ``thr``) and the threshold-0
+    check, then each kernel by events and by device time per launch
+    beside its bound (the plain versions are not timed)."""
+    from repro_torch.kernels.decode_attention import kernel as tk
+    sets = [make_inputs(50 + i, dev, s=LONG_S) for i in range(N_LONG_SETS)]
+    q, k, v, mask = sets[0]
+    rm = tk.rowmax(q, k, mask)
+    for name, got, want in (
+            ("fused", tk.fused(q, k, v, mask), tk.fused_plain(q, k, v, mask)),
+            ("rowmax", rm, tk.rowmax_plain(q, k, mask)),
+            ("attend", tk.attend(q, k, v, mask, rm, threshold=thr),
+             tk.attend_plain(q, k, v, mask, rm, threshold=thr))):
+        e, ok = max_err(got, want)
+        check(ok, f"{name} kernel disagrees with its plain version at "
+                  f"S={LONG_S}: {e}")
+        errs[name] = max(errs[name], e)
+    log(f"  S={LONG_S} vs plain: max_abs_err (all shapes so far) fused "
+        f"{errs['fused']:.3g} rowmax {errs['rowmax']:.3g} attend "
+        f"{errs['attend']:.3g}; clusters: fused "
+        f"{tk.cluster_size(LONG_S, 512)}, two-pass "
+        f"{tk.two_pass_cluster_size(LONG_S)}")
+    two_pass_threshold_zero(q, k, v, mask, f"S={LONG_S}")
+    rms = [tk.rowmax(x[0], x[1], x[3]) for x in sets]
+    bounds = decode_bounds(sets, rms, thr)
+    calls = {
+        "fused": (lambda *x: tk.fused(*x), sets),
+        "rowmax": (lambda *x: tk.rowmax(*x), [(x[0], x[1], x[3])
+                                               for x in sets]),
+        "attend": (lambda *x: tk.attend(*x, threshold=thr),
+                   [(*x, rm) for x, rm in zip(sets, rms)]),
+    }
+    res = {}
+    for name, (fn, args) in calls.items():
+        r = res[name] = dict(ms=cuda_ms(fn, args, 50),
+                             device_ms=device_ms(fn, args, 50, True),
+                             bound_ms=bounds[name][0],
+                             bound_by=bounds[name][1])
+        share = "" if r["device_ms"] is None else \
+            f", {r['device_ms'] / r['bound_ms']:.2f}x the bound"
+        log(f"  S={LONG_S} {name}: kernel {r['ms']:.4f} ms by events, "
+            f"{fmt_ms(r['device_ms'])} device, bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']}){share} [{CARD}]")
+    return res
 
 
 # ---------------------------------------------------------------------------
@@ -666,6 +765,35 @@ def sparse_need(q, k, idx, cnt, rm, thr):
     return admitted, int(keep.sum()), krows, int(keep.any(3).any(2).sum())
 
 
+def flash_bound(shape):
+    """Bound of #4 causal at ``shape``: q, k, v and the output moved once,
+    4*D operations per admitted pair."""
+    b, hq, hkv, s, d = (shape[x] for x in ("b", "hq", "hkv", "s", "d"))
+    nbytes = (2 * b * hq * s * d + 2 * b * hkv * s * d) * 2
+    return bound(nbytes, 4 * d * b * hq * flash_pairs(s, s))
+
+
+def prefill_bounds(sets, maps, rms, shape):
+    """(sparse_need per input set, bounds of #5 and #6 at t=T_CONS) over
+    bf16 q/k/v ``sets``, their block ``maps`` and #5's row maxima: q, the
+    maps, the K rows of live blocks (and for #6 the V rows with a kept
+    weight), the row maxima and #6's output moved once; 2*D operations
+    per admitted pair, + 2*Dv per kept pair in #6."""
+    b, hq, s, d = (shape[x] for x in ("b", "hq", "s", "d"))
+    need = [sparse_need(x[0], x[1], *m, rm, T_CONS)
+            for x, m, rm in zip(sets, maps, rms)]
+    map_bytes = maps[0][0].numel() * 4 + maps[0][1].numel() * 4
+    q_bytes = o_bytes = b * hq * s * d * 2
+    rm_bytes = b * hq * s * 4
+    return need, {
+        "rowmax": mean_bound([(q_bytes + n[2] * d * 2 + map_bytes + rm_bytes,
+                               2 * d * n[0]) for n in need]),
+        "attend": mean_bound([(q_bytes + n[2] * d * 2 + n[3] * d * 2
+                               + map_bytes + rm_bytes + o_bytes,
+                               2 * d * n[0] + 2 * d * n[1]) for n in need]),
+    }
+
+
 def phase_prefill_kernels(dev):
     """[7](a): kernels #4-#6 vs their plain versions at phi4-mini width,
     then their times, bounds and the library yardstick."""
@@ -725,8 +853,7 @@ def phase_prefill_kernels(dev):
     # timed: each over 4 input sets (> L2), as the path calls it
     sets = [prefill_inputs(200 + i, dev) for i in range(N_PREFILL_SETS)]
     maps = [random_map(200 + i, dev) for i in range(N_PREFILL_SETS)]
-    b, hq, hkv, s, d = (PREFILL[x] for x in ("b", "hq", "hkv", "s", "d"))
-    qkv_bytes = (b * hq * s * d + 2 * b * hkv * s * d) * 2
+    b, hq, s = (PREFILL[x] for x in ("b", "hq", "s"))
     res = {}
     def sdpa(*x):
         return F.scaled_dot_product_attention(*x, is_causal=True,
@@ -736,28 +863,17 @@ def phase_prefill_kernels(dev):
         ms=cuda_ms(lambda *x: fk.flash_attention(*x), sets, 50),
         plain_ms=cuda_ms(lambda *x: fk.flash_attention_plain(*x), sets, 4),
         library_ms=cuda_ms(sdpa, sets, 50),
-        bound=bound(qkv_bytes + b * hq * s * d * 2,
-                    4 * d * b * hq * flash_pairs(s, s)),
+        bound=flash_bound(PREFILL),
         device_ms=device_ms(lambda *x: fk.flash_attention(*x), sets, 50,
                             True),
         library_device_ms=device_ms(sdpa, sets, 50))
     rsets = [(x[0], x[1], *m) for x, m in zip(sets, maps)]
     rms = [ak.sparse_rowmax(*a) for a in rsets]
-    need = [sparse_need(x[0], x[1], *m, rm, T_CONS)
-            for x, m, rm in zip(sets, maps, rms)]
-    map_bytes = maps[0][0].numel() * 4 + maps[0][1].numel() * 4
-    q_bytes, o_bytes = b * hq * s * d * 2, b * hq * s * d * 2
-
-    def mean_bound(fn):
-        nb, fl = zip(*(fn(n) for n in need))
-        return bound(sum(nb) / len(nb), sum(fl) / len(fl))
-
+    need, bounds = prefill_bounds(sets, maps, rms, PREFILL)
     res["rowmax"] = dict(
         ms=cuda_ms(lambda *x: ak.sparse_rowmax(*x), rsets, 50),
         plain_ms=cuda_ms(lambda *x: ak.sparse_rowmax_plain(*x), rsets, 3),
-        library_ms=None,
-        bound=mean_bound(lambda n: (q_bytes + n[2] * d * 2 + map_bytes
-                                    + b * hq * s * 4, 2 * d * n[0])),
+        library_ms=None, bound=bounds["rowmax"],
         device_ms=device_ms(lambda *x: ak.sparse_rowmax(*x), rsets, 50,
                             True))
     asets = [(x[0], x[1], x[2], *m, rm) for x, m, rm in zip(sets, maps, rms)]
@@ -766,10 +882,7 @@ def phase_prefill_kernels(dev):
                    50),
         plain_ms=cuda_ms(lambda *x: ak.sparse_attend_plain(
             *x, threshold=T_CONS), asets, 3),
-        library_ms=None,
-        bound=mean_bound(lambda n: (q_bytes + n[2] * d * 2 + n[3] * d * 2
-                                    + map_bytes + b * hq * s * 4 + o_bytes,
-                                    2 * d * n[0] + 2 * d * n[1])),
+        library_ms=None, bound=bounds["attend"],
         device_ms=device_ms(lambda *x: ak.sparse_attend(*x, threshold=T_CONS),
                             asets, 50, True))
     n0 = need[0]
@@ -1060,6 +1173,14 @@ def phase_head_dim_256(dev):
     log("  at head dim 256, bf16 causal (density-0.5 maps for #5/#6): "
         + "; ".join(f"{n} {ms:.4f} ms by events, {fmt_ms(dms)} device"
                     for n, (ms, dms) in res.items()) + f" [{CARD}]")
+    _, bounds = prefill_bounds(sets, maps, [a[-1] for a in asets], GEMMA)
+    bounds["flash"] = flash_bound(GEMMA)
+    log("  bounds at head dim 256 (as [7a] computes them): "
+        + "; ".join(f"{n} {bounds[n][0]:.4f} ms ({bounds[n][1]}), device "
+                    f"{fmt_ms(res[n][1])} = "
+                    + ("not measured" if res[n][1] is None
+                       else f"{res[n][1] / bounds[n][0]:.1f}x")
+                    for n in ("flash", "rowmax", "attend")) + f" [{CARD}]")
     return res
 
 
@@ -1392,8 +1513,8 @@ def main() -> int:
                      "ms": r["ms"], "plain_ms": r["plain_ms"],
                      "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
                      "library_ms": r["library_ms"]})
-        if "device_ms" in r:
-            rows[-1]["device_ms"] = r["device_ms"]
+        rows[-1]["device_ms"] = r["device_ms"]
+        rows[-1]["s4096"] = r["s4096"]
     for name, key, src, jax_kernel, line, counted in (
             ("flash_attention", "flash", "flash_attention.cu",
              "flash_attention/kernel.py", 23, "flash_attention_wgmma"),

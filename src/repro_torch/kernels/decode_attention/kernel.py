@@ -4,9 +4,12 @@ Ports ``repro/kernels/decode_attention/kernel.py``: the fused
 single-pass online-softmax kernel (``_fused_kernel``) and the
 ``exact_two_pass`` pair (``_rowmax_kernel`` then ``_attend_kernel``),
 hand-written in CUDA C++ in ``repro_torch/csrc/decode_attention.cu``
-(see the note there for the bound and the design). The fused kernel
-runs a thread-block cluster of ``cluster_size(S, block_k)`` CTAs per
-(batch, kv head), each owning a slice of every ``block_k`` tile.
+(see the note there for the bound and the design). All three run a
+thread-block cluster per (batch, kv head): the fused kernel
+``cluster_size(S, block_k)`` CTAs, each owning a slice of every
+``block_k`` tile; the two-pass pair ``two_pass_cluster_size(S)`` CTAs,
+each owning a contiguous slice of the ring, both passes scoring with the
+one route ``score_route(k)`` picks from K alone.
 
 The device of the tensors decides the route: CUDA tensors launch the
 kernel (or raise), CPU tensors take the plain PyTorch version, which
@@ -30,7 +33,8 @@ NEG_INF = -1e30
 SOURCE = "decode_attention.cu"
 MAX_HEAD_DIM = 256          # the kernels hold a key row in 8 registers/lane
 MAX_CLUSTER = 4             # CTAs of the fused kernel per (batch, kv head)
-MIN_CLUSTER_KEYS = 32       # keys of a tile each CTA of a cluster keeps
+MAX_TWO_PASS_CLUSTER = 4    # CTAs of the two-pass kernels per (batch, kv head)
+MIN_CLUSTER_KEYS = 32       # keys each CTA of a cluster keeps (of a tile)
 
 LAUNCHES = {"decode_attention_fused": 0, "decode_attention_rowmax": 0,
             "decode_attention_attend": 0}
@@ -44,8 +48,8 @@ def reset_launch_counts() -> None:
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = {
     "decode_attention_fused": [_P] * 5 + [_I] * 9 + [_F, _I, _F, _P],
-    "decode_attention_rowmax": [_P] * 4 + [_I] * 7 + [_F, _P],
-    "decode_attention_attend": [_P] * 6 + [_I] * 8 + [_F, _I, _F, _P],
+    "decode_attention_rowmax": [_P] * 4 + [_I] * 9 + [_F, _P],
+    "decode_attention_attend": [_P] * 6 + [_I] * 10 + [_F, _I, _F, _P],
 }
 
 
@@ -65,6 +69,30 @@ def cluster_size(s: int, block_k: int) -> int:
         if bk % c == 0 and bk // c >= MIN_CLUSTER_KEYS:
             return c
     return 1
+
+
+def two_pass_cluster_size(s: int) -> int:
+    """CTAs of the two-pass kernels' cluster for a ring of ``s`` rows:
+    the most of ``MAX_TWO_PASS_CLUSTER`` down to 2 that splits the ring
+    into equal contiguous slices of at least ``MIN_CLUSTER_KEYS`` keys,
+    else 1. ``block_k`` does not enter: neither pass carries anything
+    from one tile to the next. 4 measured faster than 8 on the H100 at
+    S=512 and S=4096 (``tools/two_pass_cluster.py``)."""
+    for c in range(MAX_TWO_PASS_CLUSTER, 1, -1):
+        if s % c == 0 and s // c >= MIN_CLUSTER_KEYS:
+            return c
+    return 1
+
+
+def score_route(k: torch.Tensor) -> str:
+    """How both two-pass kernels score q.k: ``"vec"`` (a few lanes a key
+    row, 8 at D=128, with 16-byte loads and q in registers) when K's rows
+    are 16-byte aligned, else ``"scalar"`` (a warp a row). Decided from K
+    alone, so the row max of pass 1 and the scores of pass 2 are the same
+    floats whatever V is."""
+    aligned = k.data_ptr() % 16 == 0 and \
+        (k.shape[-1] * k.element_size()) % 16 == 0
+    return "vec" if aligned else "scalar"
 
 
 # ---------------------------------------------------------------------------
@@ -218,7 +246,8 @@ def rowmax(q, k, mask, *, scale=None, block_k=512):
     out = torch.empty((b, hq), dtype=torch.float32, device=q.device)
     err = _entry("decode_attention_rowmax")(
         q.data_ptr(), k.data_ptr(), mask.data_ptr(), out.data_ptr(),
-        int(q.dtype == torch.bfloat16), b, hq, hkv, s, d, bk, scale,
+        int(q.dtype == torch.bfloat16), b, hq, hkv, s, d, bk,
+        two_pass_cluster_size(s), int(score_route(k) == "vec"), scale,
         build.stream(q.device))
     build.raise_on(err, "decode_attention_rowmax")
     LAUNCHES["decode_attention_rowmax"] += 1
@@ -231,7 +260,7 @@ def attend(q, k, v, mask, rm, *, threshold=None, scale=None, block_k=512):
         return attend_plain(q, k, v, mask, rm, threshold=threshold,
                             scale=scale, block_k=block_k)
     b, hq, hkv, s, d, dv, bk = _check(q, k, v, mask, block_k)
-    build.check_launch("decode_attention", (q, k, v), (mask, rm), (d,),
+    build.check_launch("decode_attention", (q, k, v), (mask, rm), (d, dv),
                        MAX_HEAD_DIM)
     if rm.dtype != torch.float32 or tuple(rm.shape) != (b, hq):
         raise ValueError("rowmax must be float32 [B, Hq]")
@@ -241,7 +270,9 @@ def attend(q, k, v, mask, rm, *, threshold=None, scale=None, block_k=512):
     err = _entry("decode_attention_attend")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
         rm.data_ptr(), out.data_ptr(), int(q.dtype == torch.bfloat16), b,
-        hq, hkv, s, d, dv, bk, scale, has_thr, thr, build.stream(q.device))
+        hq, hkv, s, d, dv, bk, two_pass_cluster_size(s),
+        int(score_route(k) == "vec"), scale, has_thr, thr,
+        build.stream(q.device))
     build.raise_on(err, "decode_attention_attend")
     LAUNCHES["decode_attention_attend"] += 1
     return out
