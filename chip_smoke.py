@@ -27,13 +27,25 @@ first phase that does not hold:
    from seed 0; 4 slots, max_len 512, 8 requests of 64-token prompts, 16
    new tokens) through ``ServeEngine`` with A^3 off at decode_block 1 and
    4, and checks that the fused kernel ran 32 x decode_steps times;
+   (3b) the same serve at decode_block 4 through the engine's pipelined
+   harvest, pipeline_depth 0 and 1 (tokens identical), then tempered at
+   temperature 0.8, depth 1, decode_block 1 and 4 (tokens identical
+   across block sizes), #1 32 x decode_steps times in each, with tok/s,
+   host syncs, stalls and the per-phase tick times, greedy and sampled
+   in turns, and one 4-step decode block greedy and sampled under the
+   profiler (the draw's device time and kernels); one steady depth-1
+   decode tick under ``torch.cuda.set_sync_debug_mode("error")``; and a
+   lifecycle run at depth 1 (a cancel mid-decode, a 3-tick deadline,
+   ``drain()``, a submit after it) with the conservation identity held
+   after every tick;
 4. the same serve with A^3 conservative: tokens/s and the share of greedy
    tokens that agree with the A^3-off run;
 5. two-pass path: ``a3_decode_attention(exact_two_pass=True)`` (the public
    ops entry, A^3 conservative, no cached sort) on a ring the model
    wrote, which launches kernels #2 and #3, against the same call on CPU;
 6. the TINY f32 engine on the card vs the same port on the CPU: greedy
-   tokens identical;
+   tokens identical; (6b) at temperature 0.8 and pipeline_depth 1,
+   sampled tokens identical;
 7. A^3 prefill attention at phi4-mini width (B=1, Hq=24, Hkv=8, S=2048,
    D=128, bf16, causal): (a) flash kernel #4 (causal, window 512, a
    512-row continuation; every bf16 call must take the tensor-core
@@ -70,7 +82,9 @@ first phase that does not hold:
    layers, 21 mLSTM + 3 sLSTM, random bf16 weights from seed 0; 4 slots,
    8 requests of 512-token prompts, 16 new tokens, decode_block 1 and 4)
    and checks that kernel #7 ran once per mLSTM layer per prefill
-   dispatch, on its tensor-core route only; then one prefill dispatch
+   dispatch, on its tensor-core route only; (8b') the decode_block-4
+   serve again at pipeline_depth 1: tokens identical, #7 once per mLSTM
+   layer per prefill dispatch; then one prefill dispatch
    under the profiler: its device busy time and share, and #7's part;
    (c) the TINY_XL f32 engine on the card vs the CPU: greedy tokens
    identical, #7 on its CUDA-core route.
@@ -448,12 +462,12 @@ def phase_long_ring(dev, errs, thr):
 # phases 3-4: full-width serving
 # ---------------------------------------------------------------------------
 
-def serve_run(model, cfg, prompts, a3, decode_block, max_new):
+def serve_run(model, cfg, prompts, a3, decode_block, max_new, **knobs):
     from repro_torch.kernels.decode_attention import kernel as tk
     from repro_torch.serve.engine import ServeEngine
 
     eng = ServeEngine(model, cfg, slots=4, max_len=512, a3=a3,
-                      decode_block=decode_block)
+                      decode_block=decode_block, **knobs)
     uids = [eng.submit(p, max_new_tokens=max_new) for p in prompts]
     sync(model.device)
     tk.reset_launch_counts()
@@ -606,6 +620,154 @@ def phase_serve(dev, cfg):
     return runs, main_launches, ring, model
 
 
+def engine_line(label, outs, eng, dt):
+    st = eng.stats
+    n_new = sum(len(o) for o in outs)
+    split = ", ".join(f"{k[8:]} {st[k] / 1e6:.1f}" for k in
+                      ("tick_ns_prefill", "tick_ns_decode",
+                       "tick_ns_harvest", "tick_ns_host"))
+    log(f"  {label}: {n_new} tokens in {dt:.3f} s = {n_new / dt:.1f} tok/s; "
+        f"ticks {st['ticks']}, decode_dispatches {st['decode_dispatches']}, "
+        f"host_syncs {st['host_syncs']}, host_sync_stalls "
+        f"{st['host_sync_stalls']}; tick ms: {split} [{CARD}]")
+    return n_new / dt
+
+
+def check_conservation(eng):
+    s = eng.stats
+    check(s["submitted"] == s["finished"] + s["rejected"] + s["cancelled"]
+          + s["expired"] + s["failed"] + eng.in_flight,
+          f"conservation identity broken: {s}, in_flight {eng.in_flight}")
+
+
+def phase_engine(model, cfg, dev):
+    """[3b]: phi4-mini-3.8b's serve (phase 3's requests, A^3 off,
+    decode_block 4) through the engine's pipelined harvest and tempered
+    sampling; one depth-1 tick under ``set_sync_debug_mode("error")``; a
+    lifecycle run at depth 1 -> kernel #1's launches in its serves."""
+    import numpy as np
+    import torch
+    from repro_torch.config import A3Config
+    from repro_torch.models import decoder, sampling
+    from repro_torch.serve.engine import ServeEngine
+
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, size=64) for _ in range(8)]
+    fused, runs = 0, {}
+
+    def serve(label, decode_block, **knobs):
+        nonlocal fused
+        outs, eng, dt, launches = serve_run(model, cfg, prompts, A3Config(),
+                                            decode_block, 16, **knobs)
+        want = cfg.num_layers * eng.stats["decode_steps"]
+        got = launches["decode_attention_fused"]
+        check(got == want > 0, f"{label}: fused kernel launched {got} times, "
+                               f"expected {cfg.num_layers} x decode_steps = "
+                               f"{want}")
+        fused += got
+        runs[label] = (outs, engine_line(label, outs, eng, dt))
+        return outs
+
+    greedy0 = serve("greedy depth 0", 4, pipeline_depth=0)
+    greedy1 = serve("greedy depth 1", 4, pipeline_depth=1)
+    check(greedy1 == greedy0, "pipeline_depth 1 changed the greedy tokens")
+    sampled = {t: serve(f"T=0.8 depth 1 decode_block {t}", t,
+                        pipeline_depth=1, temperature=0.8, sample_seed=0)
+               for t in (1, 4)}
+    check(sampled[1] == sampled[4], "sampled tokens differ between "
+                                    "decode_block 1 and 4")
+    check(sampled[4] != greedy1, "temperature 0.8 drew the greedy tokens")
+    # greedy and sampled in turns (greedy, sampled, sampled, greedy)
+    again = serve("T=0.8 depth 1 decode_block 4 (again)", 4,
+                  pipeline_depth=1, temperature=0.8, sample_seed=0)
+    check(again == sampled[4], "a repeated sampled serve drew other tokens")
+    serve("greedy depth 1 (again)", 4, pipeline_depth=1)
+    g = [runs[k][1] for k in ("greedy depth 1", "greedy depth 1 (again)")]
+    t = [runs[k][1] for k in ("T=0.8 depth 1 decode_block 4",
+                              "T=0.8 depth 1 decode_block 4 (again)")]
+    log(f"  decode_block 4, depth 1, in turns: greedy {g[0]:.1f} / "
+        f"{g[1]:.1f} tok/s, sampled {t[0]:.1f} / {t[1]:.1f} tok/s [{CARD}]")
+    # the draw's cost on the device: one 4-step decode block, greedy and
+    # sampled, under the profiler
+    busy = {}
+    for label, knobs in (("greedy", {}), ("T=0.8", dict(
+            temperature=0.8, key=sampling.prng_key(0, dev)))):
+        cache = decoder.init_cache(cfg, 4, 512, device=dev)
+        tok = torch.arange(4, dtype=torch.int32, device=dev)
+        pos = torch.full((4,), 80, dtype=torch.int32, device=dev)
+        left = torch.full((4,), 4, dtype=torch.int32, device=dev)
+
+        def block(cache=cache, tok=tok, pos=pos, left=left, knobs=knobs):
+            decoder.decode_block(model, cfg, cache, tok, pos, left, steps=4,
+                                 sample_ids=tok, **knobs)
+
+        ms = cuda_ms(block, [()], 3)
+        dev_ms, n_kernels, _ = profile_steps(block, steps=2)
+        check(dev_ms is not None, "the profiler saw no device activity")
+        busy[label] = (dev_ms, n_kernels)
+        log(f"  decode_block(steps=4) {label}: {ms:.3f} ms by events, device "
+            f"busy {dev_ms:.3f} ms over {n_kernels:.0f} kernels [{CARD}]")
+    log(f"  sampling adds {(busy['T=0.8'][0] - busy['greedy'][0]) / 4:.3f} "
+        f"ms of device time and "
+        f"{(busy['T=0.8'][1] - busy['greedy'][1]) / 4:.0f} kernels a step "
+        f"[{CARD}]")
+
+    # one steady depth-1 decode tick (drain + dispatch) with every
+    # synchronizing CUDA call turned into an error
+    eng = ServeEngine(model, cfg, slots=4, max_len=512, decode_block=4,
+                      pipeline_depth=1)
+    for p in prompts[:4]:
+        eng.submit(p, max_new_tokens=16)
+    eng.step()
+    eng.step()
+    check(all(s.decoding and s.pending for s in eng.slots),
+          "no steady pipelined decode after two ticks")
+    before = dict(eng.stats)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        eng.step()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    check(eng.stats["decode_dispatches"] == before["decode_dispatches"] + 1
+          and eng.stats["prefill_dispatches"] == before["prefill_dispatches"],
+          "the checked tick was not one decode dispatch")
+    log(f"  one depth-1 decode tick under set_sync_debug_mode('error'): no "
+        f"synchronizing call (host_syncs {before['host_syncs']} -> "
+        f"{eng.stats['host_syncs']}, the harvest read waits on its event)")
+    eng.run_to_completion()
+    check([eng.result(u) for u in range(4)] == greedy0[:4],
+          "the checked engine's tokens differ from the depth-0 serve")
+
+    # lifecycle at depth 1: cancel mid-decode, a 3-tick deadline, drain
+    eng = ServeEngine(model, cfg, slots=4, max_len=512, decode_block=4,
+                      pipeline_depth=1)
+    uids = [eng.submit(p, max_new_tokens=16,
+                       deadline_ticks=3 if i == 1 else None)
+            for i, p in enumerate(prompts)]
+    eng.step()
+    check_conservation(eng)
+    eng.step()
+    check_conservation(eng)
+    check(eng.status(uids[0]) == "decoding" and eng.cancel(uids[0]),
+          "could not cancel a decoding request")
+    eng.drain()
+    late = eng.submit(prompts[0], max_new_tokens=4)
+    while eng.in_flight:
+        eng.step()
+        check_conservation(eng)
+    statuses = [eng.status(u) for u in uids]
+    want = (["cancelled", "expired", "finished", "finished"]
+            + ["cancelled"] * 4)
+    check(statuses == want and eng.status(late) == "rejected",
+          f"lifecycle statuses {statuses}, late submit {eng.status(late)}")
+    check([eng.result(u) for u in uids[2:4]] == greedy0[2:4],
+          "finished requests' tokens differ from the depth-0 serve")
+    log(f"  lifecycle at depth 1: statuses {statuses}, late submit "
+        f"{eng.status(late)}; conservation held after each of "
+        f"{eng.stats['ticks']} ticks")
+    return fused
+
+
 # ---------------------------------------------------------------------------
 # phase 5: the two-pass path through the ops entry
 # ---------------------------------------------------------------------------
@@ -650,13 +812,13 @@ def phase_two_pass(ring, dev):
 # phase 6: TINY f32, card vs CPU
 # ---------------------------------------------------------------------------
 
-def card_vs_cpu_tokens(cfg, dev, a3, reset_counts):
-    """Greedy tokens of the port's engine on a tiny float32 ``cfg``
-    (random weights from seed 0; 4 slots, chunk 8, decode_block 4,
-    resort_every 2, five prompts of 5-31 tokens, 6 new tokens each) on
-    the CPU and on the card -> {"cpu": [...], "cuda": [...]}. The kernel
-    counts are reset just before each run, so after the call they hold
-    the card run's launches."""
+def card_vs_cpu_tokens(cfg, dev, a3, reset_counts, **knobs):
+    """Tokens of the port's engine on a tiny float32 ``cfg`` (random
+    weights from seed 0; 4 slots, chunk 8, decode_block 4, resort_every
+    2, five prompts of 5-31 tokens, 6 new tokens each; greedy unless
+    ``knobs`` say otherwise) on the CPU and on the card -> {"cpu": [...],
+    "cuda": [...]}. The kernel counts are reset just before each run, so
+    after the call they hold the card run's launches."""
     import numpy as np
     import torch
     from repro_torch.models import decoder
@@ -669,7 +831,8 @@ def card_vs_cpu_tokens(cfg, dev, a3, reset_counts):
     outs = {}
     for name, model in (("cpu", cpu), ("cuda", gpu)):
         eng = ServeEngine(model, cfg, slots=4, max_len=96, a3=a3,
-                          prefill_chunk=8, resort_every=2, decode_block=4)
+                          prefill_chunk=8, resort_every=2, decode_block=4,
+                          **knobs)
         uids = [eng.submit(p, max_new_tokens=6) for p in prompts]
         reset_counts()
         eng.run_to_completion()
@@ -698,6 +861,15 @@ def phase_tiny(dev):
         if mode == "off":
             check(outs["cuda"] == outs["cpu"],
                   "TINY f32 tokens differ between the card and the CPU")
+    # [6b] tempered draws: the threefry keys and bits are int64
+    # elementwise ops, so the card and the CPU draw the same tokens
+    outs = card_vs_cpu_tokens(tiny, dev, A3Config(), tk.reset_launch_counts,
+                              temperature=0.8, sample_seed=0,
+                              pipeline_depth=1)
+    log(f"  [6b] TINY f32 T=0.8 depth 1: card vs CPU sampled tokens "
+        f"{n_same(outs)}/30 identical")
+    check(outs["cuda"] == outs["cpu"],
+          "TINY f32 sampled tokens differ between the card and the CPU")
 
 
 # ---------------------------------------------------------------------------
@@ -1321,9 +1493,9 @@ def phase_xlstm_serve(dev):
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, cfg.vocab_size, size=512) for _ in range(8)]
 
-    def serve(reqs, decode_block, max_new):
+    def serve(reqs, decode_block, max_new, depth=0):
         eng = ServeEngine(model, cfg, slots=4, max_len=1024,
-                          decode_block=decode_block)
+                          decode_block=decode_block, pipeline_depth=depth)
         uids = [eng.submit(p, max_new_tokens=max_new) for p in reqs]
         sync(dev)
         mk.reset_launch_counts()
@@ -1358,6 +1530,19 @@ def phase_xlstm_serve(dev):
             f"{n_mlstm} x {st['prefill_dispatches']} [{CARD}]")
     check(runs[1] == runs[4], "xLSTM tokens differ between decode_block 1 "
                               "and 4")
+    # [8b'] the same serve with the harvest deferred one block
+    outs, st, dt, got = serve(prompts, 4, 16, depth=1)
+    want = n_mlstm * st["prefill_dispatches"]
+    check(got == want > 0, f"depth 1: mlstm_chunk launched {got} times, "
+                           f"expected {n_mlstm} x prefill_dispatches = {want}")
+    check(outs == runs[4], "xLSTM tokens differ between pipeline_depth 0 "
+                           "and 1")
+    launches += got
+    log(f"  [8b'] serve xlstm-350m decode_block=4 depth 1: "
+        f"{sum(len(o) for o in outs) / dt:.1f} tok/s, tokens = depth 0's; "
+        f"host_syncs {st['host_syncs']}, host_sync_stalls "
+        f"{st['host_sync_stalls']}; mlstm_chunk launches {got} = {n_mlstm} "
+        f"x {st['prefill_dispatches']} [{CARD}]")
     # one prefill dispatch of the serve (4 fresh lanes x 512 tokens) by
     # the host clock, beside kernel #7 at its shape there by CUDA events
     cache = decoder.init_cache(cfg, 4, 1024, device=dev)
@@ -1477,6 +1662,11 @@ def main() -> int:
     log("[3-4] full-width serve, phi4-mini-3.8b")
     cfg = get_arch("phi4-mini-3.8b")
     _, main_launches, ring, model = phase_serve(dev, cfg)
+    log("[3b] the engine at phi4-mini-3.8b width: pipeline_depth 0 / 1, "
+        "temperature 0.8, a synchronizing-call check, the lifecycle")
+    t3b = time.perf_counter()
+    main_launches += phase_engine(model, cfg, dev)
+    log(f"  phase [3b] took {time.perf_counter() - t3b:.1f} s")
     log("[5] two-pass path")
     two_pass = phase_two_pass(ring, dev)
     log("[6] TINY f32, card vs CPU")

@@ -114,18 +114,40 @@ class ModelConfig:
         return (layer_idx % (p + 1)) == p
 
 
+SHED_POLICIES = ("reject-new", "evict-oldest-queued")
+
+
 @dataclass(frozen=True)
 class ServeConfig:
-    """The engine knobs this port implements (names as in the
-    reference's ``ServeConfig``)."""
+    """The engine knobs this port implements (names, defaults and checks
+    as in the reference's ``ServeConfig``)."""
     slots: int = 4
     max_len: int = 2048
     # admission-prefill chunk; None = min(max_len, 512)
     prefill_chunk: Optional[int] = None
+    # adaptive chunking: ticks with >= 1 decoding slot shrink the chunk
+    # to this floor (None = fixed chunk)
+    prefill_chunk_min: Optional[int] = None
     # decode steps past the sorted_upto watermark before an A^3 re-sort
     resort_every: int = 64
     # decode steps per decode dispatch
     decode_block: int = 1
+    # decode-block harvests left in flight behind the tick loop
+    # (0 = synchronous harvest)
+    pipeline_depth: int = 0
+    # 0 = greedy argmax; > 0 draws from the tempered softmax, keyed per
+    # (sample_seed, request uid, position)
+    temperature: float = 0.0
+    sample_seed: int = 0
+    # bounded admission: most QUEUED requests (0 = unbounded) and which
+    # request a full queue sheds
+    max_queue: int = 0
+    shed_policy: str = "reject-new"
+    # default per-request deadline in engine ticks (None = none)
+    deadline_ticks: Optional[int] = None
+    # most terminal entries kept in the status/result maps, results
+    # popped on first read (0 = unbounded)
+    retain_results: int = 0
 
     def __post_init__(self):
         if self.slots < 1:
@@ -136,9 +158,43 @@ class ServeConfig:
             raise ValueError(
                 f"prefill_chunk must be positive, got "
                 f"{self.prefill_chunk} (use None for the default chunk)")
+        if self.prefill_chunk_min is not None:
+            if self.prefill_chunk_min <= 0:
+                raise ValueError(
+                    f"prefill_chunk_min must be positive, got "
+                    f"{self.prefill_chunk_min} (use None to disable the "
+                    f"adaptive policy)")
+            if self.prefill_chunk is not None \
+                    and self.prefill_chunk_min > self.prefill_chunk:
+                raise ValueError(
+                    f"prefill_chunk_min ({self.prefill_chunk_min}) must "
+                    f"not exceed prefill_chunk ({self.prefill_chunk})")
         if self.decode_block < 1:
             raise ValueError(
                 f"decode_block must be >= 1, got {self.decode_block}")
+        if self.pipeline_depth < 0:
+            raise ValueError(
+                f"pipeline_depth must be >= 0, got {self.pipeline_depth} "
+                f"(0 = synchronous harvest)")
+        if self.temperature < 0.0:
+            raise ValueError(
+                f"temperature must be >= 0, got {self.temperature}")
+        if self.max_queue < 0:
+            raise ValueError(
+                f"max_queue must be >= 0, got {self.max_queue} "
+                f"(0 = unbounded queue)")
+        if self.shed_policy not in SHED_POLICIES:
+            raise ValueError(
+                f"shed_policy must be 'reject-new' or "
+                f"'evict-oldest-queued', got {self.shed_policy!r}")
+        if self.deadline_ticks is not None and self.deadline_ticks < 1:
+            raise ValueError(
+                f"deadline_ticks must be >= 1, got "
+                f"{self.deadline_ticks} (use None for no deadline)")
+        if self.retain_results < 0:
+            raise ValueError(
+                f"retain_results must be >= 0, got "
+                f"{self.retain_results} (0 = unbounded retention)")
 
 
 _REGISTRY: Dict[str, Callable[[], ModelConfig]] = {}

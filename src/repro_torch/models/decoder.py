@@ -32,6 +32,7 @@ from repro_torch.core.candidate_selection import sort_key_columns
 from repro_torch.models.common import NEG_INF, FFN, Attention, RMSNorm, \
     attention_init_, embed_init_, dense_init_, ffn_apply, ffn_init_, \
     rmsnorm, round_to, softcap
+from repro_torch.models import sampling
 from repro_torch.models import xlstm as xl
 from repro_torch.models.mixer import SegmentSpec, build_segments, mixer_for
 
@@ -308,15 +309,27 @@ def resort_sorted_keys(cache: Dict[str, Any], pos: torch.Tensor,
     return cache
 
 
-def sample_logits(logits: torch.Tensor, *,
-                  temperature: float = 0.0) -> torch.Tensor:
-    """Greedy argmax -> token ids [B] int32 (the first maximal index, as
-    ``jnp.argmax``). Tempered sampling is not ported yet: its draws
-    would have to reproduce JAX's threefry keys."""
-    if temperature > 0.0:
-        raise NotImplementedError(
-            "temperature > 0 sampling is not yet ported to repro_torch")
-    return torch.argmax(logits, dim=-1).to(torch.int32)
+def sample_logits(logits: torch.Tensor, *, temperature: float = 0.0,
+                  key: Optional[torch.Tensor] = None,
+                  pos: Optional[torch.Tensor] = None,
+                  ids: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Next-token sampling on the device -> token ids [B] int32.
+
+    ``temperature <= 0`` (or no ``key``) is greedy argmax (the first
+    maximal index, as ``jnp.argmax``). Otherwise lane b draws
+    ``categorical(fold_in(fold_in(key, ids[b]), pos[b]), logits[b] /
+    temperature)`` over the padded vocab with the reference's threefry
+    keys (:mod:`repro_torch.models.sampling`), so a draw depends only on
+    (seed, request uid, position): not on blocking or on the slot."""
+    if temperature <= 0.0 or key is None:
+        return torch.argmax(logits, dim=-1).to(torch.int32)
+    b = logits.shape[0]
+    zeros = torch.zeros((b,), dtype=torch.int32, device=logits.device)
+    pos = zeros if pos is None else pos
+    ids = zeros if ids is None else ids
+    keys = sampling.fold_in(sampling.fold_in(key, ids), pos)
+    return sampling.categorical(keys, logits.float() / temperature).to(
+        torch.int32)
 
 
 def decode_block(
@@ -331,13 +344,18 @@ def decode_block(
     a3: A3Config = A3Config(),
     resort_every: int = 0,
     resort_plan: Optional[Sequence[bool]] = None,
+    temperature: float = 0.0,
+    key: Optional[torch.Tensor] = None,
+    sample_ids: Optional[torch.Tensor] = None,   # [B] per-request uids
 ) -> Tuple[torch.Tensor, torch.Tensor, Dict[str, Any]]:
     """Run ``steps`` decode steps with sampling on the device ->
     (token ring [B, steps] int32, token carry [B] int32, cache).
 
     Per step: re-sort due lanes' A^3 columns (``resort_plan[t]`` is the
     host's may-any-lane-be-due answer for step t; None reads it from
-    the device), one :func:`decode_step`, greedy sampling. A lane is
+    the device), one :func:`decode_step`, then :func:`sample_logits` at
+    the step's position (greedy unless ``temperature > 0`` and a ``key``
+    is given; ``sample_ids`` are the lanes' request uids). A lane is
     active while ``pos >= 0`` and its budget is unspent; inactive lanes
     ride along at ``pos = -1`` (ring entries -1, cache untouched). A lane
     whose logits go non-finite emits :data:`POISON` once and freezes."""
@@ -358,7 +376,8 @@ def decode_block(
                                else resort_plan[t])
         logits, cache = decode_step(model, cfg, cache, token, eff_pos,
                                     a3=a3)
-        nxt = sample_logits(logits)
+        nxt = sample_logits(logits, temperature=temperature, key=key,
+                            pos=eff_pos, ids=sample_ids)
         ok = torch.isfinite(logits).all(-1) & (token != POISON)
         advance = active & ok
         poisoned = active & ~ok

@@ -10,6 +10,7 @@ that use it also run on a machine without JAX.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 
 import numpy as np
@@ -103,6 +104,84 @@ def assert_cache_close(port_cache, ref_cache, rtol, atol):
                                            err_msg=f"{seg}.{name}")
 
 
+# ---------------------------------------------------------------------------
+# serving-engine runs shared by the port's engine tests
+# ---------------------------------------------------------------------------
+
+# the engine counters that do not depend on the wall clock
+ENGINE_STATS = ("prefill_tokens", "decode_steps", "decode_steps_advanced",
+                "decode_dispatches", "decode_blocks", "prefill_dispatches",
+                "host_syncs", "handoff_syncs", "ticks", "resorts",
+                "adaptive_shrink_ticks", "submitted", "finished",
+                "rejected", "cancelled", "expired", "failed",
+                "max_ticks_exhausted")
+
+
+def check_conservation(eng):
+    s = eng.stats
+    assert s["submitted"] == (s["finished"] + s["rejected"]
+                              + s["cancelled"] + s["expired"]
+                              + s["failed"] + eng.in_flight), s
+
+
+def drive(eng, prompts, *, order="upfront", max_new=6, on_tick=None):
+    """Serve ``prompts`` on either engine -> ({i: result}, {i: uid}).
+    ``upfront`` / ``reversed`` submit all before the first tick,
+    ``staggered`` one every other tick; ``on_tick(eng)`` runs after
+    every tick."""
+    uids = {}
+    pending = list(enumerate(prompts))
+    if order == "reversed":
+        pending.reverse()
+    if order in ("upfront", "reversed"):
+        for i, p in pending:
+            uids[i] = eng.submit(p, max_new_tokens=max_new)
+        pending = []
+    elif order != "staggered":
+        raise ValueError(order)
+    while pending or eng.in_flight:
+        if pending and eng.stats["ticks"] % 2 == 0:
+            i, p = pending.pop(0)
+            uids[i] = eng.submit(p, max_new_tokens=max_new)
+        eng.step()
+        if on_tick is not None:
+            on_tick(eng)
+    return {i: eng.result(u) for i, u in uids.items()}, uids
+
+
+def assert_same_stats(port, ref, keys=ENGINE_STATS):
+    for key in keys:
+        assert port.stats[key] == ref.stats[key], \
+            (key, port.stats[key], ref.stats[key])
+
+
+@contextlib.contextmanager
+def jax_blocks_ready():
+    """While active, the JAX engine's readiness probe waits for a block
+    and says it is done, as eager CPU torch has always computed it. The
+    deferred-harvest drains of both engines then land the same blocks
+    on the same ticks, and every counter of ``ENGINE_STATS`` compares
+    at ``pipeline_depth > 0`` too."""
+    import jax
+    from repro.serve import engine as jeng
+    saved = jeng._block_done
+    jeng._block_done = lambda arr: jax.block_until_ready(arr) is not None
+    try:
+        yield
+    finally:
+        jeng._block_done = saved
+
+
+def nan_lane_(cache, si):
+    """NaN every floating leaf of lane ``si`` in a port cache, in place
+    (what ``repro.serve.chaos.corrupt_cache_lane`` does to a JAX
+    cache)."""
+    for sc in cache.values():
+        for leaf in sc.values():
+            if leaf.is_floating_point():
+                leaf[:, si] = float("nan")
+
+
 @pytest.fixture
 def cuda():
     """The CUDA device, or a skip when the machine has no card."""
@@ -151,6 +230,27 @@ def test_serve_config_validates():
         tcfg.ServeConfig(decode_block=0)
     with pytest.raises(ValueError):
         tcfg.ServeConfig(prefill_chunk=0)
+
+
+def test_serve_config_fields_match_reference():
+    """Every field the port's ServeConfig has, the reference's has, with
+    the same default."""
+    ref = jcfg.ServeConfig()
+    for f in dataclasses.fields(tcfg.ServeConfig):
+        assert getattr(tcfg.ServeConfig(), f.name) == getattr(ref, f.name), \
+            f.name
+
+
+@pytest.mark.parametrize("bad", [
+    dict(prefill_chunk_min=0), dict(prefill_chunk=8, prefill_chunk_min=9),
+    dict(pipeline_depth=-1), dict(temperature=-0.1), dict(max_queue=-1),
+    dict(shed_policy="drop-the-table"), dict(deadline_ticks=0),
+    dict(retain_results=-1)], ids=lambda kw: next(iter(kw)))
+def test_serve_config_rejects_what_the_reference_rejects(bad):
+    with pytest.raises(ValueError):
+        jcfg.ServeConfig(**bad)
+    with pytest.raises(ValueError):
+        tcfg.ServeConfig(**bad)
 
 
 def test_entry_points_default_to_cuda():
