@@ -88,10 +88,29 @@ first phase that does not hold:
    under the profiler: its device busy time and share, and #7's part;
    (c) the TINY_XL f32 engine on the card vs the CPU: greedy tokens
    identical, #7 on its CUDA-core route.
+9. the later families, each at full width and depth with random bf16
+   weights from seed 0, one model on the card at a time (freed before the
+   next): gemma3-4b (A^3 off and conservative; its 1024-row local rings
+   wrap), recurrentgemma-2b, deepseek-moe-16b and h2o-danube-1.8b, served
+   through ``ServeEngine`` (4 slots, max_len 2048, 4 requests of
+   1536-token prompts, 8 new tokens, decode_block 4); #1 must launch once
+   per attention layer that takes it per decode step (34, 8, 28, 24; 29
+   for gemma3-4b conservative, whose 5 global layers take the compact
+   path); #1 against its plain version on every input set of each
+   model's rings as the A^3-off serve left them, at its (G, D, S) (within
+   2e-2 of the output's largest magnitude; masking every other valid key
+   must move it further), timed beside its plain version, SDPA and its
+   bytes bound; tok/s, one decode step by events and under the profiler
+   (device busy, kernels, top kernels; for the MoE the routed experts'
+   share from the step's ``aten::bmm`` kernels), peak memory; (b) the
+   tiny float32 RG-LRU,
+   local/global (A^3 conservative) and MoE configs on the card vs the
+   CPU: greedy tokens identical.
 
 Prints one JSON line of per-kernel numbers (every row with
 ``device_ms``, the profiler's device time per launch; rows #1-#3 with
-``s4096``, the long ring's ms, device ms and bound), then, last,
+``s4096``, the long ring's ms, device ms and bound; row #1 with
+``served_shapes``, phase 9's rows), then, last,
 ``{"ok": true, "device": {...}}``. Exits non-zero, with no result line,
 when CUDA is unavailable or the port's sources are not beside the script.
 """
@@ -496,10 +515,12 @@ def step_fn(model, cfg, a3, use_a3):
     return lambda: decoder.decode_step(model, cfg, cache, tok, pos, a3=a3)
 
 
-def profile_steps(fn, steps=3):
+def profile_steps(fn, steps=3, op=None):
     """Device time per step from torch.profiler over ``steps`` calls:
     (device ms per step, kernels per step, top kernels as (name, ms per
-    step)); device ms is None when the profiler saw no device activity."""
+    step), device ms per step of the kernels launched under the CPU op
+    ``op``, e.g. "aten::bmm", or None); device ms is None when the
+    profiler saw no device activity."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -510,15 +531,17 @@ def profile_steps(fn, steps=3):
         for _ in range(steps):
             fn()
         torch.cuda.synchronize()
-    dev = [e for e in prof.key_averages()
-           if e.device_type == DeviceType.CUDA]
+    avg = prof.key_averages()
+    dev = [e for e in avg if e.device_type == DeviceType.CUDA]
     total_us = sum(e.self_device_time_total for e in dev)
     if not dev or total_us <= 0:
-        return None, 0, []
+        return None, 0, [], None
     top = sorted(dev, key=lambda e: -e.self_device_time_total)[:6]
+    op_us = sum(e.device_time_total for e in avg
+                if e.device_type == DeviceType.CPU and e.key == op)
     return (total_us / 1e3 / steps, sum(e.count for e in dev) / steps,
             [(e.key[:60], e.self_device_time_total / 1e3 / steps)
-             for e in top])
+             for e in top], op_us / 1e3 / steps if op_us > 0 else None)
 
 
 def profile_named(fn, name, steps=2):
@@ -605,7 +628,7 @@ def phase_serve(dev, cfg):
             f"max_len 512, {cfg.num_layers} layers) [{CARD}]")
         if dev.type != "cuda":
             continue
-        dev_ms, n_kernels, top = profile_steps(fn)
+        dev_ms, n_kernels, top, _ = profile_steps(fn)
         if dev_ms is None:
             log("    device time per step: not measured (the profiler "
                 "saw no device activity)")
@@ -702,7 +725,7 @@ def phase_engine(model, cfg, dev):
                                  sample_ids=tok, **knobs)
 
         ms = cuda_ms(block, [()], 3)
-        dev_ms, n_kernels, _ = profile_steps(block, steps=2)
+        dev_ms, n_kernels, _, _ = profile_steps(block, steps=2)
         check(dev_ms is not None, "the profiler saw no device activity")
         busy[label] = (dev_ms, n_kernels)
         log(f"  decode_block(steps=4) {label}: {ms:.3f} ms by events, device "
@@ -1583,7 +1606,7 @@ def phase_xlstm_serve(dev):
     ms = cuda_ms(fn, [()], 20)
     log(f"  decode_step: {ms:.3f} ms per step (B=4, {cfg.num_layers} "
         f"layers) [{CARD}]")
-    dev_ms, n_kernels, top = profile_steps(fn)
+    dev_ms, n_kernels, top, _ = profile_steps(fn)
     if dev_ms is None:
         log("    device time per step: not measured (the profiler saw no "
             "device activity)")
@@ -1617,6 +1640,322 @@ def phase_tiny_xl(dev):
           and mk.LAUNCHES["mlstm_chunk_wgmma"] == 0,
           "TINY_XL f32 tokens differ between the card and the CPU, or "
           "kernel #7 did not run on its CUDA-core route")
+
+
+# ---------------------------------------------------------------------------
+# phase 9: the later families at full width and depth
+# ---------------------------------------------------------------------------
+
+FAMILIES = ("gemma3-4b", "recurrentgemma-2b", "deepseek-moe-16b",
+            "h2o-danube-1.8b")
+FAMILY_SERVE = dict(slots=4, max_len=2048, prompt_len=1536, max_new=8,
+                    decode_block=4)
+
+
+def attention_layers(cfg, a3_on):
+    """(attention layers, those that launch #1): with A^3 on, the layers
+    of the segments it applies to take the compact torch path instead."""
+    from repro_torch.config import BlockKind
+    from repro_torch.models.mixer import build_segments
+    segs = build_segments(cfg)
+    n = sum(s.count for s in segs if s.kind == BlockKind.ATTENTION)
+    return n, n - sum(s.count for s in segs if s.uses_a3(a3_on))
+
+
+def scaled_err(got, want):
+    """(max |got - want|, max |want|, their ratio): the error in units of
+    the output's own scale, which the fixed bf16 ``atol`` is not when
+    the outputs are far below 1."""
+    got, want = got.float(), want.float()
+    e, scale = float((got - want).abs().max()), float(want.abs().max())
+    return e, scale, e / scale if scale > 0 else float("inf")
+
+
+def served_fused_check(label, cfg, cache, segs, last, dev):
+    """#1 against its plain version on the rings a served model wrote:
+    q random (seed 9) at the model's heads, K/V the rings of up to 4
+    layers of the segments ``segs`` [(index, SegmentSpec)] (one input set
+    each), the mask the ring validity after each lane wrote position
+    ``last``, as the A^3-off decode step builds it. Every set must agree
+    within the bf16 tolerance and within ``TOL["rtol"]`` of the output's
+    largest magnitude; a zeroed output and the plain version with every
+    other valid key masked must both fall outside that, so that the
+    comparison would see a kernel that returned nothing or dropped keys.
+    -> (a row of max error, times and bound; whether the rings
+    wrapped)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.decode_attention import kernel as tk
+    from repro_torch.models.mixer import _ring_valid_mask
+
+    g = torch.Generator(device=dev).manual_seed(9)
+    sets = []
+    for si, seg in segs:
+        sc = cache[f"seg{si}"]
+        for l in range(sc["k"].shape[0]):
+            if len(sets) == 4:
+                break
+            k, v = sc["k"][l].contiguous(), sc["v"][l].contiguous()
+            b, hkv, w, d = k.shape
+            q = torch.randn((b, cfg.num_heads, d), generator=g,
+                            device=dev).to(k.dtype)
+            pos = torch.full((b,), last, dtype=torch.int32, device=dev)
+            valid = _ring_valid_mask(w, pos, seg.window)
+            mask = valid[:, None, :].expand(b, cfg.num_heads, w).contiguous()
+            sets.append((q, k, v, mask))
+    b, hkv, w, d = sets[0][1].shape
+    errs, scales, rels, drops = [], [], [], []
+    for i, (q, k, v, mask) in enumerate(sets):
+        got, want = tk.fused(q, k, v, mask), tk.fused_plain(q, k, v, mask)
+        e, ok = max_err(got, want)
+        _, scale, rel = scaled_err(got, want)
+        # every other valid key of each row masked
+        nth = mask.to(torch.int32).cumsum(-1)
+        half = tk.fused_plain(q, k, v, mask & (nth % 2 == 0))
+        _, _, drop = scaled_err(half, want)
+        check(ok and rel <= TOL["rtol"],
+              f"{label} set {i}: fused kernel disagrees with its plain "
+              f"version on the served rings: max_abs_err {e:.3g}, max "
+              f"|plain| {scale:.3g}, ratio {rel:.3g}")
+        check(scale > 0 and drop > TOL["rtol"],
+              f"{label} set {i}: the comparison cannot see dropped keys: "
+              f"masking every other valid key moves the output by "
+              f"{drop:.3g} of max |plain| {scale:.3g}")
+        errs.append(e), scales.append(scale), rels.append(rel)
+        drops.append(drop)
+    e = max(errs)
+    out = b * cfg.num_heads * d * 2
+    bnd = mean_bound([needed_bytes_flops(*x, x[3], out) for x in sets])
+    sdpa_sets = [(x[0][:, :, None], x[1], x[2], x[3][:, :, None])
+                 for x in sets]
+
+    def sdpa(q4, k4, v4, m4):
+        return F.scaled_dot_product_attention(q4, k4, v4, attn_mask=m4,
+                                              enable_gqa=True)
+
+    row = dict(model=cfg.name, g=cfg.num_heads // hkv, d=d, s=w,
+               ring=label, sets=len(sets), max_abs_err=e,
+               max_abs_want=min(scales), max_rel_err=max(rels),
+               ms=cuda_ms(lambda *x: tk.fused(*x), sets, 100),
+               device_ms=device_ms(lambda *x: tk.fused(*x), sets, 100, True),
+               plain_ms=cuda_ms(lambda *x: tk.fused_plain(*x), sets, 10),
+               library_ms=cuda_ms(sdpa, sdpa_sets, 100),
+               bound_ms=bnd[0], bound_by=bnd[1])
+    wrapped = last >= w
+    log(f"  #1 on {cfg.name}'s {label} rings (B={b}, G={row['g']}, "
+        f"Hkv={hkv}, S={w}, D={d}{', wrapped' if wrapped else ''}; "
+        f"{len(sets)} sets, each compared): max_abs_err {e:.3g}, max "
+        f"|plain| {min(scales):.3g} to {max(scales):.3g}, error / max "
+        f"|plain| at most {max(rels):.3g} (limit {TOL['rtol']}; every "
+        f"other key masked moves it {min(drops):.3g} or more); kernel "
+        f"{row['ms']:.4f} ms, device {fmt_ms(row['device_ms'])}, plain "
+        f"{row['plain_ms']:.4f} ms, SDPA {row['library_ms']:.4f} ms, bound "
+        f"{bnd[0]:.4f} ms ({bnd[1]}) [{CARD}]")
+    return row, wrapped
+
+
+def moe_share(model, cfg, dev, step_busy, bmm_ms):
+    """The routed experts' share of a traced decode step: the device
+    time of the step's ``aten::bmm`` kernels (``moe_apply``'s batched
+    expert SwiGLU over all E x cap rows; an A^3-off decode step has no
+    other ``bmm``),
+    beside the bound of reading every MoE layer's expert weights once."""
+    import torch
+    from repro_torch.models.decoder import moe_config
+    from repro_torch.models.moe import moe_route
+
+    mc = moe_config(cfg)
+    blks = [b for seg in model.segs for b in seg.layers if b.moe is not None]
+    x4 = torch.zeros((4, cfg.d_model), device=dev,
+                     dtype=blks[0].moe.w_up.dtype)
+    cap = moe_route(blks[0].moe, x4, mc)["cap"]
+    nbytes = sum(w.numel() * w.element_size() for b in blks
+                 for w in (b.moe.w_gate, b.moe.w_up, b.moe.w_down))
+    flops = 2 * 3 * mc.num_experts * cap * cfg.d_model * mc.d_expert \
+        * len(blks)
+    bnd = bound(nbytes, flops)
+    if bmm_ms is None:
+        log("    routed experts: device time not measured (the trace held "
+            "no aten::bmm kernels)")
+        return
+    log(f"    routed experts (the step's aten::bmm kernels, {len(blks)} MoE "
+        f"layers, E x cap = {mc.num_experts} x {cap} rows a layer, "
+        f"{4 * mc.top_k} of them routed): {bmm_ms:.3f} ms device = "
+        f"{bmm_ms / step_busy:.1%} of the step's {step_busy:.3f} ms device "
+        f"busy; bound {bnd[0]:.3f} ms ({bnd[1]}, {nbytes / 1e9:.3f} GB of "
+        f"expert weights) [{CARD}]")
+
+
+def phase_families(dev):
+    """[9]: gemma3-4b, recurrentgemma-2b, deepseek-moe-16b and
+    h2o-danube-1.8b at full width and depth (random bf16 weights from seed
+    0, one model on the card at a time): 4 slots, max_len 2048, 4
+    requests of 1536-token prompts, 8 new tokens, decode_block 4, A^3 off
+    (gemma3 also conservative); #1's launches per decode step must equal
+    the attention layers that take it; #1 against its plain version on
+    the rings the A^3-off serve left, before the timed decode steps write
+    past them. -> (#1's launches, the served-shape rows)."""
+    import gc
+    import numpy as np
+    import torch
+    from repro_torch.config import A3Config, BlockKind, get_arch
+    from repro_torch.kernels.decode_attention import kernel as tk
+    from repro_torch.models import decoder
+    from repro_torch.models.mixer import FULL_WINDOW
+    from repro_torch.serve.engine import ServeEngine
+
+    sv = FAMILY_SERVE
+    last = sv["prompt_len"] + sv["max_new"] - 2     # last position written
+    launches, rows = 0, []
+    for arch in FAMILIES:
+        cfg = get_arch(arch)
+        torch.cuda.reset_peak_memory_stats(dev)
+        held = torch.cuda.memory_allocated(dev)
+        t0 = time.perf_counter()
+        model = decoder.init_params(
+            cfg, torch.Generator(device=dev).manual_seed(0), dev)
+        sync(dev)
+        n_params = sum(p.numel() for p in model.parameters())
+        n_attn, _ = attention_layers(cfg, False)
+        log(f"  {arch}: {n_params / 1e9:.3f} B params ({cfg.dtype}), "
+            f"{cfg.num_layers} layers, {n_attn} attention, random init "
+            f"from seed 0 in {time.perf_counter() - t0:.1f} s")
+        rng = np.random.default_rng(0)
+        prompts = [rng.integers(0, cfg.vocab_size, size=sv["prompt_len"])
+                   for _ in range(sv["slots"])]
+        modes = [("off", A3Config())]
+        if arch == "gemma3-4b":
+            modes.append(("conservative", A3Config.conservative()))
+        ref_outs = None
+        for mode, a3 in modes:
+            def engine():
+                return ServeEngine(model, cfg, slots=sv["slots"],
+                                   max_len=sv["max_len"], a3=a3,
+                                   decode_block=sv["decode_block"])
+            warm = engine()                   # not measured
+            warm.submit(prompts[0][:16], max_new_tokens=2)
+            warm.run_to_completion()
+            del warm
+            eng = engine()
+            uids = [eng.submit(p, max_new_tokens=sv["max_new"])
+                    for p in prompts]
+            sync(dev)
+            tk.reset_launch_counts()
+            t = time.perf_counter()
+            eng.run_to_completion()
+            sync(dev)
+            dt = time.perf_counter() - t
+            fused = tk.LAUNCHES["decode_attention_fused"]
+            outs = [eng.result(u) for u in uids]
+            check(all(o is not None and len(o) == sv["max_new"]
+                      for o in outs),
+                  f"{arch}: a request did not finish with its full budget")
+            check(all(0 <= x < cfg.vocab_size for o in outs for x in o),
+                  f"{arch}: a generated token lies outside the vocabulary")
+            st = eng.stats
+            _, per_step = attention_layers(cfg, mode != "off")
+            check(fused == per_step * st["decode_steps"] > 0,
+                  f"{arch} a3={mode}: fused kernel launched {fused} times, "
+                  f"expected {per_step} x decode_steps "
+                  f"{st['decode_steps']}")
+            launches += fused
+            n_new = sum(len(o) for o in outs)
+            line = (f"  serve {arch} a3={mode}: {n_new} tokens in {dt:.3f} "
+                    f"s = {n_new / dt:.2f} tok/s; prefill_dispatches "
+                    f"{st['prefill_dispatches']}, decode_steps "
+                    f"{st['decode_steps']}, resorts {st['resorts']}; #1 "
+                    f"launches {fused} = {fused / st['decode_steps']:.0f} "
+                    f"per decode step")
+            if ref_outs is not None:
+                agree = sum(a == b for o, r in zip(outs, ref_outs)
+                            for a, b in zip(o, r))
+                line += f"; tokens agreeing with A^3 off {agree}/{n_new}"
+            ref_outs = ref_outs or outs
+            log(line + f" [{CARD}]")
+            if mode == "off":
+                # #1 on the rings as the serve left them, per window kind,
+                # before the timed steps below write position last + 1
+                kinds = {}
+                for si, seg in enumerate(decoder.build_segments(cfg)):
+                    if seg.kind == BlockKind.ATTENTION:
+                        kinds.setdefault(
+                            "global" if seg.window >= FULL_WINDOW
+                            else f"window {seg.window}", []).append((si, seg))
+                for label, segs in kinds.items():
+                    row, wrapped = served_fused_check(label, cfg, eng.cache,
+                                                      segs, last, dev)
+                    if arch == "gemma3-4b" and label != "global":
+                        check(wrapped, "gemma3-4b's local rings did not wrap")
+                    rows.append(row)
+            # one decode step of the full model on the served cache, at
+            # the position after the last one each lane wrote
+            tok = torch.zeros((sv["slots"],), dtype=torch.int32, device=dev)
+            pos = torch.full((sv["slots"],), last + 1, dtype=torch.int32,
+                             device=dev)
+
+            def step():
+                decoder.decode_step(model, cfg, eng.cache, tok, pos, a3=a3)
+            ms = cuda_ms(step, [()], 5)
+            dev_ms, n_kernels, top, bmm_ms = profile_steps(step, steps=2,
+                                                           op="aten::bmm")
+            if dev_ms is None:
+                log(f"    decode_step {ms:.3f} ms; device time not measured "
+                    f"(the profiler saw no device activity)")
+                continue
+            log(f"    decode_step {ms:.3f} ms per step (B=4, position "
+                f"{int(pos[0])}); profiler: device busy {dev_ms:.3f} ms "
+                f"({dev_ms / ms:.1%} of the step), {n_kernels:.0f} "
+                f"kernels per step; top: "
+                + "; ".join(f"{n} {x:.3f} ms" for n, x in top)
+                + f" [{CARD}]")
+            if cfg.moe is not None:
+                moe_share(model, cfg, dev, dev_ms, bmm_ms)
+        peak = torch.cuda.max_memory_allocated(dev)
+        log(f"  peak device memory {peak / 2**30:.2f} GiB, "
+            f"{(peak - held) / 2**30:.2f} GiB above the {held / 2**30:.2f} "
+            f"GiB held before the model [{CARD}]")
+        del model, eng, step
+        gc.collect()
+        torch.cuda.empty_cache()
+    return launches, rows
+
+
+def phase_tiny_families(dev):
+    """[9](b): the tiny float32 configs of the new kinds (the CPU tests'
+    TINY_RG, TINY_LG and TINY_MOE) on the card vs the CPU: greedy tokens
+    identical, #1 launched on the card."""
+    import dataclasses
+    from repro_torch.config import A3Config, AttentionKind, BlockKind, \
+        ModelConfig, MoEConfig
+    from repro_torch.kernels.decode_attention import kernel as tk
+
+    tiny = ModelConfig("tiny", "dense", num_layers=2, d_model=64,
+                       num_heads=4, num_kv_heads=2, d_ff=128, vocab_size=256,
+                       head_dim=16, dtype="float32")
+    configs = {
+        "TINY_RG": (dataclasses.replace(
+            tiny, name="tiny-rg", num_layers=3,
+            attention_kind=AttentionKind.SLIDING, window_size=24,
+            block_pattern=(BlockKind.RGLRU, BlockKind.RGLRU,
+                           BlockKind.ATTENTION), act="gelu"), A3Config()),
+        "TINY_LG": (dataclasses.replace(
+            tiny, name="tiny-lg", num_layers=4,
+            attention_kind=AttentionKind.LOCAL_GLOBAL,
+            local_global_pattern=1, window_size=16),
+            A3Config.conservative()),
+        "TINY_MOE": (dataclasses.replace(
+            tiny, name="tiny-moe", num_layers=3,
+            moe=MoEConfig(num_experts=4, num_shared=1, top_k=2,
+                          d_expert=32, num_dense_layers=1)), A3Config()),
+    }
+    for name, (cfg, a3) in configs.items():
+        outs = card_vs_cpu_tokens(cfg, dev, a3, tk.reset_launch_counts)
+        fused = tk.LAUNCHES["decode_attention_fused"]
+        log(f"  {name} f32 a3={a3.mode.value}: card vs CPU greedy tokens "
+            f"{n_same(outs)}/30 identical; card fused launches {fused}")
+        check(outs["cuda"] == outs["cpu"] and fused > 0,
+              f"{name} f32 tokens differ between the card and the CPU, or "
+              f"#1 did not run")
 
 
 # ---------------------------------------------------------------------------
@@ -1688,6 +2027,14 @@ def main() -> int:
     xl_launches = phase_xlstm_serve(dev)
     phase_tiny_xl(dev)
     log(f"  phase [8] took {time.perf_counter() - t8:.1f} s")
+    log("[9] the later families at full width and depth (gemma3-4b, "
+        "recurrentgemma-2b, deepseek-moe-16b, h2o-danube-1.8b), TINY_RG, "
+        "TINY_LG, TINY_MOE")
+    t9 = time.perf_counter()
+    fam_launches, served = phase_families(dev)
+    main_launches += fam_launches
+    phase_tiny_families(dev)
+    log(f"  phase [9] took {time.perf_counter() - t9:.1f} s")
 
     src = "src/repro_torch/csrc/decode_attention.cu"
     jax_kernel = "src/repro/kernels/decode_attention/kernel.py"
@@ -1705,6 +2052,8 @@ def main() -> int:
                      "library_ms": r["library_ms"]})
         rows[-1]["device_ms"] = r["device_ms"]
         rows[-1]["s4096"] = r["s4096"]
+        if name == "fused":
+            rows[-1]["served_shapes"] = served
     for name, key, src, jax_kernel, line, counted in (
             ("flash_attention", "flash", "flash_attention.cu",
              "flash_attention/kernel.py", 23, "flash_attention_wgmma"),

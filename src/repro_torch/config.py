@@ -4,8 +4,9 @@ port imports nothing from the JAX package.
 
 Plain dataclasses (stdlib only) and a registry of named architectures.
 Field names, defaults and derived values (``A3Config.m_for``,
-``threshold_nats``, ``smoke_variant``) match the reference exactly, so a
-config built here describes the same model as its JAX namesake.
+``threshold_nats``, ``param_count``, ``smoke_variant``) match the
+reference exactly, so a config built here describes the same model as
+its JAX namesake.
 """
 from __future__ import annotations
 
@@ -13,7 +14,7 @@ import dataclasses
 import enum
 import math
 from dataclasses import dataclass
-from typing import Any, Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 
 class AttentionKind(str, enum.Enum):
@@ -73,6 +74,18 @@ class A3Config:
 
 
 @dataclass(frozen=True)
+class MoEConfig:
+    num_experts: int            # routed experts
+    num_shared: int = 0         # always-on shared experts (deepseek-moe)
+    top_k: int = 2
+    d_expert: int = 0           # per-expert FFN hidden dim (0 -> d_ff)
+    router_jitter: float = 0.0
+    load_balance_coef: float = 0.01
+    # the first k layers keep a dense FFN (deepseek-moe: 1)
+    num_dense_layers: int = 0
+
+
+@dataclass(frozen=True)
 class ModelConfig:
     name: str
     family: str
@@ -91,7 +104,7 @@ class ModelConfig:
     window_size: int = 4096
     local_global_pattern: int = 0
     block_pattern: Tuple[BlockKind, ...] = ()
-    moe: Optional[Any] = None
+    moe: Optional[MoEConfig] = None
     frontend: Optional[str] = None
     num_codebooks: int = 1
     act: str = "swiglu"
@@ -112,6 +125,42 @@ class ModelConfig:
             return self.attention_kind == AttentionKind.FULL
         p = self.local_global_pattern
         return (layer_idx % (p + 1)) == p
+
+    def param_count(self) -> int:
+        """Analytic parameter count (the reference's formula)."""
+        d, h = self.d_model, self.resolved_head_dim
+        n_q, n_kv = self.num_heads, self.num_kv_heads
+        attn = d * (n_q * h) + 2 * d * (n_kv * h) + (n_q * h) * d
+        if self.act == "swiglu":
+            ffn_dense = 3 * self.d_model * self.d_ff
+        else:
+            ffn_dense = 2 * self.d_model * self.d_ff
+        total = 0
+        for i in range(self.num_layers):
+            kind = self.block_kind(i)
+            if kind == BlockKind.ATTENTION:
+                total += attn
+            elif kind == BlockKind.RGLRU:
+                d_rnn = n_q * h
+                total += 2 * d * d_rnn + 4 * d_rnn
+            elif kind == BlockKind.MLSTM:
+                total += d * (n_q * h) * 3 + (n_q * h) * d + 2 * d * 2 * d
+            elif kind == BlockKind.SLSTM:
+                total += 4 * d * d + 4 * d * d
+            if kind in (BlockKind.MLSTM, BlockKind.SLSTM) and self.d_ff == 0:
+                pass  # xlstm has no separate FFN
+            elif self.moe is not None and i >= self.moe.num_dense_layers:
+                de = self.moe.d_expert or self.d_ff
+                n_exp = self.moe.num_experts + self.moe.num_shared
+                total += 3 * self.d_model * de * n_exp \
+                    + d * self.moe.num_experts
+            else:
+                total += ffn_dense
+            total += 2 * d  # norms
+        total += self.vocab_size * d  # embedding
+        if not self.tie_embeddings:
+            total += self.vocab_size * d
+        return total
 
 
 SHED_POLICIES = ("reject-new", "evict-oldest-queued")
@@ -215,6 +264,11 @@ def get_arch(name: str) -> ModelConfig:
     return _REGISTRY[name]()
 
 
+def list_archs() -> List[str]:
+    import repro_torch.configs  # noqa: F401
+    return sorted(_REGISTRY)
+
+
 def smoke_variant(cfg: ModelConfig) -> ModelConfig:
     """Reduced same-family config for CPU smoke tests (as the
     reference's ``smoke_variant``)."""
@@ -232,5 +286,8 @@ def smoke_variant(cfg: ModelConfig) -> ModelConfig:
         window_size=64,
     )
     if cfg.moe is not None:
-        raise NotImplementedError("MoE configs are not yet ported")
+        kw["moe"] = dataclasses.replace(
+            cfg.moe, num_experts=4, top_k=min(cfg.moe.top_k, 2),
+            d_expert=64 if cfg.moe.d_expert else 0,
+            num_dense_layers=min(cfg.moe.num_dense_layers, 1))
     return dataclasses.replace(cfg, **kw)

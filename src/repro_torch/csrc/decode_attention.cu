@@ -91,6 +91,8 @@ constexpr int kSlotBytes = 32 * 1024;     // most bytes of one staged chunk
 constexpr int kFusedRingBytes = 160 * 1024;
 constexpr int kTwoPassRingBytes = 64 * 1024;
 constexpr int kWindowScores = 4096;       // floats of a two-pass [G, w] window
+constexpr size_t kMaxSmem = 227 * 1024;   // dynamic shared memory a block may
+                                          // opt in to on sm_90
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
@@ -168,20 +170,25 @@ inline RingLayout ring_layout(int G, int D, int Dv, int n, int ntiles, int C,
   f.ngroups = tpr > 0 && kThreads / tpr > 0 ? kThreads / tpr : 1;
   // the mask of all of the CTA's tiles when it is small, else one tile
   f.mask_tiles = (size_t)G * n * ntiles <= 16 * 1024 ? ntiles : 1;
-  size_t o = align16((size_t)f.ns * 8);             // the ring's mbarriers
-  f.ring = o;
-  o += (size_t)f.ns * f.slot;
-  f.q = o;      o = align16(o + sizeof(float) * G * D);
-  f.s = o;      o = align16(o + sizeof(float) * ((G + 3) & ~3) * n);
-  f.acc = o;    o = align16(o + sizeof(float) * f.ngroups * G * Dv);
-  f.red = o;    o = align16(o + sizeof(float) * C * G * (Dv + 1));
-  f.lmax = o;   o = align16(o + sizeof(float) * 2 * G);
-  f.m = o;      o = align16(o + sizeof(float) * G);
-  f.l = o;      o = align16(o + sizeof(float) * G);
-  f.alpha = o;  o = align16(o + sizeof(float) * G);
-  f.mask = o;   o = align16(o + (size_t)G * n * f.mask_tiles);
-  f.total = o;
-  return f;
+  // the ring gives up slots until the whole fits kMaxSmem: the
+  // accumulators and the cluster reduction grow as G * Dv (at G = 10,
+  // Dv = 256 they take 80 KB)
+  for (;; --f.ns) {
+    size_t o = align16((size_t)f.ns * 8);           // the ring's mbarriers
+    f.ring = o;
+    o += (size_t)f.ns * f.slot;
+    f.q = o;      o = align16(o + sizeof(float) * G * D);
+    f.s = o;      o = align16(o + sizeof(float) * ((G + 3) & ~3) * n);
+    f.acc = o;    o = align16(o + sizeof(float) * f.ngroups * G * Dv);
+    f.red = o;    o = align16(o + sizeof(float) * C * G * (Dv + 1));
+    f.lmax = o;   o = align16(o + sizeof(float) * 2 * G);
+    f.m = o;      o = align16(o + sizeof(float) * G);
+    f.l = o;      o = align16(o + sizeof(float) * G);
+    f.alpha = o;  o = align16(o + sizeof(float) * G);
+    f.mask = o;   o = align16(o + (size_t)G * n * f.mask_tiles);
+    f.total = o;
+    if (f.total <= kMaxSmem || f.ns == 1) return f;
+  }
 }
 
 struct Segment {

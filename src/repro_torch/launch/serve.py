@@ -6,6 +6,10 @@ requests through the slot engine, optionally with A^3.
       --device cpu --requests 3 --max-new 4
   python -m repro_torch.launch.serve --arch phi4-mini-3.8b \\
       --decode-block 4 --pipeline-depth 1 --temperature 0.8
+  python -m repro_torch.launch.serve --arch gemma3-4b --a3 conservative \\
+      --max-len 2048 --prompt-len 1536
+
+``--arch`` takes every arch the port registers (``list_archs``).
 
 Runs on the card unless ``--device cpu`` is given; prints the same
 summary line as ``repro.launch.serve``.
@@ -21,14 +25,14 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.config import A3Config, ServeConfig, get_arch, \
-    smoke_variant
+    list_archs, smoke_variant
 from repro_torch.models import decoder
 from repro_torch.serve.engine import ServeEngine
 
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", required=True)
+    ap.add_argument("--arch", required=True, choices=list_archs())
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--prompt-len", type=int, default=64)

@@ -3,9 +3,10 @@
 Layers are ``nn.Module``s holding the parameters; the math lives in
 plain functions that mirror the reference's cast points exactly:
 rmsnorm in float32 then cast back, RoPE angles and rotation in float32,
-the SwiGLU gate in float32. Dense weights are stored ``nn.Linear``-style
-as ``[d_out, d_in]`` (the JAX tree's ``[d_in, d_out]`` transposed), so
-``F.linear(x, W)`` computes the reference's ``x @ W``.
+the SwiGLU gate and the GELU in float32 (the tanh form, ``jax.nn.gelu``'s
+default ``approximate=True``). Dense weights are stored
+``nn.Linear``-style as ``[d_out, d_in]`` (the JAX tree's ``[d_in, d_out]``
+transposed), so ``F.linear(x, W)`` computes the reference's ``x @ W``.
 """
 from __future__ import annotations
 
@@ -46,12 +47,14 @@ class Attention(nn.Module):
 
 
 class FFN(nn.Module):
-    """SwiGLU FFN: ``w_gate``/``w_up``/``w_down``."""
+    """SwiGLU FFN (``w_gate``/``w_up``/``w_down``) or, with
+    ``act="gelu"``, GELU FFN (``w_up``/``w_down``; ``w_gate`` is None)."""
 
     def __init__(self, d_model: int, d_ff: int, dtype=torch.float32,
-                 device=None):
+                 device=None, act: str = "swiglu"):
         super().__init__()
-        self.w_gate = _linear(d_model, d_ff, dtype, device)
+        self.w_gate = (_linear(d_model, d_ff, dtype, device)
+                       if act == "swiglu" else None)
         self.w_up = _linear(d_model, d_ff, dtype, device)
         self.w_down = _linear(d_ff, d_model, dtype, device)
 
@@ -92,7 +95,8 @@ def attention_init_(attn: Attention, generator: torch.Generator) -> None:
 
 
 def ffn_init_(ffn: FFN, generator: torch.Generator) -> None:
-    dense_init_(ffn.w_gate, generator)
+    if ffn.w_gate is not None:
+        dense_init_(ffn.w_gate, generator)
     dense_init_(ffn.w_up, generator)
     dense_init_(ffn.w_down, generator,
                 scale=1.0 / math.sqrt(ffn.w_down.weight.shape[1]))
@@ -220,8 +224,17 @@ def attention_out(attn: Attention, o: torch.Tensor) -> torch.Tensor:
     return F.linear(o.transpose(1, 2).reshape(b, s, h * hd), attn.wo.weight)
 
 
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu`` (tanh form; the erf form differs by up to 5e-4)."""
+    return F.gelu(x, approximate="tanh")
+
+
 def ffn_apply(ffn: FFN, x: torch.Tensor) -> torch.Tensor:
-    """SwiGLU with the gate in float32 (reference ``ffn_apply``)."""
+    """SwiGLU with the gate in float32, or GELU in float32 when the FFN
+    has no gate (reference ``ffn_apply``)."""
+    if ffn.w_gate is None:
+        h = gelu(F.linear(x, ffn.w_up.weight).float())
+        return F.linear(h.to(x.dtype), ffn.w_down.weight)
     g = F.silu(F.linear(x, ffn.w_gate.weight).float())
     u = F.linear(x, ffn.w_up.weight).float()
     return F.linear((g * u).to(x.dtype), ffn.w_down.weight)

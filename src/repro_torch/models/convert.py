@@ -9,7 +9,12 @@ they are transposed on the way in. Values are copied bit for bit. The
 xLSTM leaves keep their own layout except the dense projections: mLSTM
 ``wq``/``wk``/``wv``/``w_o``/``w_out`` and sLSTM ``wx``/``w_out`` are
 transposed; the gates ``w_i``/``w_f``/``b_i``/``b_f``, the recurrent
-``wr``, the bias ``b`` and the norm scales go over as they are.
+``wr``, the bias ``b`` and the norm scales go over as they are. The
+RG-LRU's dense ``w_in_gate``/``w_in_rnn``/``w_a``/``w_x``/``w_out`` are
+transposed, its ``conv_w``/``conv_b``/``lam`` go over as they are. A GELU
+FFN has no ``w_gate``. An MoE keeps the reference's layout for its
+``router`` [d, E] and expert stacks [E, d_in, d_out]; its ``shared``
+SwiGLU is transposed as a dense FFN is.
 """
 from __future__ import annotations
 
@@ -26,6 +31,8 @@ from repro_torch.models.mixer import build_segments
 # per block kind: (tree key, transposed dense leaves, leaves as they are)
 _MIXER_LEAVES = {
     BlockKind.ATTENTION: ("attn", ("wq", "wk", "wv", "wo"), ()),
+    BlockKind.RGLRU: ("rnn", ("w_in_gate", "w_in_rnn", "w_a", "w_x", "w_out"),
+                      ("conv_w", "conv_b", "lam")),
     BlockKind.MLSTM: ("mlstm", ("wq", "wk", "wv", "w_o", "w_out"),
                       ("w_i", "w_f", "b_i", "b_f", "ln_scale")),
     BlockKind.SLSTM: ("slstm", ("wx", "w_out"), ("wr", "b", "ln_scale")),
@@ -68,11 +75,21 @@ def params_from_numpy(tree: Mapping[str, Any], cfg: ModelConfig,
                          transpose=True)
                 for name in plain:
                     _put(getattr(mix, name), st[key][name][l])
-                if blk.ffn is None:
+                if seg.ffn == "none":
                     continue
                 _put(blk.ln2.scale, st["ln2"]["scale"][l])
-                for name in ("w_gate", "w_up", "w_down"):
-                    if name in st["ffn"]:
-                        _put(getattr(blk.ffn, name).weight,
-                             st["ffn"][name][l], transpose=True)
+                if blk.ffn is not None:
+                    _put_ffn(blk.ffn, st["ffn"], l)
+                else:
+                    moe = st["moe"]
+                    for name in ("router", "w_gate", "w_up", "w_down"):
+                        _put(getattr(blk.moe, name), moe[name][l])
+                    if blk.moe.shared is not None:
+                        _put_ffn(blk.moe.shared, moe["shared"], l)
     return model
+
+
+def _put_ffn(ffn, tree: Mapping[str, Any], l: int) -> None:
+    for name in ("w_gate", "w_up", "w_down"):
+        if name in tree:
+            _put(getattr(ffn, name).weight, tree[name][l], transpose=True)

@@ -5,7 +5,8 @@ the in-dispatch A^3 re-sort and the multi-step ``decode_block``.
 
 The caches keep the reference layout: per segment ``seg{i}`` a dict of
 ``[L, B, ...]`` tensors (``k``/``v`` rings ``[L, B, Hkv, w, hd]``, the A^3
-sorted keys and ``sorted_upto`` watermark; the mLSTM and sLSTM states),
+sorted keys and ``sorted_upto`` watermark; the RG-LRU, mLSTM and sLSTM
+states),
 so they compare leaf for leaf with the JAX caches. Unlike the reference,
 which returns new arrays, ``prefill_chunk``, ``decode_step``,
 ``resort_sorted_keys`` and ``decode_block`` update the cache **in
@@ -19,6 +20,7 @@ given, the function reads the device value, a blocking read.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Any, Dict, Optional, Sequence, Tuple
 
@@ -35,6 +37,8 @@ from repro_torch.models.common import NEG_INF, FFN, Attention, RMSNorm, \
 from repro_torch.models import sampling
 from repro_torch.models import xlstm as xl
 from repro_torch.models.mixer import SegmentSpec, build_segments, mixer_for
+from repro_torch.models.moe import MoE, moe_apply, moe_init_
+from repro_torch.models.rglru import RGLRU, rglru_init_
 
 # Poison-quarantine sentinel of the decode token ring: emitted once by a
 # lane whose logits went non-finite, then the lane freezes (reference
@@ -54,10 +58,19 @@ def padded_vocab(v: int) -> int:
 # parameters
 # ---------------------------------------------------------------------------
 
+def moe_config(cfg: ModelConfig):
+    """The config's MoE with ``d_expert`` 0 resolved to ``d_ff``."""
+    m = cfg.moe
+    if m is not None and (m.d_expert or 0) == 0:
+        m = dataclasses.replace(m, d_expert=cfg.d_ff)
+    return m
+
+
 class Block(nn.Module):
     """One layer: ``ln1`` and the segment kind's mixer (``attn``,
-    ``mlstm`` or ``slstm``), then ``ln2`` and the dense ``ffn`` unless
-    the segment has none (``ffn`` is then None)."""
+    ``rnn``, ``mlstm`` or ``slstm``), then ``ln2`` and the FFN half: the
+    dense ``ffn`` (SwiGLU or GELU) or the ``moe``, unless the segment has
+    none (``ffn`` and ``moe`` are then None)."""
 
     def __init__(self, cfg: ModelConfig, seg: SegmentSpec, dtype,
                  device=None):
@@ -67,15 +80,19 @@ class Block(nn.Module):
         if seg.kind == BlockKind.ATTENTION:
             self.attn = Attention(d, cfg.num_heads, cfg.num_kv_heads, hd,
                                   dtype, device)
+        elif seg.kind == BlockKind.RGLRU:
+            self.rnn = RGLRU(d, cfg.num_heads * hd, dtype, device)
         elif seg.kind == BlockKind.MLSTM:
             self.mlstm = xl.MLSTM(d, cfg.num_heads, hd, dtype, device)
         elif seg.kind == BlockKind.SLSTM:
             self.slstm = xl.SLSTM(d, cfg.num_heads, dtype, device)
-        if seg.ffn == "none":
-            self.ffn = None
-        else:
+        self.ffn = self.moe = None
+        if seg.ffn != "none":
             self.ln2 = RMSNorm(d, dtype, device)
-            self.ffn = FFN(d, cfg.d_ff, dtype, device)
+        if seg.ffn == "dense":
+            self.ffn = FFN(d, cfg.d_ff, dtype, device, act=cfg.act)
+        elif seg.ffn == "moe":
+            self.moe = MoE(d, moe_config(cfg), dtype, device)
 
 
 class Decoder(nn.Module):
@@ -95,7 +112,6 @@ class Decoder(nn.Module):
                                      device=device)
         self.segs = nn.ModuleList()
         for seg in build_segments(cfg):
-            mixer_for(seg, cfg)               # raises for unported kinds
             seg_mod = nn.Module()
             seg_mod.layers = nn.ModuleList(
                 Block(cfg, seg, dtype, device) for _ in range(seg.count))
@@ -121,12 +137,16 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
         for blk in seg_mod.layers:
             if seg.kind == BlockKind.ATTENTION:
                 attention_init_(blk.attn, generator)
+            elif seg.kind == BlockKind.RGLRU:
+                rglru_init_(blk.rnn, generator)
             elif seg.kind == BlockKind.MLSTM:
                 xl.mlstm_init_(blk.mlstm, generator)
             else:
                 xl.slstm_init_(blk.slstm, generator)
             if blk.ffn is not None:
                 ffn_init_(blk.ffn, generator)
+            if blk.moe is not None:
+                moe_init_(blk.moe, generator)
     return model
 
 
@@ -155,10 +175,18 @@ def unembed(model: Decoder, cfg: ModelConfig, h: torch.Tensor
 
 
 def _ffn_block(blk: Block, h: torch.Tensor, cfg: ModelConfig
-               ) -> torch.Tensor:
-    if blk.ffn is None:
-        return h
-    return h + ffn_apply(blk.ffn, rmsnorm(blk.ln2, h, cfg.norm_eps))
+               ) -> Tuple[torch.Tensor, Any]:
+    """The kind-independent FFN half of a block -> (h, moe_aux_loss; 0.0
+    without an MoE). An MoE routes every row of ``h``, pad positions
+    included."""
+    aux = 0.0
+    if blk.ffn is not None:
+        h = h + ffn_apply(blk.ffn, rmsnorm(blk.ln2, h, cfg.norm_eps))
+    elif blk.moe is not None:
+        o, moe_aux = moe_apply(blk.moe, rmsnorm(blk.ln2, h, cfg.norm_eps),
+                               moe_config(cfg))
+        h, aux = h + o, moe_aux["moe_aux_loss"]
+    return h, aux
 
 
 def _layer_state(seg_cache: Dict[str, torch.Tensor], l: int
@@ -184,8 +212,30 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
 
 
 # ---------------------------------------------------------------------------
-# prefill
+# forward, prefill
 # ---------------------------------------------------------------------------
+
+def forward(model: Decoder, cfg: ModelConfig, tokens: torch.Tensor, *,
+            attn_chunk: int = 1024
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Full-sequence forward, no state -> (logits [B, S, Vp],
+    {"moe_aux_loss"}), as the reference's ``forward``."""
+    b, s = tokens.shape
+    h = embed_tokens(model, cfg, tokens)
+    positions = torch.arange(s, dtype=torch.int32,
+                             device=h.device).expand(b, s)
+    aux = 0.0
+    for si, seg in enumerate(build_segments(cfg)):
+        mixer = mixer_for(seg, cfg)
+        for blk in model.segs[si].layers:
+            hn = rmsnorm(blk.ln1, h, cfg.norm_eps)
+            o = mixer.forward(blk, hn, cfg=cfg, seg=seg,
+                              positions=positions, attn_chunk=attn_chunk)
+            h, a = _ffn_block(blk, h + o, cfg)
+            aux = aux + a
+    return unembed(model, cfg, h), {
+        "moe_aux_loss": torch.as_tensor(aux, device=h.device)}
+
 
 def prefill(model: Decoder, cfg: ModelConfig, tokens: torch.Tensor, *,
             max_len: Optional[int] = None, attn_chunk: int = 1024,
@@ -207,7 +257,7 @@ def prefill(model: Decoder, cfg: ModelConfig, tokens: torch.Tensor, *,
                 blk, hn, cfg=cfg, seg=seg, positions=positions,
                 attn_chunk=attn_chunk, max_len=max_len, a3=a3,
                 select_shards=select_shards)
-            h = _ffn_block(blk, h + o, cfg)
+            h, _ = _ffn_block(blk, h + o, cfg)
             states.append(st)
         cache[f"seg{si}"] = {name: torch.stack([st[name] for st in states])
                              for name in states[0]}
@@ -256,7 +306,7 @@ def prefill_chunk(
                 seg=seg, positions=positions, valid_tok=valid_tok, pos=pos,
                 length=length, sort_lanes=sort_lanes, sort_any=sort_any,
                 a3=a3)
-            h = _ffn_block(blk, h + o, cfg)
+            h, _ = _ffn_block(blk, h + o, cfg)
     last = torch.clamp(length - 1, 0, c - 1).long()
     hl = h[torch.arange(b, device=dev), last][:, None]
     return unembed(model, cfg, hl)[:, 0], cache
@@ -281,7 +331,7 @@ def decode_step(model: Decoder, cfg: ModelConfig, cache: Dict[str, Any],
             hn = rmsnorm(blk.ln1, h, cfg.norm_eps)
             o = mixer.decode_step(blk, _layer_state(cache[f"seg{si}"], l),
                                   hn, cfg=cfg, seg=seg, pos=pos, a3=a3)
-            h = _ffn_block(blk, h + o, cfg)
+            h, _ = _ffn_block(blk, h + o, cfg)
     return unembed(model, cfg, h)[:, 0], cache
 
 

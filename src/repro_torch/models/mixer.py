@@ -1,5 +1,5 @@
 """Per-segment mixer-state interface (PyTorch port of
-``repro.models.mixer``): the attention, mLSTM and sLSTM kinds.
+``repro.models.mixer``): the attention, RG-LRU, mLSTM and sLSTM kinds.
 
 A model is a sequence of *segments* (maximal runs of layers sharing a
 (block kind, ffn kind, attention window) signature). A
@@ -10,7 +10,10 @@ decoder's execution paths are kind-agnostic loops.
 Layout and semantics follow the reference: the attention state of a
 segment is ``k``/``v`` rings ``[L, B, Hkv, w, hd]`` plus, with A^3 on a
 global-window segment, the per-column sorted keys ``sk_vals``/``sk_rows``
-and the ``sorted_upto`` watermark ``[L, B]``. One difference in style:
+and the ``sorted_upto`` watermark ``[L, B]``; a windowed segment (sliding,
+or the local layers of a local/global pattern) keeps a ring of
+``min(max_len, window)`` rows and no sort leaves. One difference in
+style:
 the reference returns new state arrays, while the port writes each
 layer's state **in place** (``prefill_chunk`` and ``decode_step`` take
 per-layer views and update them). Pad lanes — ``length == 0`` in a
@@ -18,12 +21,14 @@ chunk, ``pos < 0`` in a decode step — keep their state bit-identical:
 torch has no ``mode="drop"`` scatter, so the writes select the old value
 for those lanes instead of scattering out of bounds.
 
-The recurrent kinds keep the reference's state leaves: mLSTM ``C``/``n``/
-``m`` ``[L, B, H, hd, hd]``/``[L, B, H, hd]``/``[L, B, H]`` and sLSTM
-``c``/``n``/``m``/``h`` ``[L, B, d]``, all float32. A lane starting a
-fresh prompt (``pos == 0, length > 0``) reads its state as the initial
-one (the slot may hold a finished request's state); lanes with
-``length == 0`` or ``pos < 0`` keep theirs by an explicit per-lane select.
+The recurrent kinds keep the reference's state leaves: RG-LRU ``h``
+``[L, B, C]`` float32 and ``conv`` ``[L, B, 3, C]`` in the model dtype,
+mLSTM ``C``/``n``/``m`` ``[L, B, H, hd, hd]``/``[L, B, H, hd]``/
+``[L, B, H]`` and sLSTM ``c``/``n``/``m``/``h`` ``[L, B, d]``, float32. A
+lane starting a fresh prompt (``pos == 0, length > 0``) reads its state as
+the initial one (the slot may hold a finished request's state); lanes
+with ``length == 0`` or ``pos < 0`` keep theirs by an explicit per-lane
+select.
 """
 from __future__ import annotations
 
@@ -39,6 +44,8 @@ from repro_torch.core.candidate_selection import SortedKeys, \
 from repro_torch.kernels.decode_attention.ops import a3_decode_attention, \
     a3_decode_attention_compact
 from repro_torch.models import xlstm as xl
+from repro_torch.models.rglru import CONV_WIDTH, rglru_apply_scan, \
+    rglru_chunk_step, rglru_decode_step
 from repro_torch.models.common import NEG_INF, attention_out, \
     attention_qkv, attention_xla_flash
 
@@ -59,6 +66,12 @@ class SegmentSpec:
     @property
     def count(self) -> int:
         return len(self.layers)
+
+    def uses_a3(self, a3_on: bool) -> bool:
+        """Whether A^3 applies to this segment's layers when it is on:
+        global attention only (windowed layers attend exactly)."""
+        return (a3_on and self.kind == BlockKind.ATTENTION
+                and self.window >= FULL_WINDOW)
 
 
 def _layer_signature(cfg: ModelConfig, i: int) -> Tuple:
@@ -148,7 +161,7 @@ def _attn_init_state(cfg: ModelConfig, seg: SegmentSpec, batch: int,
     shape = (L, batch, cfg.num_kv_heads, w, hd)
     state = {"k": torch.zeros(shape, dtype=dtype, device=device),
              "v": torch.zeros(shape, dtype=dtype, device=device)}
-    if a3 and seg.window >= FULL_WINDOW:
+    if seg.uses_a3(a3):
         state["sk_vals"] = torch.zeros(shape, dtype=dtype, device=device)
         state["sk_rows"] = torch.zeros(shape, dtype=torch.int32,
                                        device=device)
@@ -193,7 +206,7 @@ def _attn_prefill_full(layer, hn: torch.Tensor, *, cfg: ModelConfig,
     kc[:, :, slots] = k[:, :, s - take:]
     vc[:, :, slots] = v[:, :, s - take:]
     state = {"k": kc, "v": vc}
-    if a3 and seg.window >= FULL_WINDOW:
+    if seg.uses_a3(a3):
         ns = select_shards if w % max(select_shards, 1) == 0 else 1
         sk = sort_key_columns(kc.reshape(b, kc.shape[1], ns, w // ns, hd))
         state["sk_vals"] = sk.values.reshape(kc.shape)
@@ -290,8 +303,7 @@ def _attn_decode_step(layer, state: Dict[str, torch.Tensor],
     _write_token(vc, v[:, :, 0], pos)
     w = kc.shape[2]
     valid = _ring_valid_mask(w, pos, seg.window)               # [B, w]
-    # A^3 approximate decode only on global-attention layers
-    use_a3 = a3.mode != A3Mode.OFF and seg.window >= FULL_WINDOW
+    use_a3 = seg.uses_a3(a3.mode != A3Mode.OFF)
     if use_a3 and "sk_vals" in state:
         # sorted keys cached at prefill; rows written since the last
         # re-sort get exact treatment
@@ -310,7 +322,7 @@ def _attn_decode_step(layer, state: Dict[str, torch.Tensor],
 
 
 # ---------------------------------------------------------------------------
-# recurrent kinds (mLSTM, sLSTM)
+# recurrent kinds (RG-LRU, mLSTM, sLSTM)
 # ---------------------------------------------------------------------------
 
 def _lane_select(new: torch.Tensor, old: torch.Tensor,
@@ -336,8 +348,46 @@ def _commit(state: Dict[str, torch.Tensor], names,
         state[name].copy_(_lane_select(t, state[name], active))
 
 
+_RGLRU_INIT = {"h": 0.0, "conv": 0.0}
 _MLSTM_INIT = {"C": 0.0, "n": 0.0, "m": NEG_INF}
 _SLSTM_INIT = {"c": 0.0, "n": 0.0, "m": NEG_INF, "h": 0.0}
+
+
+def _rglru_init_state(cfg: ModelConfig, seg: SegmentSpec, batch: int,
+                      max_len: int, dtype, a3: bool,
+                      device) -> Dict[str, torch.Tensor]:
+    L, d_rnn = seg.count, cfg.num_heads * cfg.resolved_head_dim
+    return {"h": torch.zeros((L, batch, d_rnn), device=device),
+            "conv": torch.zeros((L, batch, CONV_WIDTH - 1, d_rnn),
+                                dtype=dtype, device=device)}
+
+
+def _rglru_forward(layer, hn: torch.Tensor, **_) -> torch.Tensor:
+    return rglru_apply_scan(layer.rnn, hn)[0]
+
+
+def _rglru_prefill_full(layer, hn: torch.Tensor, **_
+                        ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    o, h, conv = rglru_apply_scan(layer.rnn, hn)
+    return o, {"h": h, "conv": conv}
+
+
+def _rglru_prefill_chunk(layer, state: Dict[str, torch.Tensor],
+                         hn: torch.Tensor, *, pos: torch.Tensor,
+                         length: torch.Tensor, valid_tok: torch.Tensor,
+                         **_) -> torch.Tensor:
+    h0, conv = _fresh_state(state, _RGLRU_INIT, (pos == 0) & (length > 0))
+    o, *new = rglru_chunk_step(layer.rnn, hn, h0, conv, valid_tok)
+    _commit(state, _RGLRU_INIT, new, length > 0)
+    return o
+
+
+def _rglru_decode_step(layer, state: Dict[str, torch.Tensor],
+                       hn: torch.Tensor, *, pos: torch.Tensor,
+                       **_) -> torch.Tensor:
+    o, *new = rglru_decode_step(layer.rnn, hn, state["h"], state["conv"])
+    _commit(state, _RGLRU_INIT, new, pos >= 0)
+    return o
 
 
 def _mlstm_init_state(cfg: ModelConfig, seg: SegmentSpec, batch: int,
@@ -446,6 +496,9 @@ MIXERS: Dict[BlockKind, SegmentMixer] = {
     BlockKind.ATTENTION: SegmentMixer(
         _attn_init_state, _attn_forward, _attn_prefill_full,
         _attn_prefill_chunk, _attn_decode_step),
+    BlockKind.RGLRU: SegmentMixer(
+        _rglru_init_state, _rglru_forward, _rglru_prefill_full,
+        _rglru_prefill_chunk, _rglru_decode_step),
     BlockKind.MLSTM: SegmentMixer(
         _mlstm_init_state, _mlstm_forward, _mlstm_prefill_full,
         _mlstm_prefill_chunk, _mlstm_decode_step),
@@ -456,14 +509,6 @@ MIXERS: Dict[BlockKind, SegmentMixer] = {
 
 
 def mixer_for(seg: SegmentSpec, cfg: ModelConfig) -> SegmentMixer:
-    """The segment's mixer; raises for what the port does not serve yet
-    (RG-LRU blocks, MoE or GELU FFNs). The recurrent kinds may have no
-    FFN (xLSTM's blocks carry their own projections)."""
-    no_ffn = seg.ffn == "none" and seg.kind in (BlockKind.MLSTM,
-                                                BlockKind.SLSTM)
-    dense = seg.ffn == "dense" and cfg.act == "swiglu"
-    if seg.kind not in MIXERS or not (no_ffn or dense):
-        raise NotImplementedError(
-            f"{seg.kind.value} blocks with a {seg.ffn} {cfg.act} FFN are "
-            f"not yet ported to repro_torch")
+    """The segment's mixer. Its FFN half (dense SwiGLU or GELU, MoE, or
+    none for xLSTM's blocks) is the decoder's ``_ffn_block``."""
     return MIXERS[seg.kind]

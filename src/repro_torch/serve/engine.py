@@ -218,6 +218,13 @@ class ServeEngine:
                  pipeline_depth: int = 0,
                  virtual_device_latency_s: float = 0.0,
                  retain_results: int = 0):
+        if cfg.frontend:
+            # token prompts only, as the reference engine: frontend archs
+            # (audio / vision) serve from precomputed embeddings
+            raise ValueError(
+                f"{cfg.name}: frontend archs serve from precomputed "
+                f"embeddings; the token-prompt ServeEngine does not "
+                f"support them")
         if prefill_chunk is not None and int(prefill_chunk) <= 0:
             raise ValueError(f"prefill_chunk must be positive, got "
                              f"{prefill_chunk} (use None for the default)")

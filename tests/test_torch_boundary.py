@@ -37,7 +37,8 @@ def test_port_package_is_covered():
     names = {p.name for p in FILES}
     assert {"engine.py", "decoder.py", "mixer.py", "kernel.py", "ops.py",
             "candidate_selection.py", "chip_smoke.py", "quantization.py",
-            "post_scoring.py", "a3_attention.py", "xlstm.py"} <= names
+            "post_scoring.py", "a3_attention.py", "xlstm.py", "rglru.py",
+            "moe.py", "gemma3_4b.py", "deepseek_moe_16b.py"} <= names
     rel = {str(p.relative_to(ROOT)) for p in FILES}
     for family in ("decode_attention", "flash_attention", "a3_attention",
                    "mlstm_chunk"):

@@ -310,6 +310,10 @@ FUSED_CASES = [
     (4, 24, 8, 512, 128, "float32", 512, None),    # float32
     (4, 24, 8, 512, 128, "bfloat16", 128, 3.0),    # threshold, 4 tiles
     (1, 6, 2, 128, 20, "bfloat16", 64, 3.0),       # rows not 16-B aligned
+    # groups whose accumulators leave the ring less than its 160 KB
+    (4, 10, 1, 2048, 256, "bfloat16", 512, None),  # recurrentgemma-2b
+    (1, 8, 1, 1024, 256, "float32", 512, 3.0),     # G = 8, D = 256
+    (1, 16, 1, 4096, 256, "bfloat16", 512, None),  # G = 16: one slot
 ]
 
 

@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import math
 
 import numpy as np
 import pytest
@@ -38,6 +39,25 @@ TINY_XL = jcfg.ModelConfig("tiny-xl", "ssm", num_layers=3, d_model=64,
                                           jcfg.BlockKind.MLSTM,
                                           jcfg.BlockKind.SLSTM),
                            dtype="float32")
+# and its RG-LRU hybrid (RG-LRU, RG-LRU, sliding attention; GELU FFN)
+TINY_RG = jcfg.ModelConfig("tiny-rg", "hybrid", num_layers=3, d_model=64,
+                           num_heads=4, num_kv_heads=2, d_ff=128,
+                           vocab_size=256, head_dim=16,
+                           attention_kind=jcfg.AttentionKind.SLIDING,
+                           window_size=24,
+                           block_pattern=(jcfg.BlockKind.RGLRU,
+                                          jcfg.BlockKind.RGLRU,
+                                          jcfg.BlockKind.ATTENTION),
+                           act="gelu", dtype="float32")
+# TINY with a 16-row sliding window (the conformance suite's ring-wrap
+# config), and a local/global pattern over 4 layers: local, global,
+# local, global (each global layer a segment of its own, with A^3)
+TINY_SWA = dataclasses.replace(TINY, name="tiny-swa",
+                               attention_kind=jcfg.AttentionKind.SLIDING,
+                               window_size=16)
+TINY_LG = dataclasses.replace(TINY, name="tiny-lg", num_layers=4,
+                              attention_kind=jcfg.AttentionKind.LOCAL_GLOBAL,
+                              local_global_pattern=1, window_size=16)
 
 
 def tol(dtype) -> dict:
@@ -47,10 +67,10 @@ def tol(dtype) -> dict:
 
 def port_cfg(cfg: jcfg.ModelConfig) -> tcfg.ModelConfig:
     """The port's ModelConfig with the same fields as a reference one."""
-    if cfg.moe is not None:
-        raise NotImplementedError("MoE configs are not yet ported")
     kw = {f.name: getattr(cfg, f.name)
           for f in dataclasses.fields(jcfg.ModelConfig)}
+    if cfg.moe is not None:
+        kw["moe"] = tcfg.MoEConfig(**dataclasses.asdict(cfg.moe))
     kw["attention_kind"] = tcfg.AttentionKind(cfg.attention_kind.value)
     kw["block_pattern"] = tuple(tcfg.BlockKind(b.value)
                                 for b in cfg.block_pattern)
@@ -155,6 +175,22 @@ def assert_same_stats(port, ref, keys=ENGINE_STATS):
             (key, port.stats[key], ref.stats[key])
 
 
+def assert_engine_invariants(eng):
+    """The dispatch and sync bounds of tests/test_serve_conformance.py."""
+    t, s = eng.decode_block, eng.stats
+    assert s["decode_steps"] == t * s["decode_dispatches"]
+    adv = s["decode_steps_advanced"]
+    assert s["decode_dispatches"] <= adv <= s["decode_steps"]
+    assert s["decode_dispatches"] <= (math.ceil(adv / t)
+                                      + s["prefill_dispatches"])
+    assert s["prefill_dispatches"] <= s["ticks"]
+    assert s["host_syncs"] <= s["decode_dispatches"] + s["handoff_syncs"]
+    assert s["handoff_syncs"] <= s["prefill_dispatches"]
+    bound = math.ceil(s["decode_steps"] / t) + s["prefill_dispatches"]
+    assert s["decode_dispatches"] <= bound
+    assert s["host_syncs"] <= bound
+
+
 @contextlib.contextmanager
 def jax_blocks_ready():
     """While active, the JAX engine's readiness probe waits for a block
@@ -209,8 +245,9 @@ def test_xlstm_config_matches_reference():
 
 
 def test_unported_arch_raises():
+    """The frontend archs wait for the port's frontend module."""
     with pytest.raises(KeyError, match="not yet ported"):
-        tcfg.get_arch("recurrentgemma-2b")
+        tcfg.get_arch("musicgen-medium")
 
 
 @pytest.mark.parametrize("mode", ["conservative", "aggressive"])

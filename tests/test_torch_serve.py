@@ -17,8 +17,6 @@ lifecycle, pipeline and sampling flags.
 """
 from __future__ import annotations
 
-import math
-
 import numpy as np
 import pytest
 
@@ -34,8 +32,9 @@ from repro_torch.models import decoder as tdec  # noqa: E402
 from repro_torch.models.convert import params_from_numpy  # noqa: E402
 from repro_torch.serve.engine import ServeEngine  # noqa: E402
 
-from test_torch_helpers import TINY, TINY_XL, N, T, assert_same_stats, \
-    drive, port_a3, port_cfg  # noqa: E402
+from test_torch_helpers import TINY, TINY_XL, N, T, \
+    assert_engine_invariants, assert_same_stats, drive, port_a3, \
+    port_cfg  # noqa: E402
 
 torch.set_num_threads(1)
 
@@ -96,7 +95,7 @@ def test_engine_matches_jax_engine(models, prompts, slots, chunk,
     want, got = _run(ref, prompts), _run(port, prompts)
     assert got == want
     assert_same_stats(port, ref)
-    _assert_invariants(port)
+    assert_engine_invariants(port)
     assert all(port.status(u) == "finished" for u in range(len(prompts)))
 
 
@@ -104,22 +103,6 @@ def test_engine_matches_jax_engine(models, prompts, slots, chunk,
 # the rest of the reference's conformance cases, each against the JAX
 # engine
 # ---------------------------------------------------------------------------
-
-def _assert_invariants(eng):
-    """The dispatch and sync bounds of tests/test_serve_conformance.py."""
-    t, s = eng.decode_block, eng.stats
-    assert s["decode_steps"] == t * s["decode_dispatches"]
-    adv = s["decode_steps_advanced"]
-    assert s["decode_dispatches"] <= adv <= s["decode_steps"]
-    assert s["decode_dispatches"] <= (math.ceil(adv / t)
-                                      + s["prefill_dispatches"])
-    assert s["prefill_dispatches"] <= s["ticks"]
-    assert s["host_syncs"] <= s["decode_dispatches"] + s["handoff_syncs"]
-    assert s["handoff_syncs"] <= s["prefill_dispatches"]
-    bound = math.ceil(s["decode_steps"] / t) + s["prefill_dispatches"]
-    assert s["decode_dispatches"] <= bound
-    assert s["host_syncs"] <= bound
-
 
 def _pair(models, *, a3="off", **kw):
     params, model = models
@@ -136,7 +119,7 @@ def _both(models, prompts, order="upfront", **kw):
     assert got == want
     assert all(r is not None and len(r) == MAX_NEW for r in got.values())
     assert_same_stats(port, ref)
-    _assert_invariants(port)
+    assert_engine_invariants(port)
     return got, port
 
 

@@ -325,13 +325,18 @@ def test_native_init_distributions():
 
 
 def test_unported_kinds_still_raise():
-    """RG-LRU blocks and GELU FFNs stay unported: the decoder refuses
-    them at construction."""
+    """Every token-prompt kind is ported now (RG-LRU blocks and GELU FFNs
+    build); what stays unported is a frontend arch, which the port's
+    engine refuses as the reference's does."""
     rg = port_cfg(jsmoke(get_arch("recurrentgemma-2b")))
-    with pytest.raises(NotImplementedError, match="rglru"):
-        tdec.Decoder(rg, device="cpu")
+    assert tdec.Decoder(rg, device="cpu").segs[0].layers[0].rnn is not None
     gelu = dataclasses.replace(port_cfg(TINY_XL), d_ff=32, act="gelu")
-    with pytest.raises(NotImplementedError, match="gelu"):
-        tdec.Decoder(gelu, device="cpu")
     seg = tmixer.build_segments(gelu)[0]
     assert seg.ffn == "dense"
+    assert tdec.Decoder(gelu, device="cpu").segs[0].layers[0].ffn.w_gate \
+        is None
+    from repro_torch.serve.engine import ServeEngine
+    audio = dataclasses.replace(port_cfg(TINY_XL), frontend="audio_frames")
+    with pytest.raises(ValueError, match="frontend"):
+        ServeEngine(tdec.Decoder(audio, device="cpu"), audio, slots=1,
+                    max_len=8)
