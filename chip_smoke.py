@@ -106,11 +106,36 @@ first phase that does not hold:
    tiny float32 RG-LRU,
    local/global (A^3 conservative) and MoE configs on the card vs the
    CPU: greedy tokens identical.
+10. the paged prefix cache (run after 3b, on phase 3's model): 8 requests
+   sharing a 1024-token prefix (seed-made tokens), each with its own
+   64-token suffix and 16 greedy new tokens, through ``ServeEngine`` (4
+   slots, max_len 2048, decode_block 4, page 64); the first request
+   alone (it records the prefix), then the other seven together. Served
+   cold (cache_pages 0), warm with an fp pool and warm with an int8 pool
+   (320 pages), A^3 off, and cold / warm fp with A^3 conservative, each
+   mode's cold and warm fp serves in turns (cold, warm, warm, cold). Holds:
+   warm fp tokens = cold tokens (A^3 off and conservative); the fp pool's
+   gathered ring rows 0..1023 bit-equal to the cold serve's; the int8
+   pool's dequantized pages within amax/254 of the fp rows in every
+   (layer, page, head) block and the warm rings exactly those values in
+   bf16; 7168 tokens reused, none evicted, 1536 tokens prefilled against
+   8704 cold; ``gather_dispatches`` = the ticks with a warm hit;
+   ``host_sync_stalls`` 0; every gather and record call under
+   ``set_sync_debug_mode("error")``; #1 32 x decode_steps in the A^3-off
+   serves; a repeated serve's tokens = its first's. Prints wall time and
+   median time to first token of each seven-request serve and warm / cold
+   over the means of each pair, the gather's device ms and
+   kernels (4 slots a call), a page record's, pool bytes, peak memory
+   above what was held and the int8-against-fp token agreement; (b) the
+   tiny float32 TINY, TINY_RG and TINY_XL engines with an fp and an int8
+   pool on the card vs the CPU: tokens and prefix counters identical,
+   warm hits taken, #1 (#7 for TINY_XL) launched on the card.
 
 Prints one JSON line of per-kernel numbers (every row with
 ``device_ms``, the profiler's device time per launch; rows #1-#3 with
 ``s4096``, the long ring's ms, device ms and bound; row #1 with
-``served_shapes``, phase 9's rows), then, last,
+``served_shapes``, phase 9's rows; #1's launches include [10]'s, #7's
+[10b]'s), then, last,
 ``{"ok": true, "device": {...}}``. Exits non-zero, with no result line,
 when CUDA is unavailable or the port's sources are not beside the script.
 """
@@ -789,6 +814,366 @@ def phase_engine(model, cfg, dev):
         f"{eng.status(late)}; conservation held after each of "
         f"{eng.stats['ticks']} ticks")
     return fused
+
+
+# ---------------------------------------------------------------------------
+# phase 10: the paged prefix cache at phi4-mini width
+# ---------------------------------------------------------------------------
+
+PREFIX_LEN, SUFFIX_LEN, PREFIX_PAGE = 1024, 64, 64
+
+
+def strict_sync(pc, calls):
+    """Run ``pc``'s gather and record calls under
+    ``set_sync_debug_mode("error")`` (a synchronizing CUDA call in them
+    raises), counting them in ``calls``."""
+    import torch
+
+    def wrap(name, fn):
+        def run(*args, **kw):
+            calls[name] = calls.get(name, 0) + 1
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return fn(*args, **kw)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        return run
+
+    for name in ("gather_into", "record_boundary", "record_final"):
+        setattr(pc, name, wrap(name, getattr(pc, name)))
+
+
+def prefix_serve(model, cfg, prompts, a3, capture=None, **knobs):
+    """Serve ``prompts[0]`` alone (it records the prefix), then the other
+    seven together, through ``ServeEngine`` (4 slots, max_len 2048,
+    decode_block 4, 16 new tokens) -> dict of the results, the engine,
+    the seven-request serve's wall s and times to first token, the
+    ticks with a warm hit, #1's launches, the strict-sync call counts and
+    the peak memory above what was held. ``capture(uid, k, v)`` gets
+    each request's ring rows 0..1023 (every layer, views) once its
+    prefill has passed them."""
+    import torch
+    from repro_torch.kernels.decode_attention import kernel as tk
+    from repro_torch.serve.engine import ServeEngine
+
+    dev = model.device
+    sync(dev)
+    held = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    eng = ServeEngine(model, cfg, slots=4, max_len=2048, a3=a3,
+                      decode_block=4, page_size=PREFIX_PAGE, **knobs)
+    calls = {}
+    if eng._pc is not None:
+        strict_sync(eng._pc, calls)
+    seen, first, warm_ticks = set(), {}, 0
+
+    def tick(t0):
+        nonlocal warm_ticks
+        hits = eng.stats["prefix_hits"]
+        eng.step()
+        warm_ticks += eng.stats["prefix_hits"] > hits
+        now = time.perf_counter()
+        for si, s in enumerate(eng.slots):
+            if not s.active:
+                continue
+            if s.generated and s.uid not in first:
+                first[s.uid] = now - t0
+            if s.cursor >= PREFIX_LEN and s.uid not in seen:
+                seen.add(s.uid)
+                if capture is not None:
+                    sc = eng.cache["seg0"]
+                    capture(s.uid, sc["k"][:, si, :, :PREFIX_LEN],
+                            sc["v"][:, si, :, :PREFIX_LEN])
+
+    tk.reset_launch_counts()
+    uids = [eng.submit(prompts[0], max_new_tokens=16)]
+    t0 = time.perf_counter()
+    while eng.in_flight:
+        tick(t0)
+    uids += [eng.submit(p, max_new_tokens=16) for p in prompts[1:]]
+    sync(dev)
+    t0 = time.perf_counter()
+    while eng.in_flight:
+        tick(t0)
+    sync(dev)
+    wall = time.perf_counter() - t0
+    outs = [eng.result(u) for u in uids]
+    check(all(o is not None and len(o) == 16 for o in outs)
+          and seen == set(uids), "a prefix-cache request did not finish "
+                                 "with its budget, or its rows were not read")
+    ttft = sorted(first[u] for u in uids[1:])
+    return dict(outs=outs, eng=eng, wall=wall, ttft=ttft,
+                warm_ticks=warm_ticks,
+                fused=tk.LAUNCHES["decode_attention_fused"], calls=calls,
+                peak=(torch.cuda.max_memory_allocated(dev) - held) / 2**30)
+
+
+def pool_bytes(pc):
+    return sum(t.numel() * t.element_size() for seg in pc.pool.values()
+               for t in seg.values())
+
+
+def int8_prefix_rows(pc, prompt):
+    """The int8 pool's pages of ``prompt``'s matched prefix, dequantized
+    in float32 -> (k, v) [L, Hkv, 1024, D]."""
+    import torch
+    t, node = pc.lookup(prompt)
+    check(t == PREFIX_LEN, f"int8 pool matched {t} tokens, not {PREFIX_LEN}")
+    pids = []
+    while node is not pc.root:
+        pids.append(node.page_id)
+        node = node.parent
+    pids = torch.tensor(pids[::-1], device=pc.device)
+    out = []
+    for name in ("k", "v"):
+        pages = pc.pool["seg0"][name][:, pids].float()    # [L,P,H,ps,D]
+        scale = pc.pool["seg0"][f"{name}_scale"][:, pids]  # [L,P,H,1,1]
+        deq = (pages * scale).permute(0, 2, 1, 3, 4)
+        out.append(deq.reshape(deq.shape[0], deq.shape[1], PREFIX_LEN, -1))
+    return out
+
+
+def phase_prefix(model, cfg, dev):
+    """[10]: phi4-mini-3.8b (the model [3] built) with 8 requests that
+    share a 1024-token prefix, each with its own 64-token suffix (16 new
+    tokens, greedy): cold (cache_pages 0), warm with an fp pool and warm
+    with an int8 pool (page 64, 320 pages), A^3 off, and cold / warm fp
+    with A^3 conservative, each mode's cold and warm fp serves in turns
+    -> kernel #1's launches in its serves."""
+    import numpy as np
+    import torch
+    from repro_torch.config import A3Config
+
+    rng = np.random.default_rng(10)
+    prefix = rng.integers(0, cfg.vocab_size, size=PREFIX_LEN)
+    prompts = [np.concatenate([prefix, rng.integers(
+        0, cfg.vocab_size, size=SUFFIX_LEN)]) for _ in range(8)]
+    off, cons = A3Config(), A3Config.conservative()
+    cold_rows, int8_rows = {}, {}
+
+    def keep_in(rows):
+        def capture(uid, k, v):
+            rows[uid] = (k.clone(), v.clone())
+        return capture
+
+    def same_rows(uid, k, v):
+        ck, cv = cold_rows[uid]
+        check(torch.equal(k, ck) and torch.equal(v, cv),
+              f"request {uid}: the fp pool's gathered rows 0..1023 differ "
+              f"from the cold serve's")
+
+    # each mode's cold and warm serves in turns (cold, warm, warm, cold;
+    # the int8 pool after A^3 off's first warm serve): the serves are
+    # host-bound, and the host's pace moves between calls and in a call
+    fp, i8 = dict(cache_pages=320), dict(cache_pages=320, kv_quant="int8")
+    plan = [("cold off", off, keep_in(cold_rows), {}),
+            ("fp off", off, same_rows, fp),
+            ("int8 off", off, keep_in(int8_rows), i8),
+            ("fp off", off, same_rows, fp),
+            ("cold off", off, None, {}),
+            ("cold conservative", cons, None, {}),
+            ("fp conservative", cons, same_rows, fp),
+            ("fp conservative", cons, same_rows, fp),
+            ("cold conservative", cons, None, {})]
+    runs, fused = {}, 0
+    for label, a3, capture, knobs in plan:
+        r = prefix_serve(model, cfg, prompts, a3, capture=capture, **knobs)
+        st, eng = r["eng"].stats, r["eng"]
+        warm = eng._pc is not None
+        ttft = r["ttft"]
+        again = " (again)" if label in runs else ""
+        log(f"  {label}{again}: 7-request serve {r['wall']:.3f} s wall, "
+            f"time to first token median {ttft[3]:.3f} s (min "
+            f"{ttft[0]:.3f}, max {ttft[-1]:.3f}); prefill_tokens "
+            f"{st['prefill_tokens']}, prefill_dispatches "
+            f"{st['prefill_dispatches']}, prefix_hits {st['prefix_hits']}, "
+            f"prefix_tokens_reused {st['prefix_tokens_reused']}, "
+            f"gather_dispatches {st['gather_dispatches']} (ticks with a "
+            f"warm hit {r['warm_ticks']}), pages_recorded "
+            f"{st['pages_recorded']}, pages_evicted {st['pages_evicted']}, "
+            f"pages_in_use {eng._pc.pages_in_use if warm else 0}, "
+            f"host_syncs {st['host_syncs']}, host_sync_stalls "
+            f"{st['host_sync_stalls']}; #1 launches {r['fused']}; peak "
+            f"memory above held {r['peak']:.2f} GiB [{CARD}]")
+        if label.endswith("off"):
+            want = cfg.num_layers * st["decode_steps"]
+            check(r["fused"] == want > 0, f"{label}: #1 launched "
+                  f"{r['fused']} times, expected {want}")
+            fused += r["fused"]
+        if warm:
+            check(st["prefix_tokens_reused"] == 7 * PREFIX_LEN
+                  and st["pages_evicted"] == 0
+                  and st["prefill_tokens"] == (PREFIX_LEN + SUFFIX_LEN
+                                               + 7 * SUFFIX_LEN),
+                  f"{label}: reuse / eviction / prefill counts {st}")
+            check(st["gather_dispatches"] == r["warm_ticks"] > 0,
+                  f"{label}: gather_dispatches {st['gather_dispatches']} "
+                  f"against {r['warm_ticks']} ticks with a warm hit")
+            check(st["host_sync_stalls"] == 0,
+                  f"{label}: host_sync_stalls {st['host_sync_stalls']}")
+            check(r["calls"].get("gather_into", 0) == r["warm_ticks"]
+                  and r["calls"].get("record_boundary", 0) > 0,
+                  f"{label}: strict-sync calls {r['calls']}")
+            log(f"    gather and record under set_sync_debug_mode('error')"
+                f": {r['calls']} calls, no synchronizing call")
+        else:
+            check(st["prefill_tokens"] == 8 * (PREFIX_LEN + SUFFIX_LEN),
+                  f"{label}: prefill_tokens {st['prefill_tokens']}")
+        if again:
+            check(r["outs"] == runs[label][0]["outs"],
+                  f"{label}: a repeated serve gave other tokens")
+            del r["eng"]                # keep one engine of each label
+        runs.setdefault(label, []).append(r)
+    for mode in ("off", "conservative"):
+        check(runs[f"fp {mode}"][0]["outs"]
+              == runs[f"cold {mode}"][0]["outs"],
+              f"A^3 {mode}: warm fp tokens differ from cold tokens")
+    log(f"  warm fp tokens = cold tokens for all 8 requests, A^3 off and "
+        f"conservative; fp-pool rows 0..1023 bit-equal to the cold serve's "
+        f"for all 8, in every warm fp serve")
+    def mean(rs, key):
+        return sum(key(r) for r in rs) / len(rs)
+
+    for mode in ("off", "conservative"):
+        c, w = runs[f"cold {mode}"], runs[f"fp {mode}"]
+        turns = (c[0], w[0], w[1], c[1])
+        walls = " / ".join(f"{r['wall']:.3f}" for r in turns)
+        firsts = " / ".join(f"{r['ttft'][3]:.3f}" for r in turns)
+        wall = mean(w, lambda r: r["wall"]) / mean(c, lambda r: r["wall"])
+        first = (mean(w, lambda r: r["ttft"][3])
+                 / mean(c, lambda r: r["ttft"][3]))
+        log(f"  A^3 {mode}, in turns (cold, warm, warm, cold): wall "
+            f"{walls} s; median time to first token {firsts} s; warm / "
+            f"cold (means of each pair) wall {wall:.3f}, median time to "
+            f"first token {first:.3f} [{CARD}]")
+    runs = {label: rs[0] for label, rs in runs.items()}
+
+    # the int8 pool: dequantized pages within amax/254 of the fp rows, and
+    # the gathered ring rows exactly those values in the ring's dtype
+    pc8 = runs["int8 off"]["eng"]._pc
+    dk, dv = int8_prefix_rows(pc8, prompts[1])
+    worst = 0.0
+    for uid, (gk, gv) in int8_rows.items():
+        ck, cv = cold_rows[uid]
+        for got, deq, fp in ((gk, dk, ck), (gv, dv, cv)):
+            f = fp.float()
+            pages = f.reshape(f.shape[0], f.shape[1], -1, PREFIX_PAGE,
+                              f.shape[-1])
+            amax = pages.abs().amax(dim=(3, 4), keepdim=True)
+            err = (deq.reshape(pages.shape) - pages).abs()
+            worst = max(worst, float((err / (amax / 254.0)).max()))
+            if uid > 0:
+                check(torch.equal(got, deq.to(got.dtype)),
+                      f"request {uid}: int8 ring rows are not the pool's "
+                      f"dequantized pages")
+    check(worst <= 1.0 + 1e-5, f"int8 pool rows exceed amax/254: "
+          f"{worst:.6f} of the bound")
+    agree = sum(a == b for o, r in zip(runs["int8 off"]["outs"],
+                                       runs["fp off"]["outs"])
+                for a, b in zip(o, r))
+    pc = runs["fp off"]["eng"]._pc
+    log(f"  int8 pool: dequantized rows within {worst:.4f} x amax/254 of "
+        f"the fp rows (every (layer, page, head) block, 8 requests); the "
+        f"7 warm rings are those values in bf16; int8 vs fp warm greedy "
+        f"tokens agree {agree}/128; pool bytes fp {pool_bytes(pc)} / int8 "
+        f"{pool_bytes(pc8)} = {pool_bytes(pc) / pool_bytes(pc8):.3f}")
+
+    # device cost of one gather (4 slots restored) and of recording a page
+    for label in ("fp off", "fp conservative", "int8 off"):
+        eng = runs[label]["eng"]
+        epc = eng._pc
+        t, node = epc.lookup(prompts[1])
+        entries = [(si, t, node) for si in range(4)]
+        ms = cuda_ms(lambda: epc.gather_into(eng.cache, entries), [()], 5)
+        dev_ms, n_kernels, _ = profile_named(
+            lambda: epc.gather_into(eng.cache, entries), "", steps=3)
+        page = epc._free[-1]
+        rec_ms = cuda_ms(lambda: epc._record_page(eng.cache, 0, page,
+                                                  PREFIX_LEN), [()], 20)
+        rdev, rkernels, _ = profile_named(
+            lambda: epc._record_page(eng.cache, 0, page, PREFIX_LEN), "",
+            steps=5)
+        log(f"  {label}: gather_into(4 slots x {t} tokens) {ms:.3f} ms by "
+            f"events, device {fmt_ms(dev_ms)} over {n_kernels:.0f} kernels "
+            f"a call; record one page {rec_ms:.4f} ms by events, device "
+            f"{fmt_ms(rdev)} over {rkernels:.0f} kernels [{CARD}]")
+    return fused
+
+
+def phase_prefix_tiny(dev):
+    """[10b]: the tiny float32 TINY, TINY_RG and TINY_XL engines with an
+    fp and an int8 pool (page 8, chunk 8, 32 pages; three prompts that
+    share 24 tokens, the first served alone) on the card vs the CPU:
+    greedy tokens and prefix counters identical, warm hits taken, #1 on
+    the card for the attention configs -> #7's launches on the card."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.config import A3Config, AttentionKind, BlockKind, \
+        ModelConfig
+    from repro_torch.kernels.decode_attention import kernel as tk
+    from repro_torch.kernels.mlstm_chunk import kernel as mk
+    from repro_torch.models import decoder
+    from repro_torch.serve.engine import ServeEngine
+
+    tiny = ModelConfig("tiny", "dense", num_layers=2, d_model=64,
+                       num_heads=4, num_kv_heads=2, d_ff=128, vocab_size=256,
+                       head_dim=16, dtype="float32")
+    configs = {
+        "TINY": tiny,
+        "TINY_RG": dataclasses.replace(
+            tiny, name="tiny-rg", num_layers=3,
+            attention_kind=AttentionKind.SLIDING, window_size=24,
+            block_pattern=(BlockKind.RGLRU, BlockKind.RGLRU,
+                           BlockKind.ATTENTION), act="gelu"),
+        "TINY_XL": dataclasses.replace(
+            tiny, name="tiny-xl", family="ssm", num_layers=3,
+            num_kv_heads=4, d_ff=0,
+            block_pattern=(BlockKind.MLSTM, BlockKind.MLSTM,
+                           BlockKind.SLSTM)),
+    }
+    rng = np.random.default_rng(7)
+    shared = rng.integers(0, 256, size=24)
+    prompts = [np.concatenate([shared, rng.integers(0, 256, size=4 + 3 * i)])
+               for i in range(3)]
+    keys = ("prefix_hits", "prefix_tokens_reused", "gather_dispatches",
+            "pages_recorded", "prefill_tokens", "prefill_dispatches")
+    mlstm = 0
+    for name, cfg in configs.items():
+        cpu = decoder.init_params(cfg, torch.Generator().manual_seed(0),
+                                  "cpu")
+        gpu = copy.deepcopy(cpu).to(dev)
+        for kv_quant in ("none", "int8"):
+            outs, stats = {}, {}
+            for where, model in (("cpu", cpu), ("cuda", gpu)):
+                eng = ServeEngine(model, cfg, slots=2, max_len=96,
+                                  a3=A3Config(), prefill_chunk=8,
+                                  decode_block=4, page_size=8,
+                                  cache_pages=32, kv_quant=kv_quant)
+                tk.reset_launch_counts()
+                mk.reset_launch_counts()
+                u0 = eng.submit(prompts[0], max_new_tokens=6)
+                eng.run_to_completion()
+                uids = [eng.submit(p, max_new_tokens=6) for p in prompts[1:]]
+                eng.run_to_completion()
+                outs[where] = [eng.result(u) for u in [u0] + uids]
+                stats[where] = {k: eng.stats[k] for k in keys}
+            fused = tk.LAUNCHES["decode_attention_fused"]
+            n7 = mk.launches()
+            log(f"  {name} f32 pool {kv_quant}: card vs CPU greedy tokens "
+                f"{n_same(dict(cuda=outs['cuda'], cpu=outs['cpu']))}/18 "
+                f"identical; {stats['cuda']}; card #1 launches {fused}, #7 "
+                f"{n7}")
+            check(outs["cuda"] == outs["cpu"]
+                  and stats["cuda"] == stats["cpu"]
+                  and stats["cuda"]["prefix_hits"] == 2,
+                  f"{name} pool {kv_quant}: card and CPU differ, or no warm "
+                  f"hits: {stats}")
+            check((n7 > 0) if name == "TINY_XL" else (fused > 0),
+                  f"{name} pool {kv_quant}: its kernel did not run")
+            if name == "TINY_XL":
+                mlstm += n7
+    return mlstm
 
 
 # ---------------------------------------------------------------------------
@@ -2006,6 +2391,14 @@ def main() -> int:
     t3b = time.perf_counter()
     main_launches += phase_engine(model, cfg, dev)
     log(f"  phase [3b] took {time.perf_counter() - t3b:.1f} s")
+    log("[10] the paged prefix cache at phi4-mini-3.8b width: 8 requests "
+        "sharing a 1024-token prefix, cold / fp pool / int8 pool")
+    t10 = time.perf_counter()
+    main_launches += phase_prefix(model, cfg, dev)
+    log("[10b] TINY, TINY_RG, TINY_XL f32 with fp and int8 pools, card vs "
+        "CPU")
+    prefix_mlstm = phase_prefix_tiny(dev)
+    log(f"  phase [10] took {time.perf_counter() - t10:.1f} s")
     log("[5] two-pass path")
     two_pass = phase_two_pass(ring, dev)
     log("[6] TINY f32, card vs CPU")
@@ -2024,7 +2417,7 @@ def main() -> int:
         "H=4, S=2048, D=256, bf16 streams), xlstm-350m serving, TINY_XL")
     t8 = time.perf_counter()
     xerr, xtimes = phase_mlstm_kernel(dev)
-    xl_launches = phase_xlstm_serve(dev)
+    xl_launches = phase_xlstm_serve(dev) + prefix_mlstm
     phase_tiny_xl(dev)
     log(f"  phase [8] took {time.perf_counter() - t8:.1f} s")
     log("[9] the later families at full width and depth (gemma3-4b, "

@@ -164,6 +164,7 @@ class ModelConfig:
 
 
 SHED_POLICIES = ("reject-new", "evict-oldest-queued")
+KV_QUANTS = ("none", "int8")
 
 
 @dataclass(frozen=True)
@@ -177,6 +178,11 @@ class ServeConfig:
     # adaptive chunking: ticks with >= 1 decoding slot shrink the chunk
     # to this floor (None = fixed chunk)
     prefill_chunk_min: Optional[int] = None
+    # paged prefix cache: token positions per page (the trie's edge
+    # length) and the pool's page budget (LRU eviction above it; 0 =
+    # no prefix reuse)
+    page_size: int = 64
+    cache_pages: int = 0
     # decode steps past the sorted_upto watermark before an A^3 re-sort
     resort_every: int = 64
     # decode steps per decode dispatch
@@ -194,6 +200,10 @@ class ServeConfig:
     shed_policy: str = "reject-new"
     # default per-request deadline in engine ticks (None = none)
     deadline_ticks: Optional[int] = None
+    # prefix-cache pool precision: "int8" stores K/V pages and A^3
+    # sorted-key snapshots as int8 with float32 scales, dequantized in
+    # the warm gather; "none" keeps the pool in the serving dtype
+    kv_quant: str = "none"
     # most terminal entries kept in the status/result maps, results
     # popped on first read (0 = unbounded)
     retain_results: int = 0
@@ -225,6 +235,13 @@ class ServeConfig:
             raise ValueError(
                 f"pipeline_depth must be >= 0, got {self.pipeline_depth} "
                 f"(0 = synchronous harvest)")
+        if self.page_size < 1:
+            raise ValueError(
+                f"page_size must be >= 1, got {self.page_size}")
+        if self.cache_pages < 0:
+            raise ValueError(
+                f"cache_pages must be >= 0, got {self.cache_pages} "
+                f"(0 disables the prefix cache)")
         if self.temperature < 0.0:
             raise ValueError(
                 f"temperature must be >= 0, got {self.temperature}")
@@ -240,6 +257,10 @@ class ServeConfig:
             raise ValueError(
                 f"deadline_ticks must be >= 1, got "
                 f"{self.deadline_ticks} (use None for no deadline)")
+        if self.kv_quant not in KV_QUANTS:
+            raise ValueError(
+                f"kv_quant must be 'none' or 'int8', got "
+                f"{self.kv_quant!r}")
         if self.retain_results < 0:
             raise ValueError(
                 f"retain_results must be >= 0, got "

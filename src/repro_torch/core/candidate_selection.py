@@ -51,6 +51,22 @@ def sort_key_columns(key: torch.Tensor) -> SortedKeys:
     return SortedKeys(values=values, rows=order.to(torch.int32))
 
 
+def slice_sorted_keys(sk: SortedKeys, keep_rows: torch.Tensor) -> SortedKeys:
+    """Restrict a per-column sort to a subset of ring rows (the prefix
+    cache's page-boundary restore): ``keep_rows`` [n] bool marks the rows
+    still valid at the boundary. Dropped rows are re-valued to 0, what an
+    unwritten ring row reads as, and each column is re-sorted (stable,
+    ascending; ``-0.0`` and ``0.0`` compare equal, as in JAX's sort), so
+    the shorter prefix's sort is recovered from the longer snapshot
+    without the key matrix. Leading batch dims are allowed."""
+    keep = keep_rows[sk.rows.long()]                    # [..., n, d]
+    vals = torch.where(keep, sk.values, torch.zeros((), dtype=sk.values.dtype,
+                                                    device=sk.values.device))
+    order = torch.argsort(vals, dim=-2, stable=True)
+    return SortedKeys(values=torch.gather(vals, -2, order),
+                      rows=torch.gather(sk.rows, -2, order))
+
+
 def quantize_sorted_keys(sk: SortedKeys) -> Tuple[SortedKeys, torch.Tensor]:
     """Sorted key columns to int8 with one float32 scale per column ->
     (int8 SortedKeys, scales [..., d]). Round-to-nearest is monotone, so

@@ -123,13 +123,23 @@ def softmax_fixed_point(scores: torch.Tensor, frac_bits: int,
 # symmetric round-to-nearest, q = round(x / s), s = amax / 127 per block
 # ---------------------------------------------------------------------------
 
-def quantize_int8_block(x: torch.Tensor, axes: Tuple[int, ...]
+def quantize_int8_block(x: torch.Tensor, axes: Tuple[int, ...], *,
+                        reciprocal: bool = False
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``x`` to int8 with one float32 scale per block; ``axes`` are the
-    dimensions reduced into each scale, kept at size 1 in ``scale``."""
+    dimensions reduced into each scale, kept at size 1 in ``scale``.
+
+    ``reciprocal`` computes the scale as ``amax * float32(1/127)``: that
+    is what XLA compiles ``amax / 127`` to under ``jax.jit``, and it
+    differs from the division in the last bit of about one scale in ten.
+    The reference's prefix-cache pool is always quantized under jit, so
+    the port's pool uses this form; it also makes the card and the CPU
+    agree (PyTorch's CUDA division by a scalar multiplies by the
+    reciprocal, its CPU division does not)."""
     xf = torch.as_tensor(x).float()
     amax = torch.amax(xf.abs(), dim=tuple(axes), keepdim=True)
-    scale = torch.clamp(amax / 127.0, min=1e-12)
+    scale = torch.clamp(amax * (1.0 / 127.0) if reciprocal
+                        else amax / 127.0, min=1e-12)
     q = torch.clamp(torch.round(xf / scale), -127, 127).to(torch.int8)
     return q, scale
 

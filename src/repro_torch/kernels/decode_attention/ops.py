@@ -67,14 +67,23 @@ def a3_decode_attention_compact(
     sorted_keys: SortedKeys,        # per (B, Hkv): [B, Hkv, S, D]
     fresh_mask: Optional[torch.Tensor] = None,   # [B, S] always-include
     budget: Optional[int] = None,
+    sk_scale: Optional[torch.Tensor] = None,     # [B, Hkv, NS, D] float32
+    k_scale: Optional[torch.Tensor] = None,      # [B, Hkv, S] float32
+    v_scale: Optional[torch.Tensor] = None,      # [B, Hkv, S] float32
 ) -> torch.Tensor:
     """A^3 decode with sharded compaction (reference docstring): the
     ring splits into ``cfg.select_shards`` blocks, each runs the
     prefix-capped greedy walk and keeps its top-(C/NS) rows, and the
     post-scored softmax is exact over the gathered [C] candidates.
     Candidate sets are unioned across the GQA group; ``fresh_mask`` rows
-    are force-included. (The int8 scales and the quality probe of the
-    reference are not ported yet.)"""
+    are force-included.
+
+    Int8 scoring: with ``sk_scale`` the sorted values may be int8
+    columns, and the per-(block, column) scale is folded into the query
+    (a positive scale keeps the walk's order and sign split); with
+    ``k_scale``/``v_scale`` (per ring row) K and V may be int8, and only
+    the gathered candidates are dequantized, in float32. (The
+    reference's quality probe is not ported yet.)"""
     b, hq, d = q.shape
     _, hkv, s_len, dv = v.shape
     group = hq // hkv
@@ -105,6 +114,8 @@ def a3_decode_attention_compact(
 
     qpos = (qg > 0)[:, :, None, :, None, :]          # [B,Hkv,1,G,1,D]
     qexp = qg[:, :, None, :, None, :]
+    if sk_scale is not None:
+        qexp = qexp * sk_scale.reshape(b, hkv, ns, 1, 1, d)
     tv = top_v[:, :, :, None].float()                # [B,Hkv,NS,1,cap,D]
     bv = bot_v[:, :, :, None].float()
     prod_max = torch.where(qpos, tv, bv) * qexp      # [B,Hkv,NS,G,cap,D]
@@ -134,11 +145,20 @@ def a3_decode_attention_compact(
     live = torch.gather(score_u, -1, idx) > 0
     kc = torch.gather(kb, 3, idx[..., None].expand(*idx.shape, d))
     vc = torch.gather(vb, 3, idx[..., None].expand(*idx.shape, dv))
+    # int8 K/V: the per-row scales ride the same gather, so only the
+    # compacted candidates widen to float32
+    if k_scale is not None:
+        kc = kc.float() * torch.gather(k_scale.reshape(b, hkv, ns, sl), 3,
+                                       idx)[..., None]
+    if v_scale is not None:
+        vc = vc.float() * torch.gather(v_scale.reshape(b, hkv, ns, sl), 3,
+                                       idx)[..., None]
 
     # score/output products take the cache dtype's values with float32
     # accumulation (the reference's bf16-in/f32-out einsums): upcasting
     # both operands is exact, so only the summation order differs
-    kdt, vdt = kc.dtype, vc.dtype
+    kdt = kc.dtype if kc.is_floating_point() else torch.float32
+    vdt = vc.dtype if vc.is_floating_point() else torch.float32
     scores = torch.einsum("bhgd,bhncd->bhgnc", qg.to(kdt).float(),
                           kc.float())
     scores = torch.where(live[:, :, None], scores, float("-inf"))

@@ -8,6 +8,8 @@ requests through the slot engine, optionally with A^3.
       --decode-block 4 --pipeline-depth 1 --temperature 0.8
   python -m repro_torch.launch.serve --arch gemma3-4b --a3 conservative \\
       --max-len 2048 --prompt-len 1536
+  python -m repro_torch.launch.serve --arch phi4-mini-3.8b \\
+      --cache-pages 320 --page-size 64 --kv-quant int8
 
 ``--arch`` takes every arch the port registers (``list_archs``).
 
@@ -46,6 +48,19 @@ def main(argv=None) -> None:
                     help="adaptive admission chunking floor: ticks with "
                          ">= 1 decoding slot shrink the chunk to this "
                          "many tokens; 0 = fixed chunk")
+    ap.add_argument("--page-size", type=int, default=64,
+                    help="prefix-cache page in tokens (the trie's edge "
+                         "length)")
+    ap.add_argument("--cache-pages", type=int, default=0,
+                    help="paged prefix-cache budget in pages of "
+                         "--page-size tokens (shared prompt prefixes are "
+                         "restored by one gather a tick instead of "
+                         "prefilled again); 0 = disabled")
+    ap.add_argument("--kv-quant", default="none", choices=["none", "int8"],
+                    help="prefix-cache pool precision: int8 stores K/V "
+                         "pages (and A^3 sorted-key snapshots) with "
+                         "float32 scales, dequantized in the warm gather; "
+                         "none = the serving dtype")
     ap.add_argument("--decode-block", type=int, default=1,
                     help="decode steps per dispatch (the host reads the "
                          "token ring once per block)")
@@ -90,6 +105,9 @@ def main(argv=None) -> None:
                         pipeline_depth=args.pipeline_depth,
                         temperature=args.temperature,
                         sample_seed=args.seed,
+                        page_size=args.page_size,
+                        cache_pages=args.cache_pages,
+                        kv_quant=args.kv_quant,
                         max_queue=args.max_queue,
                         shed_policy=args.shed_policy,
                         deadline_ticks=args.deadline_ticks or None,

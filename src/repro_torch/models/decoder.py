@@ -1,7 +1,8 @@
 """Decoder stack of the port (PyTorch port of ``repro.models.decoder``):
 parameters as ``nn.Module``s, and the serving paths — whole-prompt
 ``prefill``, ragged chunked ``prefill_chunk``, ragged ``decode_step``,
-the in-dispatch A^3 re-sort and the multi-step ``decode_block``.
+the in-dispatch A^3 re-sort and the multi-step ``decode_block``; and the
+prefix cache's page pool (``init_page_pool``).
 
 The caches keep the reference layout: per segment ``seg{i}`` a dict of
 ``[L, B, ...]`` tensors (``k``/``v`` rings ``[L, B, Hkv, w, hd]``, the A^3
@@ -209,6 +210,27 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
     return {f"seg{si}": mixer_for(seg, cfg).init_state(
                 cfg, seg, batch, max_len, dtype, a3, device)
             for si, seg in enumerate(build_segments(cfg))}
+
+
+def init_page_pool(cfg: ModelConfig, pages: int, page_size: int,
+                   dtype=None, a3: bool = False, kv_quant: str = "none",
+                   device="cuda") -> Dict[str, Any]:
+    """The paged prefix cache's pool (``serve.prefix_cache``): per
+    attention segment ``seg{i}`` its K/V pages ``[L, pages, Hkv,
+    page_size, hd]`` (int8 with per-page float32 ``k_scale``/``v_scale``
+    under ``kv_quant="int8"``); recurrent segments add nothing, their
+    carries are snapshotted at page boundaries. ``device`` is the
+    cache's (the model's)."""
+    device = resolve_device(device)
+    dtype = dtype or DTYPES[cfg.dtype]
+    pool: Dict[str, Any] = {}
+    for si, seg in enumerate(build_segments(cfg)):
+        pages_seg = mixer_for(seg, cfg).init_pages(
+            cfg, seg, pages, page_size, dtype, a3, device,
+            kv_quant=kv_quant)
+        if pages_seg is not None:
+            pool[f"seg{si}"] = pages_seg
+    return pool
 
 
 # ---------------------------------------------------------------------------

@@ -29,18 +29,30 @@ lane starting a fresh prompt (``pos == 0, length > 0``) reads its state as
 the initial one (the slot may hold a finished request's state); lanes
 with ``length == 0`` or ``pos < 0`` keep theirs by an explicit per-lane
 select.
+
+The paged prefix cache (``serve/prefix_cache.py``) reaches the state
+through five more hooks of each kind: ``init_pages`` (attention's K/V
+pages, int8 with per-page scales under ``kv_quant="int8"``; the
+recurrent kinds keep none), ``write_page`` / ``gather_pages`` (a page of
+a lane's ring to the pool, and a matched prefix back into a lane, with
+the A^3 sorted columns sliced to the boundary) and ``snapshot_state`` /
+``restore_state`` (a lane's recurrent carry, copied, at a page
+boundary). The pool is only written by ``write_page``; every snapshot is
+a copy, never a view of the live state.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, List, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
 from repro_torch.config import A3Config, A3Mode, AttentionKind, BlockKind, \
     ModelConfig
 from repro_torch.core.candidate_selection import SortedKeys, \
-    sort_key_columns
+    slice_sorted_keys, sort_key_columns
+from repro_torch.core.quantization import dequantize_int8_block, \
+    quantize_int8_block
 from repro_torch.kernels.decode_attention.ops import a3_decode_attention, \
     a3_decode_attention_compact
 from repro_torch.models import xlstm as xl
@@ -321,6 +333,105 @@ def _attn_decode_step(layer, state: Dict[str, torch.Tensor],
     return attention_out(layer.attn, o[:, :, None, :])
 
 
+def _attn_init_pages(cfg: ModelConfig, seg: SegmentSpec, pages: int,
+                     page_size: int, dtype, a3: bool, device,
+                     kv_quant: str = "none") -> Dict[str, torch.Tensor]:
+    """Attention's share of the prefix-cache pool: K/V rows per page,
+    ``[L, pages, Hkv, page_size, hd]`` (a logical page spans
+    ``page_size`` positions of every segment). With ``kv_quant="int8"``
+    the pages are int8 with one float32 scale per (layer, page, kv head),
+    ``k_scale``/``v_scale`` ``[L, pages, Hkv, 1, 1]``. Sorted-key state
+    is not paged: it is restored at gather time."""
+    shape = (seg.count, pages, cfg.num_kv_heads, page_size,
+             cfg.resolved_head_dim)
+    if kv_quant == "int8":
+        scale = (seg.count, pages, cfg.num_kv_heads, 1, 1)
+        return {"k": torch.zeros(shape, dtype=torch.int8, device=device),
+                "v": torch.zeros(shape, dtype=torch.int8, device=device),
+                "k_scale": torch.zeros(scale, device=device),
+                "v_scale": torch.zeros(scale, device=device)}
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def _attn_write_page(pool_seg: Dict[str, torch.Tensor],
+                     state: Dict[str, torch.Tensor], si: int, page_id: int,
+                     rows: torch.Tensor, valid: torch.Tensor) -> None:
+    """In place: copy one page of lane ``si``'s ring into pool page
+    ``page_id``. ``rows`` [ps] maps page offsets to ring rows (``pos %
+    w``); offsets whose position left the ring (``valid`` False) store
+    zeros, what an unwritten ring row reads as. An int8 pool quantizes
+    the page in the same pass, one scale per (layer, kv head)."""
+    v4 = valid[None, None, :, None]
+    for name in ("k", "v"):
+        src = state[name][:, si][:, :, rows]             # [L, H, ps, hd]
+        src = torch.where(v4, src, torch.zeros((), dtype=src.dtype,
+                                                device=src.device))
+        if f"{name}_scale" in pool_seg:
+            q, scale = quantize_int8_block(src, axes=(2, 3), reciprocal=True)
+            pool_seg[name][:, page_id] = q
+            pool_seg[f"{name}_scale"][:, page_id] = scale
+        else:
+            pool_seg[name][:, page_id] = src
+
+
+def _attn_gather_pages(state: Dict[str, torch.Tensor],
+                       pool_seg: Dict[str, torch.Tensor], si: int, t: int,
+                       page_idx: torch.Tensor, row_off: torch.Tensor,
+                       valid: torch.Tensor, *, a3: bool,
+                       sk_snap=None) -> None:
+    """In place: restore lane ``si``'s ring for a matched prefix of
+    length ``t`` from pool pages (the warm-admission copy; the pool is
+    only read). ``page_idx``/``row_off`` [w] give each ring row's source
+    page and offset; rows with ``valid`` False (unwritten at ``t``) are
+    zeroed, so the ring equals a cold chunked prefill of the prefix. An
+    int8 pool dequantizes in the same pass, back to the ring's dtype.
+    With ``a3`` the sorted key columns come back too: sliced out of a
+    donor prompt's leaf snapshot (:func:`slice_sorted_keys`; an int8
+    snapshot is dequantized first) when there is one, else re-sorted
+    from the gathered ring; either way ``sorted_upto`` becomes ``t``."""
+    v4 = valid[None, None, :, None]
+    out_dtype = state["k"].dtype
+
+    def take(name):
+        # [L, P, H, ps, hd] -> [P, ps, L, H, hd] -> [w, L, H, hd]
+        g = pool_seg[name].permute(1, 3, 0, 2, 4)[page_idx, row_off]
+        g = g.permute(1, 2, 0, 3)                         # [L, H, w, hd]
+        if f"{name}_scale" in pool_seg:
+            sc = pool_seg[f"{name}_scale"][:, :, :, 0, 0][:, page_idx]
+            g = (g.float() * sc.permute(0, 2, 1)[..., None]).to(out_dtype)
+        return torch.where(v4, g, torch.zeros((), dtype=g.dtype,
+                                              device=g.device))
+
+    k_slot = take("k")
+    state["k"][:, si] = k_slot
+    state["v"][:, si] = take("v")
+    if a3 and "sk_vals" in state:
+        if sk_snap is not None:
+            vals = sk_snap["vals"]
+            if "scale" in sk_snap:
+                vals = dequantize_int8_block(vals, sk_snap["scale"],
+                                             dtype=out_dtype)
+            sk = slice_sorted_keys(SortedKeys(vals, sk_snap["rows"]), valid)
+        else:
+            sk = sort_key_columns(k_slot)
+        state["sk_vals"][:, si] = sk.values
+        state["sk_rows"][:, si] = sk.rows
+        state["sorted_upto"][:, si] = t
+
+
+def _attn_snapshot(state: Dict[str, torch.Tensor], si: int
+                   ) -> Dict[str, torch.Tensor]:
+    """Attention's per-token state lives in pages: the boundary snapshot
+    is empty (sorted-key leaf snapshots are the prefix cache's)."""
+    return {}
+
+
+def _attn_restore(state: Dict[str, torch.Tensor],
+                  snap: Dict[str, torch.Tensor], si: int) -> None:
+    """Nothing to restore: the pages carry it all."""
+
+
 # ---------------------------------------------------------------------------
 # recurrent kinds (RG-LRU, mLSTM, sLSTM)
 # ---------------------------------------------------------------------------
@@ -481,21 +592,56 @@ def _slstm_decode_step(layer, state: Dict[str, torch.Tensor],
 # registry
 # ---------------------------------------------------------------------------
 
+def _no_pages(cfg: ModelConfig, seg: SegmentSpec, pages: int,
+              page_size: int, dtype, a3: bool, device,
+              kv_quant: str = "none") -> None:
+    """Recurrent kinds keep no per-token pages: their state is a carry,
+    snapshotted at page boundaries instead."""
+    return None
+
+
+def _carry_snapshot(state: Dict[str, torch.Tensor], si: int
+                    ) -> Dict[str, torch.Tensor]:
+    """Lane ``si``'s boundary snapshot, the chunked-prefill carry itself:
+    a copy of every ``[L, B, ...]`` leaf's lane, kept ``[L, 1, ...]`` (a
+    view would follow the lane as it goes on prefilling)."""
+    return {k: v[:, si:si + 1].clone() for k, v in state.items()}
+
+
+def _carry_restore(state: Dict[str, torch.Tensor],
+                   snap: Dict[str, torch.Tensor], si: int) -> None:
+    """In place: replay a boundary snapshot into lane ``si``."""
+    for k, v in state.items():
+        v[:, si] = snap[k][:, 0]
+
+
 @dataclasses.dataclass(frozen=True)
 class SegmentMixer:
-    """The per-kind mixer-state interface (see module docstring)."""
+    """The per-kind mixer-state interface (see module docstring), and
+    the paged prefix cache's hooks (``repro_torch.serve.prefix_cache``):
+    ``init_pages`` (the kind's pool leaves, or None), ``write_page`` and
+    ``gather_pages`` (attention's ring rows to and from pool pages),
+    ``snapshot_state``/``restore_state`` (a lane's boundary state)."""
     init_state: Callable[..., Dict[str, torch.Tensor]]
     forward: Callable[..., torch.Tensor]
     prefill_full: Callable[..., Tuple[torch.Tensor,
                                       Dict[str, torch.Tensor]]]
     prefill_chunk: Callable[..., torch.Tensor]
     decode_step: Callable[..., torch.Tensor]
+    init_pages: Callable[..., Optional[Dict[str, torch.Tensor]]] = _no_pages
+    write_page: Optional[Callable[..., None]] = None
+    gather_pages: Optional[Callable[..., None]] = None
+    snapshot_state: Callable[..., Dict[str, torch.Tensor]] = _carry_snapshot
+    restore_state: Callable[..., None] = _carry_restore
 
 
 MIXERS: Dict[BlockKind, SegmentMixer] = {
     BlockKind.ATTENTION: SegmentMixer(
         _attn_init_state, _attn_forward, _attn_prefill_full,
-        _attn_prefill_chunk, _attn_decode_step),
+        _attn_prefill_chunk, _attn_decode_step,
+        init_pages=_attn_init_pages, write_page=_attn_write_page,
+        gather_pages=_attn_gather_pages, snapshot_state=_attn_snapshot,
+        restore_state=_attn_restore),
     BlockKind.RGLRU: SegmentMixer(
         _rglru_init_state, _rglru_forward, _rglru_prefill_full,
         _rglru_prefill_chunk, _rglru_decode_step),

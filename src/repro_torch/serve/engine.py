@@ -1,6 +1,6 @@
 """Serving engine of the port: ``repro.serve.engine.ServeEngine`` in
-PyTorch, without its prefix cache, L2 tier, checkpoints, chaos and
-telemetry.
+PyTorch, with the device tier of its paged prefix cache, without its L2
+tier, checkpoints, chaos and telemetry.
 
 Slot-based continuous batching with the reference's tick loop::
 
@@ -42,6 +42,18 @@ Slot-based continuous batching with the reference's tick loop::
   each phase; ``virtual_device_latency_s`` holds each block unreadable
   for that long after dispatch. A read waits on its block's event, never
   on the whole device; on CPU tensors the block is computed already.
+* **Paged prefix cache** (``cache_pages > 0``,
+  ``serve/prefix_cache.py``). Admission walks a radix trie over the
+  prompt's ``page_size``-token pages; every slot with a hit is restored
+  in one ``gather_into`` call a tick (ring rows from pool pages,
+  recurrent carries and the A^3 sorted columns at the matched boundary,
+  both watermarks set to it) and prefills only its suffix. A recorded
+  prompt's chunks are clamped to ``record_span`` and land on page
+  boundaries; after each chunk the crossed pages are recorded, and after
+  the final one the A^3 leaf snapshot. ``prefix_hits``,
+  ``prefix_tokens_reused``, ``gather_dispatches``, ``pages_recorded``
+  and ``pages_evicted`` count it; ``kv_quant="int8"`` keeps the pool in
+  int8.
 * **Packed control.** All per-tick lane scalars ride one int32
   ``[slots, CTRL_COLS]`` upload that both dispatches slice.
 * **A^3 re-sort.** Due lanes re-sort their key columns inside the
@@ -77,9 +89,10 @@ from typing import Any, Deque, Dict, List, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.config import SHED_POLICIES, A3Config, A3Mode, \
-    ModelConfig, ServeConfig
+from repro_torch.config import KV_QUANTS, SHED_POLICIES, A3Config, \
+    A3Mode, ModelConfig, ServeConfig
 from repro_torch.models import decoder, sampling
+from repro_torch.serve.prefix_cache import PrefixCache
 
 # packed control-word layout (the reference's CTRL_* columns)
 CTRL_P_POS = 0        # prefill: per-lane chunk start position
@@ -170,6 +183,9 @@ class SlotState:
     deadline: Optional[int] = None
     # dispatched blocks of this lane whose harvest has not landed
     pending: int = 0
+    # prefix-cache recording anchor: the trie node of the last recorded
+    # page boundary, pinned while the slot prefills (None = no cache)
+    rec_node: Any = None
 
     @property
     def active(self) -> bool:
@@ -212,7 +228,9 @@ class ServeEngine:
                  prefill_chunk: Optional[int] = None,
                  prefill_chunk_min: Optional[int] = None,
                  decode_block: int = 1, temperature: float = 0.0,
-                 sample_seed: int = 0, max_queue: int = 0,
+                 sample_seed: int = 0, page_size: int = 64,
+                 cache_pages: int = 0, kv_quant: str = "none",
+                 max_queue: int = 0,
                  shed_policy: str = "reject-new",
                  deadline_ticks: Optional[int] = None,
                  pipeline_depth: int = 0,
@@ -247,6 +265,15 @@ class ServeEngine:
                                  f"chunk ({self._chunk})")
         self._chunk_min = (int(prefill_chunk_min)
                            if prefill_chunk_min is not None else None)
+        if int(page_size) < 1:
+            raise ValueError(f"page_size must be >= 1, got {page_size}")
+        if int(cache_pages) < 0:
+            raise ValueError(f"cache_pages must be >= 0, got "
+                             f"{cache_pages} (0 disables the prefix "
+                             f"cache)")
+        if kv_quant not in KV_QUANTS:
+            raise ValueError(f"kv_quant must be 'none' or 'int8', got "
+                             f"{kv_quant!r}")
         if int(max_queue) < 0:
             raise ValueError(f"max_queue must be >= 0, got {max_queue} "
                              f"(0 = unbounded queue)")
@@ -268,6 +295,9 @@ class ServeEngine:
             raise ValueError(f"retain_results must be >= 0, got "
                              f"{retain_results} (0 = unbounded "
                              f"retention)")
+        self.page_size = int(page_size)
+        self.cache_pages = int(cache_pages)
+        self.kv_quant = kv_quant
         self.max_queue = int(max_queue)
         self.shed_policy = shed_policy
         self.deadline_ticks = (int(deadline_ticks)
@@ -304,13 +334,24 @@ class ServeEngine:
                       "decode_steps_advanced": 0, "decode_dispatches": 0,
                       "decode_blocks": 0, "prefill_dispatches": 0,
                       "host_syncs": 0, "handoff_syncs": 0, "ticks": 0,
-                      "resorts": 0, "adaptive_shrink_ticks": 0,
+                      "resorts": 0, "prefix_hits": 0,
+                      "prefix_tokens_reused": 0, "gather_dispatches": 0,
+                      "pages_recorded": 0, "pages_evicted": 0,
+                      "adaptive_shrink_ticks": 0,
                       "submitted": 0, "finished": 0, "rejected": 0,
                       "cancelled": 0, "expired": 0, "failed": 0,
                       "max_ticks_exhausted": 0,
                       "tick_ns_prefill": 0, "tick_ns_decode": 0,
                       "tick_ns_harvest": 0, "tick_ns_host": 0,
                       "host_sync_stalls": 0}
+        # the paged prefix cache (cache_pages 0: none, no pool memory)
+        self._pc: Optional[PrefixCache] = None
+        if self.cache_pages > 0:
+            self._pc = PrefixCache(cfg, max_len=max_len,
+                                   page_size=self.page_size,
+                                   cache_pages=self.cache_pages,
+                                   a3=self._use_a3, kv_quant=kv_quant,
+                                   stats=self.stats, device=self.device)
 
     @classmethod
     def from_config(cls, model: decoder.Decoder, cfg: ModelConfig,
@@ -323,6 +364,8 @@ class ServeEngine:
                    decode_block=serve.decode_block,
                    temperature=serve.temperature,
                    sample_seed=serve.sample_seed,
+                   page_size=serve.page_size,
+                   cache_pages=serve.cache_pages, kv_quant=serve.kv_quant,
                    max_queue=serve.max_queue, shed_policy=serve.shed_policy,
                    deadline_ticks=serve.deadline_ticks,
                    pipeline_depth=serve.pipeline_depth,
@@ -489,9 +532,14 @@ class ServeEngine:
                 self._done.pop(old, None)
 
     def _release_slot(self, si: int, status: str):
+        """Free a slot from any phase; its recording pin is dropped, so
+        the trie's refcounts return to baseline."""
+        s = self.slots[si]
+        if s.rec_node is not None and self._pc is not None:
+            self._pc.unref(s.rec_node)
         self._handoff.discard(si)
         self._carry_ok[si] = False
-        self._terminal(self.slots[si].uid, status)
+        self._terminal(s.uid, status)
         self.slots[si] = SlotState()
 
     def _expire_tick(self):
@@ -511,13 +559,31 @@ class ServeEngine:
                 self._release_slot(si, EXPIRED)
 
     def _admit(self):
+        """Queued requests claim free slots. With the prefix cache each
+        one walks the trie and pins its matched node (a later eviction in
+        this tick cannot take it); then one ``gather_into`` restores
+        every slot with a hit, and its cursor and both A^3 watermarks
+        start at the matched length. A miss (or no cache) starts at 0:
+        the first chunk resets the lane's state on the device."""
+        assigned: List[Tuple[int, Request, int, Any]] = []
         for si, slot in enumerate(self.slots):
             if slot.active or not self._queue:
                 continue
             req = self._queue.popleft()
-            self.slots[si] = SlotState(uid=req.uid, pos=0, generated=[],
+            t, node = 0, None
+            if self._pc is not None:
+                t, node = self._pc.lookup(req.prompt)
+                self._pc.ref(node)          # the recording anchor's pin
+            assigned.append((si, req, t, node))
+        warm = [(si, t, node) for si, _, t, node in assigned if t > 0]
+        if warm:
+            self._pc.gather_into(self.cache, warm)
+        for si, req, t, node in assigned:
+            self.slots[si] = SlotState(uid=req.uid, pos=t, generated=[],
                                        budget=req.max_new_tokens,
                                        phase=PREFILLING, prompt=req.prompt,
+                                       cursor=t, sorted_upto=t,
+                                       planned_upto=t, rec_node=node,
                                        deadline=req.deadline)
             self._status[req.uid] = PREFILLING
 
@@ -531,12 +597,27 @@ class ServeEngine:
                 and any(s.decoding for s in self.slots):
             c = self._chunk_min
             self.stats["adaptive_shrink_ticks"] += 1
+        ps = self.page_size
         tokens = np.zeros((n, c), np.int32)
         sort_any = False
         takes = {}
         for si in pre:
             s = self.slots[si]
             take = min(c, len(s.prompt) - s.cursor)
+            if s.rec_node is not None:
+                # a recorded prompt's chunk advances at most record_span
+                # and ends on its last crossed page boundary (an
+                # unaligned tail follows in the next chunk): pages are
+                # read from the rings once at the chunk's end, so every
+                # recorded position must still be in the ring then. An
+                # unaligned start realigns at the first boundary.
+                take = min(take, self._pc.record_span)
+                if s.cursor % ps:
+                    take = min(take, ps - s.cursor % ps)
+                else:
+                    aligned = ((s.cursor + take) // ps) * ps
+                    if aligned > s.cursor:
+                        take = aligned - s.cursor
             tokens[si, :take] = s.prompt[s.cursor:s.cursor + take]
             ctrl[si, CTRL_P_POS] = s.cursor
             ctrl[si, CTRL_P_LEN] = take
@@ -559,11 +640,28 @@ class ServeEngine:
             sort_any=plan["sort_any"] and self._use_a3,
             temperature=self.temperature, key=self._sample_key)
         self.stats["prefill_dispatches"] += 1
+        ps = self.page_size
         for si in plan["pre"]:
             s = self.slots[si]
             s.cursor += plan["takes"][si]
             s.pos = s.cursor
             self.stats["prefill_tokens"] += plan["takes"][si]
+            if s.rec_node is not None and s.cursor > s.rec_node.end:
+                # record every page boundary the chunk crossed, reading
+                # the cache the dispatch just wrote (same stream, no
+                # sync); only the chunk's end carries the recurrent
+                # snapshot. None: the budget is spent with nothing
+                # evictable, so the lane stops recording
+                prev = s.cursor - plan["takes"][si]
+                for b in range((prev // ps + 1) * ps, s.cursor + 1, ps):
+                    child = self._pc.record_boundary(
+                        self.cache, si, s.prompt, b, s.rec_node,
+                        carry=(b == s.cursor))
+                    self._pc.unref(s.rec_node)
+                    self._pc.ref(child)
+                    s.rec_node = child
+                    if child is None:
+                        break
             if s.cursor >= len(s.prompt):
                 # the first token lives only in ``first_tok`` until the
                 # decode harvest resolves it
@@ -574,6 +672,12 @@ class ServeEngine:
                 # the final chunk folded the sort
                 s.sorted_upto = s.planned_upto = len(s.prompt)
                 self._handoff.add(si)
+                if s.rec_node is not None:
+                    # the leaf's A^3 sorted columns, then the pin goes
+                    self._pc.record_final(self.cache, si, s.rec_node,
+                                          len(s.prompt))
+                    self._pc.unref(s.rec_node)
+                    s.rec_node = None
         if self._handoff:
             self._first_tok = first_tok
 

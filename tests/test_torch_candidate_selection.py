@@ -149,3 +149,33 @@ def test_compact_matches_jax(case, integer, shards):
     got = tops.a3_decode_attention_compact(
         T(q), T(k), T(v), T(valid), port_a3(a3), tsk, fresh_mask=T(fresh))
     _check_weights(got, want)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n,d", [(16, 8), (96, 16)])
+def test_slice_sorted_keys_matches_jax(n, d, dtype):
+    """The prefix cache's boundary restore, batched over [L, H] as the
+    gather calls it (the reference vmaps): tie-heavy integer keys with
+    ``-0.0`` entries (JAX's sort takes them equal to ``0.0``, so the
+    stable order must keep them where the re-zeroed dropped rows would
+    interleave), kept sets from all rows to one; values (bit patterns,
+    the sign of zero included) and rows exactly equal."""
+    rng = np.random.default_rng(n + d)
+    k = _int_keys(rng, (2, 3, n, d))
+    k[rng.random(k.shape) < 0.2] = np.float32(-0.0)
+    jdt = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
+    jk = jnp.asarray(k, jdt)
+    tk = T(np.asarray(jk))
+    jsk = jax.vmap(jax.vmap(jcs.sort_key_columns))(jk)
+    tsk = tcs.sort_key_columns(tk)
+    np.testing.assert_array_equal(N(tsk.rows), np.asarray(jsk.rows))
+    for keep in (np.ones(n, bool), np.arange(n) < n // 3,
+                 np.arange(n) < 1, rng.random(n) < 0.5):
+        want = jax.vmap(jax.vmap(lambda v_, r_: jcs.slice_sorted_keys(
+            jcs.SortedKeys(v_, r_), jnp.asarray(keep))))(jsk.values,
+                                                         jsk.rows)
+        got = tcs.slice_sorted_keys(tsk, T(keep))
+        assert got.values.dtype == tk.dtype
+        np.testing.assert_array_equal(N(got.values).view(np.uint32),
+                                      N(want.values).view(np.uint32))
+        np.testing.assert_array_equal(N(got.rows), np.asarray(want.rows))

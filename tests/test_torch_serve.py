@@ -342,3 +342,69 @@ def test_cli_lifecycle_pipeline_and_sampling_flags(capsys):
                 "'host_sync_stalls'", "'tick_ns_decode'",
                 "'adaptive_shrink_ticks'", "stats="):
         assert key in out, key
+
+
+def test_cli_prefix_cache_flags_match_reference_cli(monkeypatch, capsys):
+    """``--cache-pages 16 --page-size 8 --kv-quant int8 --a3
+    conservative`` on both CLIs (their other flags at their defaults: 8
+    requests of 64 tokens, 4 slots, 32 new tokens): each CLI's prompt
+    draw gets a shared 24-token head, and the port CLI serves the JAX
+    CLI's weights (its seed-0 init, converted). The requests admitted
+    after the first four hit the trie; tokens and prefix counters are
+    equal. Both CLIs' smoke config is taken in float32, where parity is
+    asserted token for token: in bf16 request 1's first logits hold an
+    exact tie in JAX (ROADMAP queue 3, entry 2)."""
+    import dataclasses
+    import sys
+    import types
+
+    from repro import config as jcfg
+    from repro.launch import serve as jcli
+    from repro_torch.launch import serve as tcli
+
+    def f32(smoke):
+        return lambda c: dataclasses.replace(smoke(c), dtype="float32")
+
+    monkeypatch.setattr(jcli, "smoke_variant", f32(jcli.smoke_variant))
+    monkeypatch.setattr(tcli, "smoke_variant", f32(tcli.smoke_variant))
+    cfg = jcli.smoke_variant(jcfg.get_arch("phi4-mini-3.8b"))
+    params = jdec.init_params(jax.random.PRNGKey(0), cfg)
+    model = params_from_numpy(jax.tree_util.tree_map(np.asarray, params),
+                              port_cfg(cfg), device="cpu")
+    monkeypatch.setattr(tdec, "init_params", lambda *a, **k: model)
+
+    class SharedHead:
+        def __init__(self, seed):
+            self.rng = np.random.default_rng(seed)
+            self.head = self.rng.integers(0, cfg.vocab_size, size=24)
+
+        def integers(self, lo, hi, size):
+            return np.concatenate([self.head, self.rng.integers(
+                lo, hi, size=size - len(self.head))])
+
+    shim = types.SimpleNamespace(random=types.SimpleNamespace(
+        default_rng=SharedHead))
+    monkeypatch.setattr(jcli, "np", shim)
+    monkeypatch.setattr(tcli, "np", shim)
+    engines = {}
+    for key, cls in (("jax", JaxEngine), ("port", ServeEngine)):
+        made = cls.from_config.__func__
+        monkeypatch.setattr(cls, "from_config", classmethod(
+            lambda c, *a, _k=key, _m=made, **kw: engines.setdefault(
+                _k, _m(c, *a, **kw))))
+    flags = ["--arch", "phi4-mini-3.8b", "--smoke", "--cache-pages", "16",
+             "--page-size", "8", "--kv-quant", "int8", "--a3",
+             "conservative"]
+    monkeypatch.setattr(sys, "argv", ["serve"] + flags)
+    jcli.main()
+    tcli.main(flags + ["--device", "cpu"])
+    out = capsys.readouterr().out
+    assert out.count("arch=phi4-mini-3.8b a3=conservative requests=8/8") == 2
+    ref, port = engines["jax"], engines["port"]
+    assert port._pc.kv_quant == "int8" and port._pc.page_size == 8
+    assert [port.result(u) for u in range(8)] == \
+        [ref.result(u) for u in range(8)]
+    assert port.stats["prefix_hits"] > 0
+    for key in ("prefix_hits", "prefix_tokens_reused", "gather_dispatches",
+                "pages_recorded", "pages_evicted", "prefill_tokens"):
+        assert port.stats[key] == ref.stats[key], key
