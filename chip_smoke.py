@@ -13,7 +13,10 @@ first phase that does not hold:
    S=512, D=128, bf16, random masks with empty rows), thresholds None and
    3.0, block_k 512 and 128, within 2e-2, and the two-pass pair at
    threshold 0 (every row that admits an entry keeps its maximum, bf16
-   and float32); prints each cluster size; times each kernel with CUDA
+   and float32); #1 on NaN scores (a NaN key row, a NaN ring), thresholds
+   None and 3.0: its NaN rows those of its plain version, which takes
+   the Pallas kernel's NaN-propagating running max; prints each cluster
+   size; times each kernel with CUDA
    events over inputs that exceed the 50 MB L2 (as the 32 layers of a
    decode step do) and by the device time per launch from
    ``torch.profiler`` (the event loop measures the host's enqueue once a
@@ -130,12 +133,42 @@ first phase that does not hold:
    tiny float32 TINY, TINY_RG and TINY_XL engines with an fp and an int8
    pool on the card vs the CPU: tokens and prefix counters identical,
    warm hits taken, #1 (#7 for TINY_XL) launched on the card.
+11. durable serving state (after [10], on phase 3's model): (a) the L2
+   tier: two 1024-token prefixes A and B (seed-made), each request the
+   prefix and its own 64-token suffix, 16 greedy new tokens, 4 slots,
+   max_len 2048, decode_block 4, page 64; A's first request alone, B's
+   first alone (its recording demotes A's pages), three more of A
+   together (A's pages promote back), three more of B together; pools
+   fp and int8 with A^3 off (25 pages, 4 GiB of L2) and fp with A^3
+   conservative (60 pages: its sorted-key leaf snapshots demote too).
+   Holds: tokens = the cold serve's (fp) or = the int8 serve whose
+   320-page pool evicts nothing (int8); l2_spills and l2_hits >= 1,
+   integrity drops 0; every promotion's staging and insert and every
+   gather under ``set_sync_debug_mode("error")``; #1 32 x decode_steps
+   with A^3 off. Prints each serve's wall time, the demotions' and
+   promotions' wall ms, the inserts' device ms, the blocking reads and
+   the blob bytes; (b) the same fp serve with the ``restore_corrupt``
+   site armed for the last two batches (rate 1, one injection): one
+   integrity drop, tokens = cold; (c) checkpoint / restore: phase 3's
+   8 requests (request 0 with 4 new tokens, the others 16; prefill
+   chunk 32), A^3 off and conservative, checkpointed at a tick with
+   requests queued, prefilling and decoding into a temporary directory
+   and restored into a fresh engine: tokens, statuses and clock-free
+   stats = the uninterrupted serve's; prints arrays.bin bytes and the
+   checkpoint and restore seconds; (d) chaos: the corrupt site on (c)'s
+   serve (A^3 off and conservative; the victim FAILS off a POISON
+   harvest, the others' tokens = chaos-free), the raise and delay sites
+   at rate 0.3 (tokens = chaos-free), #1 on NaN lanes of a served ring,
+   and the tiny float32 TINY, TINY_RG and TINY_XL engines with the L2
+   tier and the crash site (a checkpoint after every tick, a restore
+   after each crash) on the card vs the CPU: tokens, clock-free stats
+   and chaos events identical, #1 (#7 for TINY_XL) launched.
 
 Prints one JSON line of per-kernel numbers (every row with
 ``device_ms``, the profiler's device time per launch; rows #1-#3 with
 ``s4096``, the long ring's ms, device ms and bound; row #1 with
-``served_shapes``, phase 9's rows; #1's launches include [10]'s, #7's
-[10b]'s), then, last,
+``served_shapes``, phase 9's rows; #1's launches include [10]'s and
+[11]'s A^3-off serves, #7's [10b]'s and [11d]'s), then, last,
 ``{"ok": true, "device": {...}}``. Exits non-zero, with no result line,
 when CUDA is unavailable or the port's sources are not beside the script.
 """
@@ -360,6 +393,44 @@ def two_pass_threshold_zero(q, k, v, mask, label):
         f"output)")
 
 
+def fused_nan_check(q, k, v, mask, label):
+    """#1 against its plain version on NaN scores (block_k 512 and 128,
+    thresholds None and 3.0): lane 1 gets one NaN key row with V finite,
+    lane 2 a NaN ring whose last row is finite (a corrupted cache lane
+    the step after its corruption). A NaN score propagates into #1's
+    running max, as ``jnp.maximum`` does in the Pallas kernel, so the
+    NaN rows must be the plain version's (every admitted row of lanes 1
+    and 2) and every other row within the bf16 tolerance."""
+    import torch
+    from repro_torch.kernels.decode_attention import kernel as tk
+    k, v, mask = k.clone(), v.clone(), mask.clone()
+    s = k.shape[2]
+    mask[1:3, :, 5] = True
+    mask[2, :, s - 1] = True
+    k[1, :, 5] = float("nan")
+    k[2, :, :s - 1] = float("nan")
+    v[2, :, :s - 1] = float("nan")
+    worst = 0.0
+    for thr in (None, 3.0):
+        for block_k in (512, 128):
+            got = tk.fused(q, k, v, mask, threshold=thr, block_k=block_k)
+            want = tk.fused_plain(q, k, v, mask, threshold=thr,
+                                  block_k=block_k)
+            gn, wn = torch.isnan(got), torch.isnan(want)
+            check(torch.equal(gn, wn) and bool(wn[1:3].all()),
+                  f"{label}: #1's NaN rows differ from its plain version's "
+                  f"(thr={thr}, block_k={block_k}): kernel "
+                  f"{int(gn.any(-1).sum())} rows, plain "
+                  f"{int(wn.any(-1).sum())}")
+            e, ok = max_err(got[~wn], want[~wn])
+            check(ok, f"{label}: #1 on the finite rows next to NaN lanes "
+                      f"(thr={thr}, block_k={block_k}): {e}")
+            worst = max(worst, e)
+    log(f"  #1 on NaN scores ({label}): the NaN rows are the plain "
+        f"version's with and without threshold 3.0 (lanes 1-2), the other "
+        f"rows within {worst:.3g}")
+
+
 def phase_kernels(dev):
     import torch.nn.functional as F
     from repro_torch.kernels.decode_attention import kernel as tk
@@ -394,6 +465,7 @@ def phase_kernels(dev):
                 f"{errs['rowmax']:.3g} attend {errs['attend']:.3g} "
                 f"(tolerance atol {TOL['atol']} + rtol {TOL['rtol']})")
     two_pass_threshold_zero(q, k, v, mask, f"S={SHAPE['s']}")
+    fused_nan_check(q, k, v, mask, f"S={SHAPE['s']} bf16")
     sync(dev)
 
     # timed configuration: each kernel as its path calls it (block_k 512;
@@ -1173,6 +1245,504 @@ def phase_prefix_tiny(dev):
                   f"{name} pool {kv_quant}: its kernel did not run")
             if name == "TINY_XL":
                 mlstm += n7
+    return mlstm
+
+# ---------------------------------------------------------------------------
+# phase 11: durable serving state at phi4-mini width
+# ---------------------------------------------------------------------------
+
+# a 1088-token chain is 17 pages of 64: with 25 pages, B's recording
+# leaves A its first 8 (512 tokens) and demotes the rest, so a promotion
+# that [11b] makes fail restarts A's prefill at the 512-token chunk
+# boundary a cold prefill has too (bf16 prefill chunked elsewhere rounds
+# differently, and the tokens could then differ from cold)
+L2_PAGES = 25
+L2_PAGES_A3 = 60           # and a leaf's sorted-key snapshot 32 more
+L2_BYTES = 4 << 30
+
+
+def l2_probe(pc, calls, times):
+    """Run a promotion's staging and pool insert and every gather of
+    ``pc`` under ``set_sync_debug_mode("error")`` (counted in ``calls``),
+    and time each demotion and promotion on the wall clock (a promotion
+    without the demotions its page allocation triggers, which are timed
+    as demotions) and each insert on the device (CUDA events), into
+    ``times``."""
+    import torch
+
+    def strict(name, fn):
+        def run(*args, **kw):
+            calls[name] = calls.get(name, 0) + 1
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return fn(*args, **kw)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        return run
+
+    stage = strict("stage", pc._stager.stage)
+    pc._stager.stage = stage
+    pc.gather_into = strict("gather_into", pc.gather_into)
+    insert = strict("insert", pc._insert_page)
+    demote, promote = pc._demote, pc._promote
+    nested = [0]
+
+    def timed_insert(pid, page):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        insert(pid, page)
+        b.record()
+        times["insert"].append((a, b))
+
+    def timed_demote(node):
+        t0 = time.perf_counter_ns()
+        demote(node)
+        dt = time.perf_counter_ns() - t0
+        nested[0] += dt
+        times["demote"].append(dt / 1e6)
+
+    def timed_promote(parent, edge):
+        t0, n0 = time.perf_counter_ns(), nested[0]
+        child = promote(parent, edge)
+        if child is not None:
+            times["promote"].append(
+                (time.perf_counter_ns() - t0 - (nested[0] - n0)) / 1e6)
+        return child
+
+    pc._insert_page = timed_insert
+    pc._demote = timed_demote
+    pc._promote = timed_promote
+
+
+def l2_serve(model, cfg, batches, a3, chaos=None, before=None, **knobs):
+    """Serve each batch of prompts to the end in turn through
+    ``ServeEngine`` (4 slots, max_len 2048, decode_block 4, page 64, 16
+    new tokens; ``before(i)`` runs before batch i) -> dict of the
+    results, the engine, wall s, #1's launches, the strict-sync call
+    counts and the L2 timings."""
+    from repro_torch.kernels.decode_attention import kernel as tk
+    from repro_torch.serve.engine import ServeEngine
+
+    eng = ServeEngine(model, cfg, slots=4, max_len=2048, a3=a3,
+                      decode_block=4, page_size=PREFIX_PAGE, chaos=chaos,
+                      **knobs)
+    calls, times = {}, {"demote": [], "promote": [], "insert": []}
+    if eng._pc is not None and eng._pc.l2 is not None:
+        l2_probe(eng._pc, calls, times)
+    uids = []
+    sync(model.device)
+    tk.reset_launch_counts()
+    t0 = time.perf_counter()
+    for i, batch in enumerate(batches):
+        if before is not None:
+            before(i)
+        uids += [eng.submit(p, max_new_tokens=16) for p in batch]
+        eng.run_to_completion()
+    sync(model.device)
+    wall = time.perf_counter() - t0
+    outs = [eng.result(u) for u in uids]
+    check(all(o is not None and len(o) == 16 for o in outs),
+          "an L2 serve's request did not finish with its budget")
+    times["insert"] = [a.elapsed_time(b) for a, b in times["insert"]]
+    return dict(outs=outs, eng=eng, wall=wall, calls=calls, times=times,
+                fused=tk.LAUNCHES["decode_attention_fused"])
+
+
+def ms_summary(xs):
+    if not xs:
+        return "none"
+    xs = sorted(xs)
+    return (f"{len(xs)} x median {xs[len(xs) // 2]:.3f} ms (min "
+            f"{xs[0]:.3f}, max {xs[-1]:.3f})")
+
+
+def phase_l2(model, cfg, dev):
+    """[11a] the L2 round trip and [11b] its restore_corrupt site on
+    phi4-mini-3.8b (the model [3] built): two 1024-token prefixes A and
+    B, each request the prefix and its own 64-token suffix (16 greedy
+    new tokens); A's first request alone, then B's first alone (its
+    recording demotes A's pages), then three more of A together (A's
+    pages promote back, B's demote), then three more of B together (B's
+    promote back). Pools: fp and int8 with A^3 off (25 pages), fp with
+    A^3 conservative (60 pages: the leaves' 32-page sorted-key snapshots
+    demote too). A's and B's requests come in separate batches: two
+    chains in flight at once would pin 32 of the 25 pages, and the
+    promotions would stop short of the full prefix; with the int8 pool
+    the tokens depend on how much of the prefix comes from int8 pages,
+    and they are held against the int8 serve whose pool evicts nothing,
+    which matches the full prefix -> #1's launches in the A^3-off
+    serves."""
+    import dataclasses
+    import numpy as np
+    from repro_torch.config import A3Config
+    from repro_torch.serve.chaos import ChaosConfig, ChaosInjector
+
+    rng = np.random.default_rng(11)
+    heads = [rng.integers(0, cfg.vocab_size, size=PREFIX_LEN)
+             for _ in range(2)]
+    reqs = [np.concatenate([heads[i % 2], rng.integers(
+        0, cfg.vocab_size, size=SUFFIX_LEN)]) for i in range(8)]
+    batches = [reqs[:1], reqs[1:2], reqs[2::2], reqs[3::2]]
+    off, cons = A3Config(), A3Config.conservative()
+    l2 = dict(l2_bytes=L2_BYTES)
+    plan = [("cold off", off, {}),
+            ("fp off L2", off, dict(cache_pages=L2_PAGES, **l2)),
+            ("int8 off, no eviction", off,
+             dict(cache_pages=320, kv_quant="int8")),
+            ("int8 off L2", off,
+             dict(cache_pages=L2_PAGES, kv_quant="int8", **l2)),
+            ("cold conservative", cons, {}),
+            ("fp conservative L2", cons,
+             dict(cache_pages=L2_PAGES_A3, **l2))]
+    runs, fused = {}, 0
+    for label, a3, knobs in plan:
+        r = l2_serve(model, cfg, batches, a3, **knobs)
+        st, eng = r["eng"].stats, r["eng"]
+        pc = eng._pc
+        line = (f"  {label}: 8 requests {r['wall']:.3f} s wall; "
+                f"prefill_tokens {st['prefill_tokens']}, "
+                f"prefix_tokens_reused {st['prefix_tokens_reused']}")
+        if "off" in label:
+            want = cfg.num_layers * st["decode_steps"]
+            check(r["fused"] == want > 0, f"{label}: #1 launched "
+                  f"{r['fused']} times, expected {want}")
+            fused += r["fused"]
+        if pc is not None and pc.l2 is not None:
+            check(st["l2_spills"] >= 1 and st["l2_hits"] >= 1
+                  and st["l2_integrity_drops"] == 0,
+                  f"{label}: L2 counters {st}")
+            check(r["calls"].get("stage", 0) >= 1
+                  and r["calls"].get("insert", 0) == r["calls"]["stage"]
+                  and r["calls"].get("gather_into", 0) >= 1,
+                  f"{label}: strict-sync calls {r['calls']}")
+            sizes = sorted(len(b) for _, b in pc.l2.raw_items())
+            t = r["times"]
+            line += (f"; l2_spills {st['l2_spills']}, l2_hits "
+                     f"{st['l2_hits']}, l2_evictions {st['l2_evictions']}, "
+                     f"pages_evicted {st['pages_evicted']}; demotions "
+                     f"{ms_summary(t['demote'])} wall ({pc.demote_reads} "
+                     f"blocking reads, {pc.demote_read_ns / 1e6:.1f} ms); "
+                     f"promotions {ms_summary(t['promote'])} wall; inserts "
+                     f"{ms_summary(t['insert'])} device; {len(sizes)} "
+                     f"blobs held, {sizes[0]} to {sizes[-1]} bytes (median "
+                     f"{sizes[len(sizes) // 2]}); stage / insert / gather "
+                     f"under set_sync_debug_mode('error'): {r['calls']}")
+        log(line + f" [{CARD}]")
+        runs[label] = r
+    for got, want in (("fp off L2", "cold off"),
+                      ("int8 off L2", "int8 off, no eviction"),
+                      ("fp conservative L2", "cold conservative")):
+        check(runs[got]["outs"] == runs[want]["outs"],
+              f"{got}: tokens differ from {want}")
+    lead = runs["fp conservative L2"]["eng"]._pc
+    check(any(n.sk_snap is not None for n in lead._nodes),
+          "A^3 conservative: no sorted-key snapshot in the trie")
+    log("  L2 tokens = cold tokens (fp off, fp conservative) and = the "
+        "int8 serve without eviction (int8 off), 8/8 requests each")
+
+    # [11b] restore_corrupt: one blob flipped before its verified
+    # restore. The site draws at every stalled trie walk, the cold ones
+    # too, so its rate goes from 0 to 1 once A's pages are in L2: the one
+    # injection then hits the first promotion
+    quiet = ChaosConfig(restore_corrupt=True, rate=0.0, max_injections=1,
+                        corrupt_logits=False, fail_gather=False,
+                        raise_mid_tick=False)
+    ch = ChaosInjector(quiet)
+
+    def arm(i):
+        if i == 2:
+            ch.config = dataclasses.replace(quiet, rate=1.0)
+
+    r = l2_serve(model, cfg, batches, off, chaos=ch, before=arm,
+                 cache_pages=L2_PAGES, **l2)
+    st = r["eng"].stats
+    kinds = [e[0] for e in ch.events]
+    check(kinds == ["restore_corrupt"] and st["l2_integrity_drops"] == 1,
+          f"[11b] restore_corrupt: events {ch.events}, drops "
+          f"{st['l2_integrity_drops']}")
+    check(r["outs"] == runs["cold off"]["outs"],
+          "[11b] restore_corrupt: tokens differ from cold")
+    fused += r["fused"]
+    log(f"  [11b] restore_corrupt at tick {ch.events[0][1]} on a "
+        f"{len(ch.events[0][2])}-token key: 1 integrity drop, l2_hits "
+        f"{st['l2_hits']}, tokens = cold for 8/8; {r['wall']:.3f} s wall "
+        f"[{CARD}]")
+    return fused
+
+
+def ckpt_serve_state(eng):
+    phases = [s.phase for s in eng.slots]
+    return len(eng._queue), phases.count("prefilling"), \
+        phases.count("decoding")
+
+
+def clock_free(stats):
+    return {k: v for k, v in stats.items()
+            if not k.startswith("tick_ns") and k not in (
+                "host_sync_stalls", "checkpoints", "restores")}
+
+
+def phase_checkpoint(model, cfg, dev):
+    """[11c] phase [3]'s 8 requests (64-token prompts, 4 slots, max_len
+    512, decode_block 4; request 0 with 4 new tokens so a slot frees
+    early, the others 16; prefill chunk 32 so a prompt takes two ticks),
+    A^3 off and conservative: served uninterrupted, then checkpointed
+    once at a tick where requests are queued, prefilling and decoding,
+    restored into a fresh engine and run to the end -> (#1's launches in
+    the A^3-off serves, the chaos-free results by mode)."""
+    import tempfile
+    import numpy as np
+    from pathlib import Path as _P
+    from repro_torch.config import A3Config
+    from repro_torch.kernels.decode_attention import kernel as tk
+    from repro_torch.serve.engine import ServeEngine
+
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, size=64) for _ in range(8)]
+    budgets = [4] + [16] * 7
+    knobs = dict(slots=4, max_len=512, decode_block=4, prefill_chunk=32)
+    fused, free = 0, {}
+    for mode, a3 in (("off", A3Config()),
+                     ("conservative", A3Config.conservative())):
+        eng = ServeEngine(model, cfg, a3=a3, **knobs)
+        uids = [eng.submit(p, n) for p, n in zip(prompts, budgets)]
+        tk.reset_launch_counts()
+        eng.run_to_completion()
+        sync(dev)
+        free[mode] = dict(outs=[eng.result(u) for u in uids],
+                          status=[eng.status(u) for u in uids],
+                          stats=clock_free(eng.stats), knobs=knobs,
+                          prompts=prompts, budgets=budgets)
+        if mode == "off":
+            fused += tk.LAUNCHES["decode_attention_fused"]
+        eng = ServeEngine(model, cfg, a3=a3, **knobs)
+        uids = [eng.submit(p, n) for p, n in zip(prompts, budgets)]
+        tk.reset_launch_counts()
+        while not all(ckpt_serve_state(eng)):
+            check(eng.in_flight > 0, "no tick had requests queued, "
+                  "prefilling and decoding at once")
+            eng.step()
+        state, tick = ckpt_serve_state(eng), eng.stats["ticks"]
+        with tempfile.TemporaryDirectory() as td:
+            path = str(_P(td) / "ckpt")
+            sync(dev)
+            t0 = time.perf_counter()
+            eng.checkpoint(path)
+            t_ck = time.perf_counter() - t0
+            nbytes = (_P(path) / "arrays.bin").stat().st_size
+            del eng
+            t0 = time.perf_counter()
+            rest = ServeEngine.restore(path, model, cfg, a3=a3)
+            sync(dev)
+            t_rs = time.perf_counter() - t0
+        rest.run_to_completion()
+        sync(dev)
+        if mode == "off":
+            fused += tk.LAUNCHES["decode_attention_fused"]
+        check([rest.result(u) for u in uids] == free[mode]["outs"]
+              and [rest.status(u) for u in uids] == free[mode]["status"],
+              f"[11c] A^3 {mode}: restored tokens or statuses differ from "
+              f"the uninterrupted serve")
+        check(clock_free(rest.stats) == free[mode]["stats"]
+              and rest.stats["restores"] == 1,
+              f"[11c] A^3 {mode}: stats differ: {clock_free(rest.stats)} "
+              f"against {free[mode]['stats']}")
+        log(f"  [11c] A^3 {mode}: checkpoint after tick {tick} with "
+            f"{state[0]} queued / {state[1]} prefilling / {state[2]} "
+            f"decoding; arrays.bin {nbytes} bytes; checkpoint "
+            f"{t_ck:.3f} s, restore {t_rs:.3f} s; restored tokens, "
+            f"statuses and clock-free stats = the uninterrupted serve's "
+            f"(8/8) [{CARD}]")
+    return fused, free
+
+
+def phase_chaos(model, cfg, dev, free):
+    """[11d] chaos on the card: the corrupt site (max_injections 1) on
+    [11c]'s serve with A^3 off and conservative (the victim FAILS off a
+    POISON harvest, every other request's tokens are the chaos-free
+    ones); the raise and delay sites at rate 0.3 (every token the
+    chaos-free one); #1 on a served ring with NaN lanes (thresholds
+    None and 3.0) against its plain version -> #1's launches in the
+    A^3-off serves."""
+    import torch
+    from repro_torch.config import A3Config
+    from repro_torch.kernels.decode_attention import kernel as tk
+    from repro_torch.models import decoder
+    from repro_torch.serve.chaos import ChaosConfig, ChaosInjector
+    from repro_torch.serve.engine import ServeEngine
+
+    fused = 0
+    for mode, a3 in (("off", A3Config()),
+                     ("conservative", A3Config.conservative())):
+        f = free[mode]
+        for label, cc in (
+                ("corrupt", dict(seed=0, rate=1.0, corrupt_logits=True,
+                                 fail_gather=False, raise_mid_tick=False,
+                                 max_injections=1)),
+                ("raise + delay", dict(seed=3, rate=0.3,
+                                       corrupt_logits=False,
+                                       fail_gather=False,
+                                       raise_mid_tick=True,
+                                       delay_mid_tick=True))):
+            if label != "corrupt" and mode != "off":
+                continue
+            ch = ChaosInjector(ChaosConfig(**cc))
+            eng = ServeEngine(model, cfg, a3=a3, chaos=ch, **f["knobs"])
+            poisoned = set()
+            apply = eng._apply_harvest
+
+            def seen(e, h, _apply=apply):
+                for si, uid, nb, _ in e.lanes:
+                    if (h[si, 1:1 + nb] == decoder.POISON).any():
+                        poisoned.add(uid)
+                return _apply(e, h)
+
+            eng._apply_harvest = seen
+            uids = [eng.submit(p, n) for p, n in zip(f["prompts"],
+                                                     f["budgets"])]
+            tk.reset_launch_counts()
+            eng.run_to_completion()
+            sync(dev)
+            victims = ch.injected_uids
+            for u, want in zip(uids, f["outs"]):
+                if u in victims:
+                    check(eng.status(u) == "failed" and u in poisoned,
+                          f"[11d] {mode}: victim {u} is {eng.status(u)}, "
+                          f"POISON seen for {sorted(poisoned)}")
+                else:
+                    check(eng.result(u) == want, f"[11d] {mode} {label}: "
+                          f"request {u}'s tokens differ from chaos-free")
+            if label == "corrupt":
+                check(len(victims) == 1 and eng.stats["failed"] == 1,
+                      f"[11d] {mode}: victims {victims}")
+            else:
+                aborts = sum(e[0] == "raise" for e in ch.events)
+                check(aborts > 0 and eng.stats["chaos_aborted_ticks"]
+                      == aborts and eng.stats["chaos_delayed_ticks"] > 0,
+                      f"[11d] raise + delay: events {ch.events}, stats "
+                      f"{eng.stats}")
+            if mode == "off":
+                fused += tk.LAUNCHES["decode_attention_fused"]
+            kinds = [e[0] for e in ch.events]
+            log(f"  [11d] {label} a3={mode}: events "
+                + ", ".join(f"{kinds.count(k)} {k}" for k in sorted(
+                    set(kinds)))
+                + f" (first {ch.events[:2]}); chaos_aborted_ticks "
+                f"{eng.stats['chaos_aborted_ticks']}, chaos_delayed_ticks "
+                f"{eng.stats['chaos_delayed_ticks']}; victims "
+                f"{sorted(victims)} FAILED off a POISON harvest; the other "
+                f"{len(uids) - len(victims)} requests' tokens = chaos-free "
+                f"[{CARD}]")
+            last = eng
+    # #1 on the served ring (layer 0 of the last serve) with NaN lanes,
+    # thresholds None and 3.0 (A^3's), against its plain version
+    kc, vc = last.cache["seg0"]["k"][0], last.cache["seg0"]["v"][0]
+    g = torch.Generator(device=dev).manual_seed(11)
+    q = torch.randn((kc.shape[0], cfg.num_heads, kc.shape[-1]), generator=g,
+                    device=dev).to(kc.dtype)
+    mask = torch.zeros((kc.shape[0], cfg.num_heads, kc.shape[2]),
+                       dtype=torch.bool, device=dev)
+    mask[..., :80] = True
+    fused_nan_check(q, kc, vc, mask, "[11d] served ring, layer 0")
+    return fused
+
+
+def phase_durable_tiny(dev):
+    """[11d] the tiny float32 TINY, TINY_RG and TINY_XL engines with the
+    L2 tier, checkpoints and the crash site (rate 0.3, a checkpoint after
+    every tick, a chaos-free restore after each crash): three prompts
+    sharing 24 tokens served, the trie spilled to L2, the same prompts
+    served again (their pages promote), on the card and on the CPU:
+    tokens, clock-free stats and chaos events identical; #1 (#7 for
+    TINY_XL) launched on the card -> #7's launches."""
+    import dataclasses
+    import tempfile
+    import numpy as np
+    import torch
+    from repro_torch.config import A3Config, AttentionKind, BlockKind, \
+        ModelConfig
+    from repro_torch.kernels.decode_attention import kernel as tk
+    from repro_torch.kernels.mlstm_chunk import kernel as mk
+    from repro_torch.models import decoder
+    from repro_torch.serve.chaos import ChaosConfig, ChaosInjector, \
+        EngineCrash
+    from repro_torch.serve.engine import ServeEngine
+
+    tiny = ModelConfig("tiny", "dense", num_layers=2, d_model=64,
+                       num_heads=4, num_kv_heads=2, d_ff=128, vocab_size=256,
+                       head_dim=16, dtype="float32")
+    configs = {
+        "TINY": tiny,
+        "TINY_RG": dataclasses.replace(
+            tiny, name="tiny-rg", num_layers=3,
+            attention_kind=AttentionKind.SLIDING, window_size=24,
+            block_pattern=(BlockKind.RGLRU, BlockKind.RGLRU,
+                           BlockKind.ATTENTION), act="gelu"),
+        "TINY_XL": dataclasses.replace(
+            tiny, name="tiny-xl", family="ssm", num_layers=3,
+            num_kv_heads=4, d_ff=0,
+            block_pattern=(BlockKind.MLSTM, BlockKind.MLSTM,
+                           BlockKind.SLSTM)),
+    }
+    rng = np.random.default_rng(7)
+    shared = rng.integers(0, 256, size=24)
+    prompts = [np.concatenate([shared, rng.integers(0, 256, size=4 + 3 * i)])
+               for i in range(3)]
+    knobs = dict(slots=2, max_len=96, a3=A3Config(), prefill_chunk=8,
+                 decode_block=4, page_size=8, cache_pages=16,
+                 l2_bytes=1 << 22)
+    mlstm = 0
+    for name, cfg in configs.items():
+        cpu = decoder.init_params(cfg, torch.Generator().manual_seed(0),
+                                  "cpu")
+        gpu = copy.deepcopy(cpu).to(dev)
+        res = {}
+        for where, model in (("cpu", cpu), ("cuda", gpu)):
+            tk.reset_launch_counts()
+            mk.reset_launch_counts()
+            ch = ChaosInjector(ChaosConfig(seed=3, rate=0.3,
+                                           corrupt_logits=False,
+                                           fail_gather=False,
+                                           raise_mid_tick=False,
+                                           crash_mid_tick=True))
+            with tempfile.TemporaryDirectory() as td:
+                path = f"{td}/ckpt"
+                eng = ServeEngine(model, cfg, chaos=ch, **knobs)
+                uids, crashes = [], 0
+                for again in (False, True):
+                    if again:
+                        eng._pc.spill(10 ** 6)     # the trie goes to L2
+                    uids += [eng.submit(p, 6) for p in prompts]
+                    eng.checkpoint(path)
+                    while eng.in_flight:
+                        try:
+                            eng.step()
+                            eng.checkpoint(path)
+                        except EngineCrash:
+                            crashes += 1
+                            eng = ServeEngine.restore(path, model, cfg,
+                                                      a3=knobs["a3"])
+            res[where] = dict(
+                outs=[eng.result(u) for u in uids], events=list(ch.events),
+                stats=clock_free(eng.stats), crashes=crashes,
+                restores=eng.stats["restores"])
+        fused, n7 = tk.LAUNCHES["decode_attention_fused"], mk.launches()
+        st = res["cuda"]["stats"]
+        log(f"  [11d] {name} f32 L2 + crash/restore: card vs CPU tokens "
+            f"{n_same(dict(cuda=res['cuda']['outs'], cpu=res['cpu']['outs']))}"
+            f"/36 identical; crashes {res['cuda']['crashes']} (events "
+            f"{res['cuda']['events']}); l2_spills {st['l2_spills']}, "
+            f"l2_hits {st['l2_hits']}; card #1 launches {fused}, #7 {n7}")
+        check(res["cuda"] == res["cpu"], f"[11d] {name}: card and CPU "
+              f"differ: {res['cuda']} / {res['cpu']}")
+        check(res["cuda"]["crashes"] >= 1 and st["l2_spills"] > 0
+              and st["l2_hits"] > 0, f"[11d] {name}: no crash or no L2 "
+              f"round trip: {res['cuda']}")
+        check((n7 > 0) if name == "TINY_XL" else (fused > 0),
+              f"[11d] {name}: its kernel did not run")
+        if name == "TINY_XL":
+            mlstm += n7
     return mlstm
 
 
@@ -2399,6 +2969,14 @@ def main() -> int:
         "CPU")
     prefix_mlstm = phase_prefix_tiny(dev)
     log(f"  phase [10] took {time.perf_counter() - t10:.1f} s")
+    log("[11] durable serving state at phi4-mini-3.8b width: the L2 tier, "
+        "restore_corrupt, checkpoint / restore, chaos")
+    t11 = time.perf_counter()
+    main_launches += phase_l2(model, cfg, dev)
+    ck_launches, free = phase_checkpoint(model, cfg, dev)
+    main_launches += ck_launches + phase_chaos(model, cfg, dev, free)
+    prefix_mlstm += phase_durable_tiny(dev)
+    log(f"  phase [11] took {time.perf_counter() - t11:.1f} s")
     log("[5] two-pass path")
     two_pass = phase_two_pass(ring, dev)
     log("[6] TINY f32, card vs CPU")

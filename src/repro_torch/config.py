@@ -204,6 +204,11 @@ class ServeConfig:
     # sorted-key snapshots as int8 with float32 scales, dequantized in
     # the warm gather; "none" keeps the pool in the serving dtype
     kv_quant: str = "none"
+    # host-RAM L2 page tier (serve.page_store): byte budget for the
+    # checksummed blobs of evicted prefix-cache pages; eviction demotes
+    # instead of freeing, and a later lookup promotes verified blobs back
+    # (a corrupt blob degrades that node to cold prefill). 0 = no tier
+    l2_bytes: int = 0
     # most terminal entries kept in the status/result maps, results
     # popped on first read (0 = unbounded)
     retain_results: int = 0
@@ -261,6 +266,10 @@ class ServeConfig:
             raise ValueError(
                 f"kv_quant must be 'none' or 'int8', got "
                 f"{self.kv_quant!r}")
+        if self.l2_bytes < 0:
+            raise ValueError(
+                f"l2_bytes must be >= 0, got {self.l2_bytes} "
+                f"(0 disables the host-RAM L2 page tier)")
         if self.retain_results < 0:
             raise ValueError(
                 f"retain_results must be >= 0, got "

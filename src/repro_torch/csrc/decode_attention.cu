@@ -119,6 +119,20 @@ __device__ __forceinline__ float warp_max(float x) {
   return x;
 }
 
+// The larger of a and b, NaN when either is NaN (jnp.maximum and
+// torch.maximum; fmaxf drops the NaN). #1's running max takes it, so a
+// NaN score poisons its query row with or without a threshold, as in the
+// Pallas kernel: a corrupted cache lane then comes out non-finite.
+__device__ __forceinline__ float max_nan(float a, float b) {
+  return (isnan(a) || isnan(b)) ? a + b : fmaxf(a, b);
+}
+
+__device__ __forceinline__ float warp_max_nan(float x) {
+  for (int o = 16; o > 0; o >>= 1)
+    x = max_nan(x, __shfl_xor_sync(0xffffffffu, x, o));
+  return x;
+}
+
 // Split cluster barrier: every thread arrives once the CTA has started
 // (relaxed: it orders nothing) and waits before its first access to
 // another CTA's shared memory, which must not come before that CTA runs.
@@ -645,21 +659,22 @@ fused_cluster_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
 
     // this CTA's masked row maxima, then the whole tile's through DSMEM
+    // (a NaN score propagates into both, see max_nan)
     float* lm = lmax_s + (t & 1) * G;
     for (int g = warp; g < G; g += kWarps) {
       float mx = kNegInf;
       for (int j = lane; j < n; j += 32)
-        mx = fmaxf(mx, mk[g * n + j] ? s_s[sidx(g, j, n)] : kNegInf);
-      mx = warp_max(mx);
+        mx = max_nan(mx, mk[g * n + j] ? s_s[sidx(g, j, n)] : kNegInf);
+      mx = warp_max_nan(mx);
       if (lane == 0) lm[g] = mx;
     }
     cluster.sync();
     for (int g = warp; g < G; g += kWarps) {
       float mx = kNegInf;
       if (lane < C) mx = cluster.map_shared_rank(lm, lane)[g];
-      mx = warp_max(mx);
+      mx = warp_max_nan(mx);
       const float m_prev = m_s[g];
-      const float m_cur = fmaxf(m_prev, mx);
+      const float m_cur = max_nan(m_prev, mx);
       float psum = 0.f;
       for (int j = lane; j < n; j += 32) {
         const float sv = s_s[sidx(g, j, n)];

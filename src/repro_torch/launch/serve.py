@@ -10,6 +10,10 @@ requests through the slot engine, optionally with A^3.
       --max-len 2048 --prompt-len 1536
   python -m repro_torch.launch.serve --arch phi4-mini-3.8b \\
       --cache-pages 320 --page-size 64 --kv-quant int8
+  python -m repro_torch.launch.serve --arch phi4-mini-3.8b \\
+      --cache-pages 24 --l2-bytes 4294967296 --checkpoint-dir ckpt
+  python -m repro_torch.launch.serve --arch phi4-mini-3.8b \\
+      --checkpoint-dir ckpt --restore --chaos-rate 0.1 --chaos-seed 3
 
 ``--arch`` takes every arch the port registers (``list_archs``).
 
@@ -29,6 +33,7 @@ from repro_torch import resolve_device
 from repro_torch.config import A3Config, ServeConfig, get_arch, \
     list_archs, smoke_variant
 from repro_torch.models import decoder
+from repro_torch.serve.chaos import ChaosConfig, ChaosInjector
 from repro_torch.serve.engine import ServeEngine
 
 
@@ -61,6 +66,22 @@ def main(argv=None) -> None:
                          "pages (and A^3 sorted-key snapshots) with "
                          "float32 scales, dequantized in the warm gather; "
                          "none = the serving dtype")
+    ap.add_argument("--l2-bytes", type=int, default=0,
+                    help="host-RAM L2 page-store budget in bytes: prefix-"
+                         "cache evictions demote pages (K/V, int8 scales, "
+                         "mixer snapshots, A^3 sorted keys) to checksummed "
+                         "host blobs instead of freeing them, and later "
+                         "lookups promote verified blobs back to the pool; "
+                         "0 = disabled (evictions free)")
+    ap.add_argument("--checkpoint-dir", default="",
+                    help="write a crash-consistent engine checkpoint "
+                         "(slots, queue, device cache, prefix trie and L2 "
+                         "tier) to this directory after the run; empty = "
+                         "no checkpoint")
+    ap.add_argument("--restore", action="store_true",
+                    help="restore the engine from --checkpoint-dir before "
+                         "serving (in-flight requests continue token for "
+                         "token); the directory must hold a checkpoint")
     ap.add_argument("--decode-block", type=int, default=1,
                     help="decode steps per dispatch (the host reads the "
                          "token ring once per block)")
@@ -85,6 +106,13 @@ def main(argv=None) -> None:
                     help="keep at most this many terminal requests' "
                          "status/result (results pop on first read); "
                          "0 = unbounded")
+    ap.add_argument("--chaos-rate", type=float, default=0.0,
+                    help="chaos injection: per-site per-tick fault "
+                         "probability (corrupt a decoding lane, fail a "
+                         "page gather, abort a tick mid-phase); 0 = off")
+    ap.add_argument("--chaos-seed", type=int, default=0,
+                    help="seed of the deterministic chaos schedule (a run "
+                         "is reproducible from (seed, rate))")
     ap.add_argument("--a3", default="off",
                     choices=["off", "conservative", "aggressive"])
     ap.add_argument("--seed", type=int, default=0)
@@ -108,13 +136,27 @@ def main(argv=None) -> None:
                         page_size=args.page_size,
                         cache_pages=args.cache_pages,
                         kv_quant=args.kv_quant,
+                        l2_bytes=args.l2_bytes,
                         max_queue=args.max_queue,
                         shed_policy=args.shed_policy,
                         deadline_ticks=args.deadline_ticks or None,
                         retain_results=args.retain_results)
+    chaos = None
+    if args.chaos_rate > 0.0:
+        chaos = ChaosInjector(ChaosConfig(seed=args.chaos_seed,
+                                          rate=args.chaos_rate))
     gen = torch.Generator(device=device).manual_seed(args.seed)
     model = decoder.init_params(cfg, gen, device)
-    engine = ServeEngine.from_config(model, cfg, serve, a3=a3)
+    if args.restore:
+        if not args.checkpoint_dir:
+            ap.error("--restore requires --checkpoint-dir")
+        engine = ServeEngine.restore(args.checkpoint_dir, model, cfg, a3=a3,
+                                     chaos=chaos)
+        print(f"restored engine from {args.checkpoint_dir} "
+              f"(in_flight={engine.in_flight})")
+    else:
+        engine = ServeEngine.from_config(model, cfg, serve, a3=a3,
+                                         chaos=chaos)
 
     rng = np.random.default_rng(args.seed)
     uids = [engine.submit(
@@ -134,6 +176,12 @@ def main(argv=None) -> None:
     print(f"arch={cfg.name} a3={args.a3} requests={done}/{len(uids)} "
           f"new_tokens={total_new} ({total_new / dt:.1f} tok/s, "
           f"{dt:.1f}s) statuses={dict(by_status)} stats={engine.stats}")
+    if chaos is not None:
+        print(f"chaos: seed={args.chaos_seed} rate={args.chaos_rate} "
+              f"events={chaos.events} victims={sorted(chaos.injected_uids)}")
+    if args.checkpoint_dir:
+        engine.checkpoint(args.checkpoint_dir)
+        print(f"checkpointed engine to {args.checkpoint_dir}")
 
 
 if __name__ == "__main__":

@@ -615,13 +615,30 @@ def _carry_restore(state: Dict[str, torch.Tensor],
         v[:, si] = snap[k][:, 0]
 
 
+def _snapshot_dump(snap: Dict[str, torch.Tensor]
+                   ) -> Dict[str, torch.Tensor]:
+    """A boundary snapshot on the host, for the L2 page store and the
+    engine checkpoint: every leaf copied to the CPU with its dtype and
+    bits, so a promoted or restored carry replays the same tokens."""
+    return {k: v.detach().to("cpu", copy=True) for k, v in snap.items()}
+
+
+def _snapshot_load(host: Dict[str, torch.Tensor], device
+                   ) -> Dict[str, torch.Tensor]:
+    """A dumped snapshot back on ``device`` (L2 promotion, checkpoint
+    restore); leaves already there are kept as they are."""
+    return {k: v.to(device) for k, v in host.items()}
+
+
 @dataclasses.dataclass(frozen=True)
 class SegmentMixer:
     """The per-kind mixer-state interface (see module docstring), and
     the paged prefix cache's hooks (``repro_torch.serve.prefix_cache``):
     ``init_pages`` (the kind's pool leaves, or None), ``write_page`` and
     ``gather_pages`` (attention's ring rows to and from pool pages),
-    ``snapshot_state``/``restore_state`` (a lane's boundary state)."""
+    ``snapshot_state``/``restore_state`` (a lane's boundary state), and
+    the durable-state pair ``dump_snapshot``/``load_snapshot`` (a
+    snapshot to host tensors and back, for ``serve.page_store``)."""
     init_state: Callable[..., Dict[str, torch.Tensor]]
     forward: Callable[..., torch.Tensor]
     prefill_full: Callable[..., Tuple[torch.Tensor,
@@ -633,6 +650,8 @@ class SegmentMixer:
     gather_pages: Optional[Callable[..., None]] = None
     snapshot_state: Callable[..., Dict[str, torch.Tensor]] = _carry_snapshot
     restore_state: Callable[..., None] = _carry_restore
+    dump_snapshot: Callable[..., Dict[str, torch.Tensor]] = _snapshot_dump
+    load_snapshot: Callable[..., Dict[str, torch.Tensor]] = _snapshot_load
 
 
 MIXERS: Dict[BlockKind, SegmentMixer] = {

@@ -1,6 +1,7 @@
 """Serving engine of the port: ``repro.serve.engine.ServeEngine`` in
-PyTorch, with the device tier of its paged prefix cache, without its L2
-tier, checkpoints, chaos and telemetry.
+PyTorch, with its paged prefix cache and host-RAM L2 page tier, its
+crash-consistent checkpoint and restore and its deterministic chaos
+injection; without its telemetry.
 
 Slot-based continuous batching with the reference's tick loop::
 
@@ -53,7 +54,9 @@ Slot-based continuous batching with the reference's tick loop::
   the final one the A^3 leaf snapshot. ``prefix_hits``,
   ``prefix_tokens_reused``, ``gather_dispatches``, ``pages_recorded``
   and ``pages_evicted`` count it; ``kv_quant="int8"`` keeps the pool in
-  int8.
+  int8. With ``l2_bytes > 0`` evicted pages are demoted to checksummed
+  host blobs and promoted back by a later lookup (``l2_spills``,
+  ``l2_hits``, ``l2_evictions``, ``l2_integrity_drops``).
 * **Packed control.** All per-tick lane scalars ride one int32
   ``[slots, CTRL_COLS]`` upload that both dispatches slice.
 * **A^3 re-sort.** Due lanes re-sort their key columns inside the
@@ -78,12 +81,39 @@ full under ``max_queue``/``shed_policy``, or draining), CANCELLED
 
 ``retain_results`` > 0 bounds the status/result maps and pops a result
 on its first read.
+
+Durability: ``checkpoint(path)`` lands every harvest in flight, resolves
+any handoff token, and writes the whole serving state (slots, queue,
+statuses, results, stats, the device cache, the trie, pool and L2 blobs)
+into ``path + ".tmp"`` (``state.json`` behind its crc32 line,
+``arrays.bin`` and ``l2.bin`` as ``serve.page_store`` blobs), then
+commits it with one rename (an interrupted commit leaves ``path +
+".old"``, which ``restore`` falls back to). ``ServeEngine.restore``
+copies the arrays into a fresh engine's cache and pool on its device,
+rebuilds the token carry cold and re-pins the recording anchors; ticking
+it on yields the uninterrupted run's tokens. A torn or mismatched
+checkpoint raises ``CheckpointError``.
+
+Chaos (``serve.chaos``): with a ``ChaosInjector`` the engine consults it
+at the tick phases ``tick_start`` (virtual delay, spill), ``pre_prefill``
+and ``pre_advance`` (abort, crash), corrupts one decoding lane before the
+decode dispatch (the lane emits POISON and FAILS), fails warm gathers at
+admission (the request FAILS, the next one takes the slot) and corrupts
+L2 blobs before their restore. ``run_to_completion`` absorbs an aborted
+tick (``chaos_aborted_ticks``) and lets ``EngineCrash`` through; a tick
+aborted between the prefill dispatch and the decode harvest leaves
+handoff tokens that the next prefilling tick flushes with one direct
+read (``_flush_stale_handoff``).
 """
 from __future__ import annotations
 
 import collections
 import dataclasses
+import json
+import os
+import shutil
 import time
+import zlib
 from typing import Any, Deque, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -92,6 +122,10 @@ import torch
 from repro_torch.config import KV_QUANTS, SHED_POLICIES, A3Config, \
     A3Mode, ModelConfig, ServeConfig
 from repro_torch.models import decoder, sampling
+from repro_torch.serve.chaos import ChaosError, ChaosInjector, EngineCrash, \
+    corrupt_cache_lane
+from repro_torch.serve.page_store import CheckpointError, IntegrityError, \
+    copy_into, deserialize_tree, serialize_tree
 from repro_torch.serve.prefix_cache import PrefixCache
 
 # packed control-word layout (the reference's CTRL_* columns)
@@ -230,12 +264,13 @@ class ServeEngine:
                  decode_block: int = 1, temperature: float = 0.0,
                  sample_seed: int = 0, page_size: int = 64,
                  cache_pages: int = 0, kv_quant: str = "none",
-                 max_queue: int = 0,
+                 l2_bytes: int = 0, max_queue: int = 0,
                  shed_policy: str = "reject-new",
                  deadline_ticks: Optional[int] = None,
                  pipeline_depth: int = 0,
                  virtual_device_latency_s: float = 0.0,
-                 retain_results: int = 0):
+                 retain_results: int = 0,
+                 chaos: Optional[ChaosInjector] = None):
         if cfg.frontend:
             # token prompts only, as the reference engine: frontend archs
             # (audio / vision) serve from precomputed embeddings
@@ -252,6 +287,8 @@ class ServeEngine:
         self._use_a3 = a3.mode != A3Mode.OFF
         # clamped to >= 1 as in the reference (0 meant "every step")
         self.resort_every = max(1, int(resort_every))
+        self.prefill_chunk = (int(prefill_chunk)
+                              if prefill_chunk is not None else None)
         self._chunk = (int(prefill_chunk) if prefill_chunk is not None
                        else min(int(max_len), _DEFAULT_ADMIT_CHUNK))
         if prefill_chunk_min is not None:
@@ -274,6 +311,9 @@ class ServeEngine:
         if kv_quant not in KV_QUANTS:
             raise ValueError(f"kv_quant must be 'none' or 'int8', got "
                              f"{kv_quant!r}")
+        if int(l2_bytes) < 0:
+            raise ValueError(f"l2_bytes must be >= 0, got {l2_bytes} "
+                             f"(0 disables the host-RAM L2 tier)")
         if int(max_queue) < 0:
             raise ValueError(f"max_queue must be >= 0, got {max_queue} "
                              f"(0 = unbounded queue)")
@@ -298,6 +338,8 @@ class ServeEngine:
         self.page_size = int(page_size)
         self.cache_pages = int(cache_pages)
         self.kv_quant = kv_quant
+        self.l2_bytes = int(l2_bytes)
+        self._chaos = chaos
         self.max_queue = int(max_queue)
         self.shed_policy = shed_policy
         self.deadline_ticks = (int(deadline_ticks)
@@ -340,7 +382,11 @@ class ServeEngine:
                       "adaptive_shrink_ticks": 0,
                       "submitted": 0, "finished": 0, "rejected": 0,
                       "cancelled": 0, "expired": 0, "failed": 0,
-                      "max_ticks_exhausted": 0,
+                      "chaos_aborted_ticks": 0, "max_ticks_exhausted": 0,
+                      "chaos_delayed_ticks": 0,
+                      "l2_spills": 0, "l2_hits": 0, "l2_evictions": 0,
+                      "l2_integrity_drops": 0, "checkpoints": 0,
+                      "restores": 0,
                       "tick_ns_prefill": 0, "tick_ns_decode": 0,
                       "tick_ns_harvest": 0, "tick_ns_host": 0,
                       "host_sync_stalls": 0}
@@ -351,12 +397,20 @@ class ServeEngine:
                                    page_size=self.page_size,
                                    cache_pages=self.cache_pages,
                                    a3=self._use_a3, kv_quant=kv_quant,
+                                   l2_bytes=self.l2_bytes,
                                    stats=self.stats, device=self.device)
+            if self._pc.l2 is not None and chaos is not None:
+                # the restore_corrupt site: flip a blob byte right before
+                # its verified restore (the checksum must catch it)
+                self._pc.l2_fault_hook = (
+                    lambda key: self._chaos.l2_restore_corrupt(
+                        self.stats["ticks"], key))
 
     @classmethod
     def from_config(cls, model: decoder.Decoder, cfg: ModelConfig,
-                    serve: ServeConfig,
-                    a3: A3Config = A3Config()) -> "ServeEngine":
+                    serve: ServeConfig, a3: A3Config = A3Config(),
+                    chaos: Optional[ChaosInjector] = None
+                    ) -> "ServeEngine":
         return cls(model, cfg, slots=serve.slots, max_len=serve.max_len,
                    a3=a3, resort_every=serve.resort_every,
                    prefill_chunk=serve.prefill_chunk,
@@ -366,10 +420,11 @@ class ServeEngine:
                    sample_seed=serve.sample_seed,
                    page_size=serve.page_size,
                    cache_pages=serve.cache_pages, kv_quant=serve.kv_quant,
-                   max_queue=serve.max_queue, shed_policy=serve.shed_policy,
+                   l2_bytes=serve.l2_bytes, max_queue=serve.max_queue,
+                   shed_policy=serve.shed_policy,
                    deadline_ticks=serve.deadline_ticks,
                    pipeline_depth=serve.pipeline_depth,
-                   retain_results=serve.retain_results)
+                   retain_results=serve.retain_results, chaos=chaos)
 
     # -- public API ---------------------------------------------------------
     def submit(self, prompt: np.ndarray, max_new_tokens: int = 32,
@@ -469,12 +524,34 @@ class ServeEngine:
     def step(self):
         """One tick: expire -> admit -> plan + pack -> chunked prefill ->
         blocked decode -> harvest of the blocks beyond
-        ``pipeline_depth``."""
+        ``pipeline_depth``. With a chaos injector the tick may stall,
+        spill, corrupt a lane, or abort with ``ChaosError`` at a phase
+        boundary; every phase leaves the engine consistent, so the next
+        tick resumes."""
         self.stats["ticks"] += 1
+        tick = self.stats["ticks"]
         t0 = time.monotonic_ns()
         h0 = self.stats["tick_ns_harvest"]
+        ch = self._chaos
+        if ch is not None:
+            ch.phase(tick, "tick_start")
+            if ch.consume_delay():
+                # a virtual stall: the tick does no work (deadlines still
+                # elapse)
+                self.stats["chaos_delayed_ticks"] += 1
+                self.stats["tick_ns_host"] += time.monotonic_ns() - t0
+                return
+            spill = ch.pick_spill(tick)
+            if spill and self._pc is not None:
+                self._pc.spill(spill)
         self._expire_tick()
         self._admit()
+        if ch is not None:
+            ch.phase(tick, "pre_prefill")
+        if any(s.phase == PREFILLING for s in self.slots):
+            # an aborted tick can leave handoff tokens unharvested: read
+            # them before the prefill dispatch overwrites ``_first_tok``
+            self._flush_stale_handoff()
         ctrl = np.zeros((len(self.slots), CTRL_COLS), np.int32)
         ctrl[:, CTRL_D_POS] = -1
         plan_p = self._plan_prefill(ctrl)
@@ -484,6 +561,9 @@ class ServeEngine:
         tp = time.monotonic_ns()
         self._prefill_tick(plan_p, ctrl_dev)
         p_ns = time.monotonic_ns() - tp
+        if ch is not None:
+            ch.phase(tick, "pre_advance")
+        self._corrupt_tick()
         hd = self.stats["tick_ns_harvest"]
         td = time.monotonic_ns()
         self._advance(plan_d, ctrl_dev)
@@ -496,11 +576,20 @@ class ServeEngine:
             - (self.stats["tick_ns_harvest"] - h0))
 
     def run_to_completion(self, max_ticks: int = 10_000):
-        """Tick until no work remains; raises RuntimeError (and counts
-        ``max_ticks_exhausted``) if ``max_ticks`` leave work in flight."""
+        """Tick until no work remains. An injected tick abort
+        (``ChaosError``) is absorbed and counted in
+        ``chaos_aborted_ticks``; ``EngineCrash`` propagates. Raises
+        RuntimeError (and counts ``max_ticks_exhausted``) if ``max_ticks``
+        leave work in flight."""
         ticks = 0
         while self.in_flight and ticks < max_ticks:
-            self.step()
+            try:
+                self.step()
+            except EngineCrash:
+                # injected process death: recovery is restore()
+                raise
+            except ChaosError:
+                self.stats["chaos_aborted_ticks"] += 1
             ticks += 1
         if self.in_flight:
             self.stats["max_ticks_exhausted"] += 1
@@ -511,6 +600,203 @@ class ServeEngine:
                 f"with {self.in_flight} requests still in flight "
                 f"(queued uids {queued}, on-slot uids {on_slot}) — "
                 f"raise max_ticks or investigate a stalled lane")
+
+    # -- crash-consistent checkpoint / restore --------------------------------
+    def _ckpt_kwargs(self) -> Dict[str, Any]:
+        """The JSON-serializable constructor arguments a restore rebuilds
+        the engine from (the model, its config, A^3 and chaos come from
+        the caller; the config's name and the A^3 mode are checked)."""
+        return {"slots": len(self.slots), "max_len": self.max_len,
+                "resort_every": self.resort_every,
+                "prefill_chunk": self.prefill_chunk,
+                "prefill_chunk_min": self._chunk_min,
+                "decode_block": self.decode_block,
+                "temperature": self.temperature,
+                "sample_seed": self.sample_seed,
+                "page_size": self.page_size,
+                "cache_pages": self.cache_pages,
+                "kv_quant": self.kv_quant,
+                "l2_bytes": self.l2_bytes,
+                "max_queue": self.max_queue,
+                "shed_policy": self.shed_policy,
+                "deadline_ticks": self.deadline_ticks,
+                "pipeline_depth": self.pipeline_depth,
+                "virtual_device_latency_s": self.virtual_device_latency_s,
+                "retain_results": self.retain_results}
+
+    def checkpoint(self, path: str) -> None:
+        """Snapshot the whole serving state into directory ``path`` with
+        an atomic rename commit: slots (prefill cursors, generated
+        tokens, budgets), queue, statuses and results, the sampling seed
+        (the key is never mutated), stats, the device cache, and the
+        prefix trie, pool and L2 blobs. Everything goes into ``path +
+        ".tmp"`` first; one ``os.rename`` commits it (an interrupted
+        commit leaves ``path + ".old"``, which :meth:`restore` falls back
+        to). ``state.json`` carries a crc32 and the arrays are one
+        checksummed blob, so a torn checkpoint fails restore loudly."""
+        # the snapshot must be host-consistent at a tick boundary: land
+        # every harvest in flight and resolve any handoff token
+        self._drain_harvests()
+        self._flush_stale_handoff()
+        self._finish_done_slots()
+        slots_meta = []
+        for s in self.slots:
+            rec = None
+            if s.rec_node is not None and self._pc is not None:
+                rec = [int(x) for x in self._pc._path_of(s.rec_node)]
+            slots_meta.append({
+                "uid": s.uid, "pos": s.pos,
+                "generated": [int(x) for x in s.generated],
+                "budget": s.budget, "phase": s.phase,
+                "prompt": (None if s.prompt is None
+                           else [int(x) for x in s.prompt]),
+                "cursor": s.cursor, "sorted_upto": s.sorted_upto,
+                "rec": rec, "has_rec": s.rec_node is not None,
+                "deadline": s.deadline})
+        state: Dict[str, Any] = {
+            "version": 1, "cfg_name": self.cfg.name,
+            "a3_mode": self.a3.mode.value,
+            "engine": self._ckpt_kwargs(),
+            "uid": self._uid, "draining": self._draining,
+            "stats": dict(self.stats),
+            "status": {str(k): v for k, v in self._status.items()},
+            "done": {str(k): [int(t) for t in v]
+                     for k, v in self._done.items()},
+            "queue": [{"uid": r.uid,
+                       "prompt": [int(x) for x in r.prompt],
+                       "max_new": r.max_new_tokens,
+                       "deadline": r.deadline} for r in self._queue],
+            "slots": slots_meta}
+        arrays: Dict[str, Any] = {"cache": self.cache}
+        l2_blobs: List[bytes] = []
+        if self._pc is not None:
+            pc_meta, pc_arrays = self._pc.dump_state()
+            state["pc"] = pc_meta
+            arrays["pc"] = pc_arrays
+            if self._pc.l2 is not None:
+                index, off = [], 0
+                for key, blob in self._pc.l2.raw_items():
+                    index.append({"key": list(key), "off": off,
+                                  "len": len(blob)})
+                    l2_blobs.append(blob)
+                    off += len(blob)
+                state["l2_index"] = index
+        tmp = path + ".tmp"
+        shutil.rmtree(tmp, ignore_errors=True)
+        os.makedirs(tmp)
+        payload = json.dumps(state, sort_keys=True).encode()
+        with open(os.path.join(tmp, "state.json"), "wb") as f:
+            f.write(b"%d\n" % zlib.crc32(payload) + payload)
+        with open(os.path.join(tmp, "arrays.bin"), "wb") as f:
+            f.write(serialize_tree(arrays))
+        with open(os.path.join(tmp, "l2.bin"), "wb") as f:
+            f.write(b"".join(l2_blobs))
+        # the atomic commit: the rename below is the durability point
+        old = path + ".old"
+        shutil.rmtree(old, ignore_errors=True)
+        if os.path.isdir(path):
+            os.rename(path, old)
+        os.rename(tmp, path)
+        shutil.rmtree(old, ignore_errors=True)
+        self.stats["checkpoints"] += 1
+
+    @classmethod
+    def restore(cls, path: str, model: decoder.Decoder, cfg: ModelConfig,
+                a3: A3Config = A3Config(),
+                chaos: Optional[ChaosInjector] = None) -> "ServeEngine":
+        """Rebuild an engine from a :meth:`checkpoint` directory on the
+        model's device and resume where it left off: ticking it on yields
+        the uninterrupted run's tokens for every queued, prefilling and
+        decoding request. The caller supplies what a checkpoint does not
+        own (the model, its config, the A^3 config, optionally a fresh
+        chaos injector); the saved config name and A^3 mode are checked
+        against them. Raises :class:`CheckpointError` on any
+        verification failure."""
+        if not os.path.isdir(path) and os.path.isdir(path + ".old"):
+            # a crash between the commit's renames leaves only .old: the
+            # previous complete checkpoint is still durable
+            path = path + ".old"
+        try:
+            with open(os.path.join(path, "state.json"), "rb") as f:
+                raw = f.read()
+            crc_s, payload = raw.split(b"\n", 1)
+            if zlib.crc32(payload) != int(crc_s):
+                raise CheckpointError(
+                    f"{path}: state.json checksum mismatch")
+            state = json.loads(payload.decode())
+            with open(os.path.join(path, "arrays.bin"), "rb") as f:
+                arrays = deserialize_tree(f.read())
+            with open(os.path.join(path, "l2.bin"), "rb") as f:
+                l2_raw = f.read()
+        except CheckpointError:
+            raise
+        except (OSError, ValueError, IntegrityError) as e:
+            raise CheckpointError(
+                f"unreadable checkpoint {path}: {e}") from None
+        if state.get("version") != 1:
+            raise CheckpointError(f"unsupported checkpoint version "
+                                  f"{state.get('version')!r}")
+        if state["cfg_name"] != cfg.name:
+            raise CheckpointError(
+                f"checkpoint was taken with model {state['cfg_name']!r}; "
+                f"restoring with {cfg.name!r}")
+        if state["a3_mode"] != a3.mode.value:
+            raise CheckpointError(
+                f"checkpoint A^3 mode {state['a3_mode']!r} does not match "
+                f"{a3.mode.value!r}")
+        eng = cls(model, cfg, a3=a3, chaos=chaos, **state["engine"])
+        # stats is shared with the prefix cache: update in place
+        eng.stats.update({k: int(v) for k, v in state["stats"].items()})
+        eng._uid = int(state["uid"])
+        eng._draining = bool(state["draining"])
+        eng._status = {int(k): v for k, v in state["status"].items()}
+        eng._done = {int(k): [int(t) for t in v]
+                     for k, v in state["done"].items()}
+        eng._queue = collections.deque(
+            Request(int(q["uid"]), np.asarray(q["prompt"], np.int32),
+                    int(q["max_new"]),
+                    None if q["deadline"] is None else int(q["deadline"]))
+            for q in state["queue"])
+        copy_into(eng.cache, arrays.get("cache", {}), "cache")
+        if eng._pc is not None and "pc" in state:
+            eng._pc.load_state(state["pc"], arrays.get("pc", {}))
+            if eng._pc.l2 is not None:
+                for entry in state.get("l2_index", []):
+                    off, n = int(entry["off"]), int(entry["len"])
+                    eng._pc.l2.put_raw(tuple(int(x) for x in entry["key"]),
+                                       l2_raw[off:off + n])
+        for si, sm in enumerate(state["slots"]):
+            # every harvest landed at checkpoint time, so the dispatch
+            # watermark is the harvested one and nothing is pending; the
+            # token carry is rebuilt cold from ``generated``
+            s = SlotState(
+                uid=int(sm["uid"]), pos=int(sm["pos"]),
+                generated=[int(x) for x in sm["generated"]],
+                budget=int(sm["budget"]), phase=sm["phase"],
+                prompt=(None if sm["prompt"] is None
+                        else np.asarray(sm["prompt"], np.int32)),
+                cursor=int(sm["cursor"]),
+                sorted_upto=int(sm["sorted_upto"]),
+                planned_upto=int(sm["sorted_upto"]),
+                deadline=(None if sm["deadline"] is None
+                          else int(sm["deadline"])))
+            if sm["has_rec"] and eng._pc is not None:
+                # re-pin the recording anchor from its token path (refs
+                # are not saved: they come back from the slots holding
+                # them)
+                node: Any = eng._pc.root
+                toks = [int(x) for x in sm["rec"]]
+                ps = eng.page_size
+                for b in range(0, len(toks), ps):
+                    node = node.children.get(tuple(toks[b:b + ps]))
+                    if node is None:
+                        break
+                if node is not None:
+                    s.rec_node = node
+                    eng._pc.ref(node)
+            eng.slots[si] = s
+        eng.stats["restores"] += 1
+        return eng
 
     # -- internals ------------------------------------------------------------
     def _upload(self, arr: np.ndarray) -> torch.Tensor:
@@ -558,23 +844,50 @@ class ServeEngine:
             if s.active and s.deadline is not None and now > s.deadline:
                 self._release_slot(si, EXPIRED)
 
+    def _corrupt_tick(self):
+        """Chaos site: NaN one decoding lane's mixer state (the victim
+        drawn by the injector); the lane's next logits go non-finite and
+        the decode block emits POISON on the harvest."""
+        if self._chaos is None:
+            return
+        decoding = {s.uid: si for si, s in enumerate(self.slots)
+                    if s.decoding}
+        if not decoding:
+            return
+        victim = self._chaos.pick_corrupt_victim(self.stats["ticks"],
+                                                 sorted(decoding))
+        if victim is not None:
+            corrupt_cache_lane(self.cache, decoding[victim])
+
     def _admit(self):
         """Queued requests claim free slots. With the prefix cache each
-        one walks the trie and pins its matched node (a later eviction in
-        this tick cannot take it); then one ``gather_into`` restores
-        every slot with a hit, and its cursor and both A^3 watermarks
-        start at the matched length. A miss (or no cache) starts at 0:
-        the first chunk resets the lane's state on the device."""
+        one walks the trie (promoting demoted pages from L2) and pins its
+        matched node (a later eviction in this tick cannot take it); then
+        one ``gather_into`` restores every slot with a hit, and its
+        cursor and both A^3 watermarks start at the matched length. A
+        miss (or no cache) starts at 0: the first chunk resets the lane's
+        state on the device. A warm request whose gather the chaos
+        injector fails ends FAILED before any copy, and the next queued
+        request takes the slot."""
         assigned: List[Tuple[int, Request, int, Any]] = []
         for si, slot in enumerate(self.slots):
-            if slot.active or not self._queue:
+            if slot.active:
                 continue
-            req = self._queue.popleft()
-            t, node = 0, None
-            if self._pc is not None:
-                t, node = self._pc.lookup(req.prompt)
-                self._pc.ref(node)          # the recording anchor's pin
-            assigned.append((si, req, t, node))
+            while self._queue:
+                req = self._queue.popleft()
+                t, node = 0, None
+                if self._pc is not None:
+                    t, node = self._pc.lookup(req.prompt)
+                    if t > 0 and self._chaos is not None:
+                        try:
+                            self._chaos.gather_fail(self.stats["ticks"],
+                                                    req.uid, t)
+                        except ChaosError:
+                            self._terminal(req.uid, FAILED)
+                            continue
+                    self._pc.ref(node)      # the recording anchor's pin
+                assigned.append((si, req, t, node))
+                break
         warm = [(si, t, node) for si, _, t, node in assigned if t > 0]
         if warm:
             self._pc.gather_into(self.cache, warm)
@@ -732,6 +1045,19 @@ class ServeEngine:
         for si, u in upto.items():
             self.slots[si].planned_upto = u
         return due_at
+
+    def _flush_stale_handoff(self):
+        """Resolve handoff tokens left over by a tick aborted between the
+        prefill dispatch and the decode harvest, with one direct read
+        (in normal operation the same tick's decode consumes them and
+        this does nothing). Harvests in flight land first."""
+        if not self._handoff:
+            return
+        self._drain_harvests()
+        handoff, self._handoff = self._handoff, set()
+        self._read_first_tokens(handoff)
+        self._first_tok = None
+        self._finish_done_slots()
 
     def _read_first_tokens(self, handoff) -> None:
         """Direct read of handoff first tokens (no decode block rides)."""

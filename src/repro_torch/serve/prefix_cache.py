@@ -37,8 +37,21 @@ nodes own immutable pages plus the mixer state at their boundary::
 * **Eviction** is LRU over childless, unreferenced nodes under the
   ``cache_pages`` budget; a leaf's sorted-key snapshot is charged in
   pages and freed with it. Nodes pinned by an admission or a recording
-  slot are never evicted. Evicted pages are freed (the reference's
-  behaviour without its host-RAM tier).
+  slot are never evicted.
+* **Host-RAM L2 tier** (``l2_bytes > 0``): eviction *demotes* instead of
+  only freeing. The node's pool page (K/V rows, int8 scales), recurrent
+  carry snapshot and A^3 sorted-key leaf snapshot become one checksummed
+  blob in a :class:`~repro_torch.serve.page_store.PageStore`, read from
+  the card in one blocking device-to-host copy per node
+  (``demote_reads``, ``demote_read_ns``). ``lookup`` extends a stalled
+  trie walk through L2: each continuing page found there is *promoted*
+  back (blob verified, a device page allocated, which may itself demote
+  an LRU victim, the arrays staged through the pinned double buffer of
+  :class:`~repro_torch.serve.page_store.Stager` and inserted into the
+  pool, the trie node re-created), with no synchronizing call. A
+  checksum mismatch or a malformed payload drops that node only back to
+  cold prefill (``stats["l2_integrity_drops"]``); a device or runtime
+  error propagates.
 * **int8 pools** (``kv_quant="int8"``) store pages as int8 with one
   float32 scale per (layer, page, kv head) and sorted-key snapshots with
   one per sorted column; the gather dequantizes to the ring's dtype.
@@ -47,14 +60,18 @@ Every snapshot and pool write is a copy: a view of the live cache would
 change as the slot goes on prefilling or decoding. The trie and the heap
 are host Python; the index arrays of each copy are uploaded as the
 engine uploads its control words (pinned memory, ``non_blocking``), so
-``gather_into``, ``record_boundary`` and ``record_final`` make no
-synchronizing CUDA call.
+``gather_into``, ``record_boundary``, ``record_final`` and a promotion's
+staging and insert make no synchronizing CUDA call.
+
+``dump_state`` / ``load_state`` carry the trie, the pool and the
+snapshots through the engine checkpoint.
 """
 from __future__ import annotations
 
 import collections
 import heapq
 import itertools
+import time
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -66,9 +83,12 @@ from repro_torch.core.quantization import quantize_int8_block
 from repro_torch.models import decoder
 from repro_torch.models.mixer import FULL_WINDOW, MIXERS, build_segments, \
     cache_len_for
+from repro_torch.serve.page_store import IntegrityError, PageStore, Stager, \
+    copy_into
 
 STAT_KEYS = ("prefix_hits", "prefix_tokens_reused", "gather_dispatches",
-             "pages_recorded", "pages_evicted")
+             "pages_recorded", "pages_evicted", "l2_spills", "l2_hits",
+             "l2_evictions", "l2_integrity_drops")
 
 
 def gather_fn(segs, a3: bool, cache, pool, si: int, t: int, idx, snaps,
@@ -94,6 +114,42 @@ def gather_many_fn(segs, a3: bool, cache, pool, packed) -> None:
     for e in packed:
         gather_fn(segs, a3, cache, pool, e["si"], e["t"], e["idx"],
                   e["snaps"], e["sk"])
+
+
+def _host_tree(tree):
+    """Every tensor of a nested dict on the card -> the same dict on the
+    host, read in ONE device-to-host copy (the leaves are packed into one
+    byte buffer first). CPU trees come back as they are."""
+    flat: List[torch.Tensor] = []
+
+    def index(x):
+        if isinstance(x, dict):
+            return {k: index(v) for k, v in x.items()}
+        flat.append(x)
+        return len(flat) - 1
+
+    where = index(tree)
+    if not flat or not flat[0].is_cuda:
+        return tree
+    raw = [t.contiguous().reshape(-1).view(torch.uint8) for t in flat]
+    host = torch.cat(raw).cpu()
+    parts, off = [], 0
+    for t, r in zip(flat, raw):
+        n = r.numel()
+        parts.append(host[off:off + n].clone().view(t.dtype).reshape(t.shape))
+        off += n
+
+    def build(x):
+        return ({k: build(v) for k, v in x.items()} if isinstance(x, dict)
+                else parts[x])
+    return build(where)
+
+
+def _flag(x) -> bool:
+    """A payload's one-element flag (``meta/snap_valid``) -> bool."""
+    if not isinstance(x, torch.Tensor) or x.numel() != 1:
+        raise ValueError(f"malformed L2 flag {x!r}")
+    return bool(int(x.reshape(-1)[0]))
 
 
 class _TrieNode:
@@ -133,11 +189,12 @@ class PrefixCache:
     against any ``decoder.init_cache`` dict on ``device``. ``stats`` may
     be the engine's dict: the cache counts ``prefix_hits``,
     ``prefix_tokens_reused``, ``gather_dispatches``, ``pages_recorded``
-    and ``pages_evicted`` in it."""
+    and ``pages_evicted`` in it, and with the L2 tier ``l2_spills``,
+    ``l2_hits``, ``l2_evictions`` and ``l2_integrity_drops``."""
 
     def __init__(self, cfg: ModelConfig, *, max_len: int, page_size: int,
                  cache_pages: int, a3: bool = False, dtype=None,
-                 kv_quant: str = "none",
+                 kv_quant: str = "none", l2_bytes: int = 0,
                  stats: Optional[Dict[str, int]] = None, device="cuda"):
         if page_size < 1:
             raise ValueError(f"page_size must be >= 1, got {page_size}")
@@ -191,6 +248,21 @@ class PrefixCache:
         self.stats = stats if stats is not None else {}
         for k in STAT_KEYS:
             self.stats.setdefault(k, 0)
+        # host-RAM L2 tier: eviction demotes checksummed blobs here
+        # instead of only freeing (0 = free on evict)
+        if int(l2_bytes) < 0:
+            raise ValueError(f"l2_bytes must be >= 0, got {l2_bytes} "
+                             f"(0 disables the L2 tier)")
+        self.l2: Optional[PageStore] = (
+            PageStore(int(l2_bytes), stats=self.stats)
+            if int(l2_bytes) > 0 else None)
+        self._stager = Stager(self.device)
+        # chaos hook: called with the blob key before each L2 restore;
+        # True corrupts the blob first (the restore_corrupt site)
+        self.l2_fault_hook: Optional[Any] = None
+        # the demotions' blocking device-to-host reads: count and wall ns
+        self.demote_reads = 0
+        self.demote_read_ns = 0
 
     # -- device copies -------------------------------------------------------
     def _upload(self, arr: np.ndarray) -> torch.Tensor:
@@ -279,6 +351,20 @@ class PrefixCache:
             self._touch(node)
             if node.snap_valid or self._page_terminals:
                 best_t, best_node = t, node
+        if self.l2 is not None:
+            # the walk stalled: its demoted continuation, if any, is in
+            # L2. Promote page by page until a miss, an integrity drop or
+            # an unallocatable page ends the match (eviction only demotes
+            # childless nodes, so a chain that left L1 never re-enters it)
+            while t + ps < len(prompt):
+                edge = tuple(int(x) for x in prompt[t:t + ps])
+                child = self._promote(node, edge)
+                if child is None:
+                    break
+                node = child
+                t += ps
+                if node.snap_valid or self._page_terminals:
+                    best_t, best_node = t, node
         return best_t, best_node
 
     def ref(self, node: Optional[_TrieNode]) -> None:
@@ -317,6 +403,8 @@ class PrefixCache:
         return None
 
     def _evict(self, node: _TrieNode) -> None:
+        if self.l2 is not None:
+            self._demote(node)          # spill, don't lose
         node.parent.children.pop(node.tokens, None)
         self._nodes.discard(node)
         self._free.append(node.page_id)
@@ -329,15 +417,168 @@ class PrefixCache:
             self._push(node.parent)     # the parent may now be evictable
         self.stats["pages_evicted"] += 1
 
+    def spill(self, n: int) -> int:
+        """Force-evict up to ``n`` LRU evictable nodes (the chaos
+        ``spill`` site, or memory pressure from outside): demoted to L2
+        when it is on, freed otherwise -> how many were evicted."""
+        done = 0
+        while done < n:
+            victim = None
+            while self._heap:
+                lu, _, node = heapq.heappop(self._heap)
+                if node.page_id < 0 or node.children or node.refs > 0 \
+                        or lu != node.last_used:
+                    continue
+                victim = node
+                break
+            if victim is None:
+                break
+            self._evict(victim)
+            done += 1
+        return done
+
+    # -- L2 tier (host-RAM page store) ----------------------------------------
+    def _seg_kind(self, name: str) -> BlockKind:
+        return self.segs[int(name[3:])].kind
+
+    def _path_of(self, node: _TrieNode) -> Tuple[int, ...]:
+        """Full token path from the root: the node's L2 blob key."""
+        parts: List[Tuple[int, ...]] = []
+        n = node
+        while n is not self.root:
+            parts.append(n.tokens)
+            n = n.parent
+        out: List[int] = []
+        for tk in reversed(parts):
+            out.extend(tk)
+        return tuple(out)
+
+    def _demote(self, node: _TrieNode) -> None:
+        """Serialize an evicted node's durable payload (pool page rows
+        and int8 scales, recurrent carry snapshot, A^3 sorted-key leaf
+        snapshot) into one checksummed L2 blob. It runs only under
+        eviction pressure, off the decode path: the one blocking read of
+        the node from the card is counted and timed."""
+        t0 = time.monotonic_ns()
+        host = _host_tree({
+            "page": {name: {leaf: t[:, node.page_id]
+                            for leaf, t in seg.items()}
+                     for name, seg in self.pool.items()},
+            "snap": node.snap, "sk": node.sk_snap or {}})
+        self.demote_reads += 1
+        self.demote_read_ns += time.monotonic_ns() - t0
+        snap = {name: MIXERS[self._seg_kind(name)].dump_snapshot(s)
+                for name, s in host["snap"].items()}
+        self.l2.put(self._path_of(node),
+                    {"page": host["page"], "snap": snap, "sk": host["sk"],
+                     "meta": {"snap_valid": np.uint8(node.snap_valid)}})
+
+    def _page_payload(self, tree: Dict[str, Any]) -> Dict[str, Any]:
+        """A blob's pool page, each leaf checked against the pool's
+        (ValueError on another shape or dtype)."""
+        page = tree["page"]
+        for name, seg in self.pool.items():
+            for leaf, t in seg.items():
+                h = page[name][leaf]
+                want = (t.shape[0],) + tuple(t.shape[2:])
+                if h.dtype != t.dtype or tuple(h.shape) != want:
+                    raise ValueError(
+                        f"L2 page {name}/{leaf}: {h.dtype} "
+                        f"{tuple(h.shape)}, the pool holds {t.dtype} {want}")
+        return page
+
+    def _insert_page(self, pid: int, page: Dict[str, Any]) -> None:
+        """The promotion's pool insert, in place: one staged page back
+        into logical page ``pid`` of every pool leaf (K/V rows, int8
+        scales)."""
+        for name, seg in self.pool.items():
+            for leaf, t in seg.items():
+                t[:, pid] = page[name][leaf]
+
+    def _promote(self, parent: _TrieNode, edge: Tuple[int, ...]
+                 ) -> Optional[_TrieNode]:
+        """Move one demoted page L2 -> L1: verify the blob, allocate a
+        device page (which may itself demote an LRU victim), stage the
+        host arrays through the pinned double buffer, insert them into
+        the pool and re-create the trie node. None on a miss, or when a
+        checksum mismatch or a malformed payload (``IntegrityError``,
+        ``KeyError``, ``ValueError`` from the tree) drops this node, and
+        only it, back to cold prefill (``stats["l2_integrity_drops"]``).
+        A device or runtime error propagates."""
+        ps = self.page_size
+        key = self._path_of(parent) + edge
+        if self.l2_fault_hook is not None and self.l2_fault_hook(key):
+            self.l2.corrupt(key)        # chaos restore_corrupt site
+        tree = self.l2.get(key)         # verified; None on a miss or rot
+        if tree is None:
+            return None
+        # pin the attach point: the allocation's eviction must not demote
+        # the very node being extended
+        self.ref(parent)
+        pid = None
+        try:
+            pid = self._alloc_page()
+            if pid is None:
+                return None     # the budget is all pinned; the blob stays
+            snap_valid = _flag(tree["meta"]["snap_valid"])
+            staged = self._stager.stage({
+                "page": self._page_payload(tree) if self.pool else {},
+                "snap": tree.get("snap", {}) if self._has_rec else {},
+                "sk": tree.get("sk", {}) if self._sk_widths else {}})
+            if self.pool:
+                self._insert_page(pid, staged["page"])
+            snap = {name: MIXERS[self._seg_kind(name)].load_snapshot(
+                        h, self.device)
+                    for name, h in staged["snap"].items()}
+        except (IntegrityError, KeyError, ValueError):
+            # a malformed payload: degrade this node only
+            if pid is not None:
+                self._free.append(pid)
+            self.l2.discard(key)
+            self.stats["l2_integrity_drops"] += 1
+            return None
+        finally:
+            self.unref(parent)
+        self.l2.pop(key)        # a page lives in exactly one tier
+        child = _TrieNode(parent, edge, parent.end + ps)
+        child.page_id = pid
+        child.snap = snap
+        child.snap_valid = snap_valid
+        parent.children[edge] = child
+        self._nodes.add(child)
+        self._touch(child)
+        if staged["sk"]:
+            # re-charge the leaf snapshot's budget pages; dropping it is
+            # not an error (the warm gather re-sorts the ring)
+            self.ref(child)     # pin against the charge's own evictions
+            charged: List[int] = []
+            for _ in range(self._sk_cost):
+                p = self._alloc_page()
+                if p is None:
+                    self._free.extend(charged)
+                    charged = []
+                    break
+                charged.append(p)
+            self.unref(child)
+            if len(charged) == self._sk_cost:
+                child.sk_pages = charged
+                child.sk_snap = staged["sk"]
+        return child
+
     # -- admission -----------------------------------------------------------
-    def admit(self, cache: Dict[str, Any], si: int, prompt: np.ndarray
+    def admit(self, cache: Dict[str, Any], si: int, prompt: np.ndarray,
+              fail_hook: Optional[Any] = None
               ) -> Tuple[Dict[str, Any], int, _TrieNode]:
         """Walk the trie and restore the matched prefix into slot ``si``
         of ``cache`` (in place) -> (cache, matched length, node). The
         caller may ``ref`` the node as the slot's recording anchor and
-        ``unref`` it at prefill end."""
+        ``unref`` it at prefill end. ``fail_hook(matched)``, when given,
+        runs before a warm gather and may raise (a chaos gather failure):
+        the cache is then untouched and no stats or refs are taken."""
         t, node = self.lookup(prompt)
         if t > 0:
+            if fail_hook is not None:
+                fail_hook(t)
             self.gather_into(cache, [(si, t, node)])
         return cache, t, node
 
@@ -444,6 +685,76 @@ class PrefixCache:
             charged.append(pid)
         node.sk_pages = charged
         node.sk_snap = self._sk_snapshot(cache, si)
+
+    # -- checkpoint ----------------------------------------------------------
+    def dump_state(self) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+        """``(host meta, arrays)`` for the engine checkpoint: the trie in
+        parent-before-child order, the pool and the nodes' snapshots (the
+        carries through the mixers' ``dump_snapshot``). L2 blobs are not
+        here: they are serialized bytes already (``l2.raw_items()``)."""
+        nodes: List[_TrieNode] = []
+        index = {id(self.root): -1}
+        queue = collections.deque([self.root])
+        while queue:
+            n = queue.popleft()
+            for child in n.children.values():
+                index[id(child)] = len(nodes)
+                nodes.append(child)
+                queue.append(child)
+        meta = {"nodes": [{"parent": index[id(n.parent)],
+                           "tokens": list(n.tokens), "end": n.end,
+                           "page_id": n.page_id,
+                           "snap_valid": bool(n.snap_valid),
+                           "sk_pages": list(n.sk_pages),
+                           "last_used": n.last_used} for n in nodes],
+                "free": list(self._free), "clock": self._clock}
+        arrays = {
+            "pool": self.pool,
+            "snaps": {str(i): {name: MIXERS[self._seg_kind(name)]
+                               .dump_snapshot(s)
+                               for name, s in n.snap.items()}
+                      for i, n in enumerate(nodes) if n.snap},
+            "sks": {str(i): n.sk_snap for i, n in enumerate(nodes)
+                    if n.sk_snap is not None}}
+        return meta, arrays
+
+    def load_state(self, meta: Dict[str, Any],
+                   arrays: Dict[str, Any]) -> None:
+        """Rebuild the trie and the pool of a freshly built cache from a
+        checkpoint (host ``arrays`` copied onto the pool's device, each
+        dtype bit for bit). Refcounts come back 0 (the engine re-pins its
+        slots' recording anchors); the LRU clocks come back too, so the
+        eviction order is the uninterrupted run's."""
+        nodes: List[_TrieNode] = []
+        for rec in meta["nodes"]:
+            parent = (self.root if rec["parent"] < 0
+                      else nodes[rec["parent"]])
+            node = _TrieNode(parent, tuple(int(x) for x in rec["tokens"]),
+                             int(rec["end"]))
+            node.page_id = int(rec["page_id"])
+            node.snap_valid = bool(rec["snap_valid"])
+            node.sk_pages = [int(p) for p in rec["sk_pages"]]
+            node.last_used = int(rec["last_used"])
+            parent.children[node.tokens] = node
+            self._nodes.add(node)
+            nodes.append(node)
+        for i, n in enumerate(nodes):
+            snap = arrays.get("snaps", {}).get(str(i))
+            if snap:
+                n.snap = {name: MIXERS[self._seg_kind(name)].load_snapshot(
+                              h, self.device) for name, h in snap.items()}
+            sk = arrays.get("sks", {}).get(str(i))
+            if sk is not None:
+                n.sk_snap = {name: {k: v.to(self.device)
+                                    for k, v in h.items()}
+                             for name, h in sk.items()}
+        if self.pool:
+            copy_into(self.pool, arrays["pool"], "pool")
+        self._free = [int(p) for p in meta["free"]]
+        self._clock = int(meta["clock"])
+        self._heap = []
+        for n in nodes:
+            self._push(n)
 
     # -- introspection -------------------------------------------------------
     @property

@@ -1,6 +1,8 @@
 """The port stands alone: no module of ``src/repro_torch`` and not
-``chip_smoke.py`` imports ``jax`` or the JAX package (``repro`` /
-``repro.*``); ``repro_torch`` itself is allowed."""
+``chip_smoke.py`` imports ``jax``, the JAX package (``repro`` /
+``repro.*``) or ``ml_dtypes`` (the card's machine has none; the page
+store moves bfloat16 as raw 16-bit words); ``repro_torch`` itself is
+allowed."""
 from __future__ import annotations
 
 import ast
@@ -13,7 +15,7 @@ pytest.importorskip("torch")
 ROOT = Path(__file__).resolve().parents[1]
 FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
     [ROOT / "chip_smoke.py"]
-BANNED = ("jax", "jaxlib", "repro")
+BANNED = ("jax", "jaxlib", "repro", "ml_dtypes")
 
 
 def _imported_roots(path: Path):
@@ -38,7 +40,8 @@ def test_port_package_is_covered():
     assert {"engine.py", "decoder.py", "mixer.py", "kernel.py", "ops.py",
             "candidate_selection.py", "chip_smoke.py", "quantization.py",
             "post_scoring.py", "a3_attention.py", "xlstm.py", "rglru.py",
-            "moe.py", "gemma3_4b.py", "deepseek_moe_16b.py"} <= names
+            "moe.py", "gemma3_4b.py", "deepseek_moe_16b.py",
+            "page_store.py", "chaos.py"} <= names
     rel = {str(p.relative_to(ROOT)) for p in FILES}
     for family in ("decode_attention", "flash_attention", "a3_attention",
                    "mlstm_chunk"):

@@ -283,7 +283,7 @@ def test_serve_config_fields_match_reference():
     dict(pipeline_depth=-1), dict(temperature=-0.1), dict(max_queue=-1),
     dict(shed_policy="drop-the-table"), dict(deadline_ticks=0),
     dict(retain_results=-1), dict(page_size=0), dict(cache_pages=-1),
-    dict(kv_quant="fp8")], ids=lambda kw: next(iter(kw)))
+    dict(kv_quant="fp8"), dict(l2_bytes=-1)], ids=lambda kw: next(iter(kw)))
 def test_serve_config_rejects_what_the_reference_rejects(bad):
     with pytest.raises(ValueError):
         jcfg.ServeConfig(**bad)

@@ -344,18 +344,14 @@ def test_cli_lifecycle_pipeline_and_sampling_flags(capsys):
         assert key in out, key
 
 
-def test_cli_prefix_cache_flags_match_reference_cli(monkeypatch, capsys):
-    """``--cache-pages 16 --page-size 8 --kv-quant int8 --a3
-    conservative`` on both CLIs (their other flags at their defaults: 8
-    requests of 64 tokens, 4 slots, 32 new tokens): each CLI's prompt
-    draw gets a shared 24-token head, and the port CLI serves the JAX
-    CLI's weights (its seed-0 init, converted). The requests admitted
-    after the first four hit the trie; tokens and prefix counters are
-    equal. Both CLIs' smoke config is taken in float32, where parity is
-    asserted token for token: in bf16 request 1's first logits hold an
-    exact tie in JAX (ROADMAP queue 3, entry 2)."""
+def _cli_pair(monkeypatch):
+    """Both CLIs on one footing: their smoke config taken in float32, the
+    port CLI serving the JAX CLI's weights (its seed-0 init, converted),
+    each prompt draw given a shared 24-token head, and every engine
+    either CLI builds (``from_config`` or ``restore``) kept -> the dict
+    that collects them under "jax" / "port" (a later build of one CLI
+    replaces its earlier one)."""
     import dataclasses
-    import sys
     import types
 
     from repro import config as jcfg
@@ -388,10 +384,29 @@ def test_cli_prefix_cache_flags_match_reference_cli(monkeypatch, capsys):
     monkeypatch.setattr(tcli, "np", shim)
     engines = {}
     for key, cls in (("jax", JaxEngine), ("port", ServeEngine)):
-        made = cls.from_config.__func__
-        monkeypatch.setattr(cls, "from_config", classmethod(
-            lambda c, *a, _k=key, _m=made, **kw: engines.setdefault(
-                _k, _m(c, *a, **kw))))
+        for build in ("from_config", "restore"):
+            made = getattr(cls, build).__func__
+
+            def keep(c, *a, _k=key, _m=made, **kw):
+                engines[_k] = _m(c, *a, **kw)
+                return engines[_k]
+            monkeypatch.setattr(cls, build, classmethod(keep))
+    return engines, jcli, tcli
+
+
+def test_cli_prefix_cache_flags_match_reference_cli(monkeypatch, capsys):
+    """``--cache-pages 16 --page-size 8 --kv-quant int8 --a3
+    conservative`` on both CLIs (their other flags at their defaults: 8
+    requests of 64 tokens, 4 slots, 32 new tokens): each CLI's prompt
+    draw gets a shared 24-token head, and the port CLI serves the JAX
+    CLI's weights (its seed-0 init, converted). The requests admitted
+    after the first four hit the trie; tokens and prefix counters are
+    equal. Both CLIs' smoke config is taken in float32, where parity is
+    asserted token for token: in bf16 request 1's first logits hold an
+    exact tie in JAX (ROADMAP queue 3, entry 2)."""
+    import sys
+
+    engines, jcli, tcli = _cli_pair(monkeypatch)
     flags = ["--arch", "phi4-mini-3.8b", "--smoke", "--cache-pages", "16",
              "--page-size", "8", "--kv-quant", "int8", "--a3",
              "conservative"]
@@ -408,3 +423,65 @@ def test_cli_prefix_cache_flags_match_reference_cli(monkeypatch, capsys):
     for key in ("prefix_hits", "prefix_tokens_reused", "gather_dispatches",
                 "pages_recorded", "pages_evicted", "prefill_tokens"):
         assert port.stats[key] == ref.stats[key], key
+
+
+def test_cli_durable_state_and_chaos_flags_match_reference_cli(
+        monkeypatch, capsys, tmp_path):
+    """``--l2-bytes``, ``--checkpoint-dir``, ``--restore``,
+    ``--chaos-rate`` and ``--chaos-seed`` on both CLIs (float32 smoke
+    config, shared weights, prompts with a shared 24-token head, a 6-page
+    pool of 8-token pages so that pages demote to L2): a first run with
+    chaos at rate 0.2 writes a checkpoint, a second run restores it and
+    serves the same prompts again (the same seed), promoting their pages
+    from the restored L2. Both print the reference's
+    lines (the chaos line equal, events and victims), and statuses,
+    tokens and the L2, chaos and checkpoint counters are equal."""
+    import sys
+
+    engines, jcli, tcli = _cli_pair(monkeypatch)
+    base = ["--arch", "phi4-mini-3.8b", "--smoke", "--requests", "6",
+            "--slots", "2", "--prompt-len", "40", "--max-new", "4",
+            "--cache-pages", "6", "--page-size", "8", "--l2-bytes",
+            str(1 << 24), "--decode-block", "2"]
+    keys = ("l2_spills", "l2_hits", "l2_evictions", "l2_integrity_drops",
+            "chaos_aborted_ticks", "chaos_delayed_ticks", "checkpoints",
+            "restores", "failed", "finished", "prefix_hits",
+            "prefix_tokens_reused", "pages_evicted", "prefill_tokens",
+            "ticks")
+    for extra in (["--chaos-rate", "0.2", "--chaos-seed", "3"],
+                  ["--restore"]):
+        lines = {}
+        for who, cli in (("jax", jcli), ("port", tcli)):
+            flags = base + extra + ["--checkpoint-dir",
+                                    str(tmp_path / who)]
+            if who == "jax":
+                monkeypatch.setattr(sys, "argv", ["serve"] + flags)
+                cli.main()
+            else:
+                cli.main(flags + ["--device", "cpu"])
+            lines[who] = capsys.readouterr().out.splitlines()
+        ref, port = engines["jax"], engines["port"]
+        n = ref._uid
+        assert port._uid == n
+        assert [port.status(u) for u in range(n)] == \
+            [ref.status(u) for u in range(n)]
+        assert [port.result(u) for u in range(n)] == \
+            [ref.result(u) for u in range(n)]
+        for key in keys:
+            assert port.stats[key] == ref.stats[key], key
+        for who in ("jax", "port"):
+            assert lines[who][-1] == (f"checkpointed engine to "
+                                      f"{tmp_path / who}")
+        if "--restore" in extra:
+            assert lines["jax"][0] == lines["port"][0].replace(
+                str(tmp_path / "port"), str(tmp_path / "jax"))
+            assert lines["port"][0].startswith("restored engine from")
+            assert port.stats["restores"] == 1
+            # the second run draws the first run's prompts (the same
+            # seed): their demoted pages come back from the restored L2
+            assert port.stats["l2_hits"] > 0
+        else:
+            chaos = [ln for ln in lines["port"] if ln.startswith("chaos:")]
+            assert chaos and chaos == [ln for ln in lines["jax"]
+                                       if ln.startswith("chaos:")]
+            assert port.stats["l2_spills"] > 0
