@@ -15,7 +15,10 @@ first phase that does not hold:
    threshold 0 (every row that admits an entry keeps its maximum, bf16
    and float32); #1 on NaN scores (a NaN key row, a NaN ring), thresholds
    None and 3.0: its NaN rows those of its plain version, which takes
-   the Pallas kernel's NaN-propagating running max; prints each cluster
+   the Pallas kernel's NaN-propagating running max; #2 and #3 on the
+   same NaN keys (bf16 and float32): #2's NaN row maxima and #3's NaN
+   rows (no threshold) and zero rows (threshold 3.0) those of their
+   plain versions; prints each cluster
    size; times each kernel with CUDA
    events over inputs that exceed the 50 MB L2 (as the 32 layers of a
    decode step do) and by the device time per launch from
@@ -58,7 +61,9 @@ first phase that does not hold:
    tensor-core routes of both, the float32 pair both CUDA-core routes)
    against their plain versions within 2e-2, and at threshold 0 every
    row that admits an entry must keep its maximum (a non-zero output
-   row); each kernel timed over inputs larger than L2 beside its plain
+   row); #4-#6 on a NaN key (bf16 and float32): NaN rows and #6's zero
+   rows under threshold 3.0 those of their plain versions; each kernel
+   timed over inputs larger than L2 beside its plain
    version, its bound and (for #4) ``scaled_dot_product_attention``,
    #4, #5, #6 and SDPA also by device time per call, #6 printed beside
    #4 on the same q/k/v; (b) the public
@@ -163,12 +168,34 @@ first phase that does not hold:
    tier and the crash site (a checkpoint after every tick, a restore
    after each crash) on the card vs the CPU: tokens, clock-free stats
    and chaos events identical, #1 (#7 for TINY_XL) launched.
+12. the serving telemetry plane (after [11], on phase 3's model): phase
+   3's serve (8 requests of 64-token prompts, 16 greedy new tokens, 4
+   slots, max_len 512, decode_block 4), A^3 off and conservative,
+   pipeline_depth 0 and 1, each as telemetry off, on with
+   telemetry_every 1 and 8, and off again (the wall in turns). Holds:
+   tokens and ``host_syncs`` = the telemetry-off serve's,
+   ``host_sync_stalls`` 0; ``serve_a3_probe_dispatches`` =
+   ceil(decode_dispatches / every) with A^3, 0 without; every probed
+   captured mass in [0, 1] and samples > 0; #1 32 x decode_steps in the
+   A^3-off serves; a probed dispatch and the harvest of a probed block
+   under ``set_sync_debug_mode("error")`` at depth 0 and 1; the Chrome
+   trace loads with monotone ``decode_block`` spans per slot, the
+   metrics file equals the registry's snapshot, and the CLI's
+   ``--stats-json`` (on this model) has the engine's clock-free stats
+   and metrics. Prints the median captured mass and candidates per kv
+   head at every 1 and 8, one probed A^3 decode step against an
+   unprobed one (events, device ms, kernels) and the wall of each serve;
+   (b) the tiny float32 TINY (A^3 conservative), TINY_RG and TINY_XL
+   engines with telemetry every 2 on the card vs the CPU: tokens,
+   clock-free metrics and each request's trace events identical, probe
+   rows within 2e-5.
 
 Prints one JSON line of per-kernel numbers (every row with
 ``device_ms``, the profiler's device time per launch; rows #1-#3 with
 ``s4096``, the long ring's ms, device ms and bound; row #1 with
-``served_shapes``, phase 9's rows; #1's launches include [10]'s and
-[11]'s A^3-off serves, #7's [10b]'s and [11d]'s), then, last,
+``served_shapes``, phase 9's rows; #1's launches include [10]'s,
+[11]'s and [12]'s A^3-off serves, #7's [10b]'s, [11d]'s and [12b]'s),
+then, last,
 ``{"ok": true, "device": {...}}``. Exits non-zero, with no result line,
 when CUDA is unavailable or the port's sources are not beside the script.
 """
@@ -176,6 +203,7 @@ from __future__ import annotations
 
 import copy
 import json
+import math
 import subprocess
 import sys
 import time
@@ -393,6 +421,37 @@ def two_pass_threshold_zero(q, k, v, mask, label):
         f"output)")
 
 
+def nan_rows_check(got, want, what):
+    """``got`` has ``want``'s NaN rows and all-zero rows (last axis), and
+    every other entry within the bf16 tolerance -> max |error| there."""
+    import torch
+    gn, wn = torch.isnan(got), torch.isnan(want)
+    check(torch.equal(gn, wn), f"{what}: NaN entries differ from the plain "
+                               f"version's: kernel {int(gn.sum())}, plain "
+                               f"{int(wn.sum())}")
+    gz, wz = (got == 0).all(-1), (want == 0).all(-1)
+    check(torch.equal(gz, wz), f"{what}: zero rows differ from the plain "
+                               f"version's: kernel {int(gz.sum())}, plain "
+                               f"{int(wz.sum())}")
+    e, ok = max_err(got[~wn], want[~wn])
+    check(ok, f"{what}: the finite entries next to NaN keys: {e}")
+    return e
+
+
+def nan_lanes(k, v, mask):
+    """Copies of k, v, mask with lane 1's key row 5 NaN (V finite) and
+    lane 2's ring NaN but its last row (a corrupted cache lane the step
+    after its corruption), both admitted by every query head."""
+    k, v, mask = k.clone(), v.clone(), mask.clone()
+    s = k.shape[2]
+    mask[1:3, :, 5] = True
+    mask[2, :, s - 1] = True
+    k[1, :, 5] = float("nan")
+    k[2, :, :s - 1] = float("nan")
+    v[2, :, :s - 1] = float("nan")
+    return k, v, mask
+
+
 def fused_nan_check(q, k, v, mask, label):
     """#1 against its plain version on NaN scores (block_k 512 and 128,
     thresholds None and 3.0): lane 1 gets one NaN key row with V finite,
@@ -403,32 +462,56 @@ def fused_nan_check(q, k, v, mask, label):
     and 2) and every other row within the bf16 tolerance."""
     import torch
     from repro_torch.kernels.decode_attention import kernel as tk
-    k, v, mask = k.clone(), v.clone(), mask.clone()
-    s = k.shape[2]
-    mask[1:3, :, 5] = True
-    mask[2, :, s - 1] = True
-    k[1, :, 5] = float("nan")
-    k[2, :, :s - 1] = float("nan")
-    v[2, :, :s - 1] = float("nan")
+    k, v, mask = nan_lanes(k, v, mask)
     worst = 0.0
     for thr in (None, 3.0):
         for block_k in (512, 128):
-            got = tk.fused(q, k, v, mask, threshold=thr, block_k=block_k)
             want = tk.fused_plain(q, k, v, mask, threshold=thr,
                                   block_k=block_k)
-            gn, wn = torch.isnan(got), torch.isnan(want)
-            check(torch.equal(gn, wn) and bool(wn[1:3].all()),
-                  f"{label}: #1's NaN rows differ from its plain version's "
-                  f"(thr={thr}, block_k={block_k}): kernel "
-                  f"{int(gn.any(-1).sum())} rows, plain "
-                  f"{int(wn.any(-1).sum())}")
-            e, ok = max_err(got[~wn], want[~wn])
-            check(ok, f"{label}: #1 on the finite rows next to NaN lanes "
-                      f"(thr={thr}, block_k={block_k}): {e}")
-            worst = max(worst, e)
+            check(bool(torch.isnan(want[1:3]).all()),
+                  f"{label}: the plain rows of lanes 1-2 are not all NaN")
+            worst = max(worst, nan_rows_check(
+                tk.fused(q, k, v, mask, threshold=thr, block_k=block_k),
+                want, f"{label}: #1 (thr={thr}, block_k={block_k})"))
     log(f"  #1 on NaN scores ({label}): the NaN rows are the plain "
         f"version's with and without threshold 3.0 (lanes 1-2), the other "
         f"rows within {worst:.3g}")
+
+
+def two_pass_nan_check(q, k, v, mask, label):
+    """#2 and #3 against their plain versions on NaN keys (block_k 512 and
+    128, thresholds None and 3.0): lane 1 gets one NaN key row with V
+    finite, lane 2 a NaN ring whose last row is finite. A NaN score makes
+    #2's row max NaN, as ``jnp.maximum`` does in the Pallas kernel, so
+    #3 then keeps nothing of those rows under a threshold (l = 0, a zero
+    row) and NaN without one: the NaN and zero rows must be the plain
+    versions', the other rows within the bf16 tolerance."""
+    import torch
+    from repro_torch.kernels.decode_attention import kernel as tk
+    k, v, mask = nan_lanes(k, v, mask)
+    worst = 0.0
+    for block_k in (512, 128):
+        rm = tk.rowmax(q, k, mask, block_k=block_k)
+        want_rm = tk.rowmax_plain(q, k, mask, block_k=block_k)
+        worst = max(worst, nan_rows_check(rm[..., None], want_rm[..., None],
+                                          f"{label}: #2 (block_k={block_k})"))
+        check(bool(torch.isnan(want_rm[1:3]).all()),
+              f"{label}: the plain row max of lanes 1-2 is not NaN")
+        for thr in (None, 3.0):
+            out = tk.attend(q, k, v, mask, rm, threshold=thr,
+                            block_k=block_k)
+            want = tk.attend_plain(q, k, v, mask, want_rm, threshold=thr,
+                                   block_k=block_k)
+            worst = max(worst, nan_rows_check(
+                out, want, f"{label}: #3 (thr={thr}, block_k={block_k})"))
+            lanes = want[1:3]
+            check(bool(torch.isnan(lanes).all() if thr is None
+                       else (lanes == 0).all()),
+                  f"{label}: #3's plain rows of lanes 1-2 (thr={thr}) are "
+                  f"not all {'NaN' if thr is None else 'zero'}")
+    log(f"  #2/#3 on NaN keys ({label}): #2's NaN row maxima and #3's NaN "
+        f"rows (no threshold) and zero rows (threshold 3.0) are the plain "
+        f"versions' (lanes 1-2), the other rows within {worst:.3g}")
 
 
 def phase_kernels(dev):
@@ -466,6 +549,9 @@ def phase_kernels(dev):
                 f"(tolerance atol {TOL['atol']} + rtol {TOL['rtol']})")
     two_pass_threshold_zero(q, k, v, mask, f"S={SHAPE['s']}")
     fused_nan_check(q, k, v, mask, f"S={SHAPE['s']} bf16")
+    two_pass_nan_check(q, k, v, mask, f"S={SHAPE['s']} bf16")
+    two_pass_nan_check(q.float(), k.float(), v.float(), mask,
+                       f"S={SHAPE['s']} f32")
     sync(dev)
 
     # timed configuration: each kernel as its path calls it (block_k 512;
@@ -578,12 +664,18 @@ def phase_long_ring(dev, errs, thr):
 # phases 3-4: full-width serving
 # ---------------------------------------------------------------------------
 
-def serve_run(model, cfg, prompts, a3, decode_block, max_new, **knobs):
+def serve_run(model, cfg, prompts, a3, decode_block, max_new,
+              on_engine=None, **knobs):
+    """Serve ``prompts`` to the end on a fresh engine (4 slots, max_len
+    512; ``on_engine(eng)`` runs before the first submit) -> (results,
+    engine, wall s, kernel launches of the run)."""
     from repro_torch.kernels.decode_attention import kernel as tk
     from repro_torch.serve.engine import ServeEngine
 
     eng = ServeEngine(model, cfg, slots=4, max_len=512, a3=a3,
                       decode_block=decode_block, **knobs)
+    if on_engine is not None:
+        on_engine(eng)
     uids = [eng.submit(p, max_new_tokens=max_new) for p in prompts]
     sync(model.device)
     tk.reset_launch_counts()
@@ -1750,6 +1842,343 @@ def phase_durable_tiny(dev):
 # phase 5: the two-pass path through the ops entry
 # ---------------------------------------------------------------------------
 
+# ---------------------------------------------------------------------------
+# phase 12: the serving telemetry plane at phi4-mini width
+# ---------------------------------------------------------------------------
+
+TELEMETRY_EVERY = (1, 8)
+
+
+def probe_recorder(eng):
+    """Keep a copy of every probe block ``eng``'s telemetry takes."""
+    rows = []
+    orig = eng.tm.on_a3_probe
+
+    def record(probe, _orig=orig):
+        rows.append(probe.copy())
+        _orig(probe)
+
+    eng.tm.on_a3_probe = record
+    return rows
+
+
+def probed_samples(rows):
+    """(captured mass, candidates) per probed lane of every block: the
+    block's sums over that lane's advanced steps, over its samples."""
+    mass, cand = [], []
+    for r in rows:
+        live = r[:, 0] > 0
+        mass += [float(x) for x in r[live, 2] / r[live, 0]]
+        cand += [float(x) for x in r[live, 1] / r[live, 0]]
+    return mass, cand
+
+
+def clock_free_metrics(snap):
+    """A metrics snapshot without what the clock decides: the counters
+    but the tick times and stalls, every bucket of the count and ratio
+    histograms, only the totals of the nanosecond ones."""
+    counters = {k: v for k, v in snap["counters"].items()
+                if not k.startswith("serve_tick_ns")
+                and k != "serve_host_sync_stalls"}
+    hists = {n: (h["total"] if n.split("{")[0].endswith("_ns")
+                 else (h["bounds"], h["counts"], h["total"]))
+             for n, h in snap["histograms"].items()}
+    return counters, hists
+
+
+def trace_by_uid(tm):
+    """The trace's event names in order per request uid."""
+    out = {}
+    for _ts, _ph, name, uid, _track, _dur, _args in tm.tracer.events:
+        if uid >= 0:
+            out.setdefault(uid, []).append(name)
+    return out
+
+
+def phase_telemetry(model, cfg, dev):
+    """[12] phase [3]'s serve (8 requests of 64-token prompts, 16 greedy
+    new tokens, 4 slots, max_len 512, decode_block 4) with A^3 off and
+    conservative at pipeline_depth 0 and 1: telemetry off, on with
+    telemetry_every 1 and 8, and off again (the wall in turns). Holds:
+    tokens and ``host_syncs`` = the telemetry-off serve's, stalls 0,
+    probe dispatches = ceil(decode_dispatches / every) with A^3 (0
+    without), every probed mass in [0, 1], #1 32 x decode_steps in the
+    A^3-off serves; a probed tick at depth 0 and 1 under
+    ``set_sync_debug_mode("error")``; the trace and metrics files and
+    the CLI's ``--stats-json`` read back. Prints the probe's medians, one
+    probed decode step against an unprobed one under the profiler, and
+    the wall of telemetry on against off -> #1's launches."""
+    import json
+    import statistics
+    import tempfile
+    import numpy as np
+    import torch
+    from pathlib import Path as _P
+    from repro_torch.config import A3Config
+    from repro_torch.launch import serve as cli
+    from repro_torch.models import decoder
+    from repro_torch.serve.engine import ServeEngine
+
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, size=64) for _ in range(8)]
+    knobs = dict(slots=4, max_len=512, decode_block=4)
+    fused, kept = 0, {}
+
+    def serve(a3, depth, every):
+        tel = {} if every is None else dict(telemetry=True,
+                                            telemetry_every=every)
+        rows = []
+
+        def watch(eng):
+            if eng.tm is not None:
+                rows.append(probe_recorder(eng))
+
+        outs, eng, dt, launches = serve_run(
+            model, cfg, prompts, a3, 4, 16, on_engine=watch,
+            pipeline_depth=depth, **tel)
+        return (outs, eng, dt, launches["decode_attention_fused"],
+                rows[0] if rows else None)
+
+    for mode, a3 in (("off", A3Config()),
+                     ("conservative", A3Config.conservative())):
+        base_outs = None
+        for depth in (0, 1):
+            walls = {}
+            base = None
+            for every in (None, 1, 8, "again"):
+                outs, eng, dt, n1, rows = serve(
+                    a3, depth, None if every == "again" else every)
+                st = eng.stats
+                walls[every] = dt
+                label = f"a3={mode} depth {depth}"
+                if mode == "off":
+                    want = cfg.num_layers * st["decode_steps"]
+                    check(n1 == want > 0, f"[12] {label}: #1 launched {n1} "
+                          f"times, expected {cfg.num_layers} x "
+                          f"decode_steps = {want}")
+                    if every in TELEMETRY_EVERY:
+                        fused += n1
+                if every is None:
+                    base = (outs, st["host_syncs"])
+                    if base_outs is None:
+                        base_outs = outs
+                    check(outs == base_outs, f"[12] {label}: tokens "
+                          f"differ from depth 0's")
+                    continue
+                check(outs == base[0], f"[12] {label} every {every}: tokens "
+                      f"differ from the telemetry-off serve's")
+                check(st["host_syncs"] == base[1] and
+                      st["host_sync_stalls"] == 0,
+                      f"[12] {label} every {every}: host_syncs "
+                      f"{st['host_syncs']} (off: {base[1]}), stalls "
+                      f"{st['host_sync_stalls']}")
+                if every == "again":
+                    continue
+                snap = eng.tm.metrics_snapshot()
+                nd = st["decode_dispatches"]
+                pd = snap["counters"]["serve_a3_probe_dispatches"]
+                want = math.ceil(nd / every) if mode != "off" else 0
+                check(pd == want, f"[12] {label} every {every}: "
+                      f"{pd} probe dispatches, expected {want} of {nd}")
+                mass, cand = probed_samples(rows)
+                samples = snap["counters"]["serve_a3_probe_samples"]
+                if mode != "off":
+                    check(samples > 0 and len(mass) > 0 and
+                          all(0.0 <= m <= 1.0 for m in mass),
+                          f"[12] {label} every {every}: samples {samples}, "
+                          f"masses {mass[:8]}")
+                    kept[(depth, every)] = (mass, cand, samples, eng)
+                log(f"  [12] {label} telemetry every {every}: tokens and "
+                    f"host_syncs {st['host_syncs']} = off's, stalls 0; "
+                    f"probe dispatches {pd} of {nd} decode dispatches, "
+                    f"samples {samples:.0f}")
+            log(f"  [12] a3={mode} depth {depth} wall in turns: off "
+                f"{walls[None]:.3f} s, every 1 {walls[1]:.3f} s, every 8 "
+                f"{walls[8]:.3f} s, off {walls['again']:.3f} s; on / mean "
+                f"off: every 1 "
+                f"{2 * walls[1] / (walls[None] + walls['again']):.3f}, "
+                f"every 8 "
+                f"{2 * walls[8] / (walls[None] + walls['again']):.3f} "
+                f"[{CARD}]")
+    for every in TELEMETRY_EVERY:
+        mass, cand, samples, _ = kept[(1, every)]
+        log(f"  [12] A^3 conservative every {every}: median captured mass "
+            f"{statistics.median(mass):.6f} (min {min(mass):.6f}), median "
+            f"candidates per kv head {statistics.median(cand):.1f} over "
+            f"{len(mass)} probed lanes x blocks ({samples:.0f} samples) "
+            f"[{CARD}]")
+
+    # one probed decode step against an unprobed one, on the ring the
+    # conservative depth-1 serve left
+    eng = kept[(1, 8)][3]
+    a3 = A3Config.conservative()
+    tok = torch.arange(4, dtype=torch.int32, device=dev)
+    pos = torch.full((4,), 80, dtype=torch.int32, device=dev)
+    left = torch.ones((4,), dtype=torch.int32, device=dev)
+    prof = {}
+    for probe in (False, True):
+        def step(probe=probe):
+            decoder.decode_block(model, cfg, eng.cache, tok, pos, left,
+                                 steps=1, a3=a3, probe=probe)
+
+        ms = cuda_ms(step, [()], 5)
+        dev_ms, n_kernels, _, _ = profile_steps(step, steps=2)
+        check(dev_ms is not None, "[12] the profiler saw no device activity")
+        prof[probe] = (ms, dev_ms, n_kernels)
+    (m0, d0, k0), (m1, d1, k1) = prof[False], prof[True]
+    log(f"  [12] one A^3 conservative decode step (B=4, position 80, 32 "
+        f"layers): unprobed {m0:.3f} ms by events, {d0:.3f} ms device over "
+        f"{k0:.0f} kernels; probed {m1:.3f} ms, {d1:.3f} ms device over "
+        f"{k1:.0f} kernels; the probe adds {d1 - d0:.3f} ms device "
+        f"({d1 / d0:.2f}x) and {k1 - k0:.0f} kernels [{CARD}]")
+
+    # a probed dispatch and the harvest of a probed block with every
+    # synchronizing CUDA call an error, at depth 0 and 1
+    for depth in (0, 1):
+        eng = ServeEngine(model, cfg, a3=a3, pipeline_depth=depth,
+                          telemetry=True, telemetry_every=1, **knobs)
+        for p in prompts[:4]:
+            eng.submit(p, max_new_tokens=16)
+        eng.step()
+        eng.step()
+        check(all(s.decoding for s in eng.slots),
+              f"[12] depth {depth}: no steady decode after two ticks")
+        before = dict(eng.stats)
+        probed = eng.tm.c_probe_dispatches.value
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            eng.step()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        check(eng.stats["decode_dispatches"] == before["decode_dispatches"]
+              + 1 and eng.tm.c_probe_dispatches.value > probed and
+              eng.stats["host_syncs"] == before["host_syncs"] + 1,
+              f"[12] depth {depth}: the checked tick was not one probed "
+              f"dispatch and one harvest of a probed block")
+        eng.run_to_completion()
+        log(f"  [12] depth {depth}: a probed dispatch and the harvest of a "
+            f"probed block under set_sync_debug_mode('error'): no "
+            f"synchronizing call")
+
+    # the files: trace, metrics, and the CLI's --stats-json
+    _, _, _, eng = kept[(1, 8)]
+    with tempfile.TemporaryDirectory() as td:
+        tpath, mpath, spath = (str(_P(td) / f) for f in
+                               ("trace.json", "metrics.json", "stats.json"))
+        eng.tm.write_trace(tpath)
+        trace = json.loads(_P(tpath).read_text())
+        spans = {}
+        for e in trace["traceEvents"]:
+            if e["name"] == "decode_block":
+                spans.setdefault(e["tid"], []).append(e["ts"])
+        check(trace["otherData"]["schema"] == "a3-serve-trace/v1" and spans
+              and all(ts == sorted(ts) for ts in spans.values()),
+              "[12] the trace's decode_block spans are not monotone per slot")
+        eng.tm.write_metrics(mpath)
+        check(json.loads(_P(mpath).read_text()) == json.loads(json.dumps(
+            eng.tm.metrics_snapshot())), "[12] the metrics file differs")
+        saved = decoder.init_params
+        decoder.init_params = lambda *a, **k: model
+        try:
+            cli.main(["--arch", cfg.name, "--requests", "8", "--prompt-len",
+                      "64", "--max-new", "16", "--decode-block", "4",
+                      "--pipeline-depth", "1", "--a3", "conservative",
+                      "--telemetry", "--telemetry-every", "8",
+                      "--stats-json", spath, "--device", dev.type])
+        finally:
+            decoder.init_params = saved
+        stats = json.loads(_P(spath).read_text())
+        check(stats["schema"] == "a3-serve-stats/v2"
+              and stats["config"]["serve"]["telemetry"] is True
+              and clock_free(stats["stats"]) == clock_free(eng.stats)
+              and clock_free_metrics(stats["metrics"])
+              == clock_free_metrics(eng.tm.metrics_snapshot()),
+              "[12] the CLI's --stats-json differs from the engine's serve")
+        log(f"  [12] trace ({len(trace['traceEvents'])} events, decode_block "
+            f"spans monotone on {len(spans)} slots), metrics file and the "
+            f"CLI's --stats-json read back; the CLI's clock-free stats and "
+            f"metrics = the engine's")
+    return fused
+
+
+def phase_telemetry_tiny(dev):
+    """[12b] the tiny float32 TINY (A^3 conservative: probed), TINY_RG
+    and TINY_XL engines with telemetry every 2 on the card and on the
+    CPU: tokens, clock-free metrics and each request's trace events
+    identical, probe rows within 2e-5; #1 (TINY_RG) and #7 (TINY_XL)
+    launched on the card -> #7's launches."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.config import A3Config, AttentionKind, BlockKind, \
+        ModelConfig
+    from repro_torch.kernels.decode_attention import kernel as tk
+    from repro_torch.kernels.mlstm_chunk import kernel as mk
+    from repro_torch.models import decoder
+    from repro_torch.serve.engine import ServeEngine
+
+    tiny = ModelConfig("tiny", "dense", num_layers=2, d_model=64,
+                       num_heads=4, num_kv_heads=2, d_ff=128, vocab_size=256,
+                       head_dim=16, dtype="float32")
+    configs = {
+        "TINY": (tiny, A3Config.conservative()),
+        "TINY_RG": (dataclasses.replace(
+            tiny, name="tiny-rg", num_layers=3,
+            attention_kind=AttentionKind.SLIDING, window_size=24,
+            block_pattern=(BlockKind.RGLRU, BlockKind.RGLRU,
+                           BlockKind.ATTENTION), act="gelu"), A3Config()),
+        "TINY_XL": (dataclasses.replace(
+            tiny, name="tiny-xl", family="ssm", num_layers=3,
+            num_kv_heads=4, d_ff=0,
+            block_pattern=(BlockKind.MLSTM, BlockKind.MLSTM,
+                           BlockKind.SLSTM)), A3Config()),
+    }
+    rng = np.random.default_rng(7)
+    prompts = [rng.integers(0, 256, size=n) for n in (5, 12, 23, 31, 9)]
+    mlstm = 0
+    for name, (cfg, a3) in configs.items():
+        cpu = decoder.init_params(cfg, torch.Generator().manual_seed(0),
+                                  "cpu")
+        gpu = copy.deepcopy(cpu).to(dev)
+        res = {}
+        for where, model in (("cpu", cpu), ("cuda", gpu)):
+            eng = ServeEngine(model, cfg, slots=4, max_len=96, a3=a3,
+                              prefill_chunk=8, resort_every=2,
+                              decode_block=4, telemetry=True,
+                              telemetry_every=2)
+            rows = probe_recorder(eng)
+            uids = [eng.submit(p, max_new_tokens=6) for p in prompts]
+            tk.reset_launch_counts()
+            mk.reset_launch_counts()
+            eng.run_to_completion()
+            res[where] = dict(outs=[eng.result(u) for u in uids],
+                              metrics=clock_free_metrics(
+                                  eng.tm.metrics_snapshot()),
+                              trace=trace_by_uid(eng.tm), rows=rows)
+        n1, n7 = tk.LAUNCHES["decode_attention_fused"], mk.launches()
+        mlstm += n7
+        c, h = res["cuda"], res["cpu"]
+        err = max((float(np.abs(a - b).max()) for a, b in
+                   zip(c["rows"], h["rows"])), default=0.0)
+        check(c["outs"] == h["outs"] and c["metrics"] == h["metrics"]
+              and c["trace"] == h["trace"]
+              and len(c["rows"]) == len(h["rows"])
+              and all(np.allclose(a, b, rtol=2e-5, atol=2e-5)
+                      for a, b in zip(c["rows"], h["rows"])),
+              f"[12b] {name}: card and CPU differ (probe rows max err "
+              f"{err})")
+        check((len(c["rows"]) > 0) == (name == "TINY")
+              and (n1 > 0) == (name == "TINY_RG")
+              and (n7 > 0) == (name == "TINY_XL"),
+              f"[12b] {name}: {len(c['rows'])} probe blocks, #1 {n1}, "
+              f"#7 {n7}")
+        log(f"  [12b] {name} f32 a3={a3.mode.value} telemetry every 2: card "
+            f"vs CPU tokens {n_same(dict(cuda=c['outs'], cpu=h['outs']))}"
+            f"/30, clock-free metrics and trace identical; {len(c['rows'])} "
+            f"probe blocks within {err:.3g}; card #1 launches {n1}, #7 {n7}")
+    return mlstm
+
+
 def phase_two_pass(ring, dev):
     import torch
     from repro_torch.config import A3Config
@@ -1998,6 +2427,7 @@ def phase_prefill_kernels(dev):
         f"(bf16 and f32, thresholds None and {T_CONS}; tolerance atol "
         f"{TOL['atol']} + rtol {TOL['rtol']})")
     threshold_zero_check(q, k, v, idx, cnt)
+    prefill_nan_check(q, k, v, idx, cnt)
     sync(dev)
 
     # timed: each over 4 input sets (> L2), as the path calls it
@@ -2061,6 +2491,46 @@ def phase_prefill_kernels(dev):
         f"{fmt_ms(m['device_ms'])} device; #5 + #6 {fmt_ms(pair)} device "
         f"[{CARD}]")
     return errs, res
+
+
+def prefill_nan_check(q, k, v, idx, cnt):
+    """#4, #5 and #6 against their plain versions on a NaN key (key 200
+    of every kv head, V finite), bf16 (the tensor-core routes) and
+    float32 (the CUDA-core routes): #5's row max is NaN for every query
+    that admits the key, as ``jnp.maximum`` makes it in the Pallas
+    kernel, so #6 keeps nothing of those rows under a threshold (zero
+    rows) and NaN without one; #4's running max takes the NaN score too.
+    NaN and zero rows must be the plain versions', the rest within the
+    bf16 tolerance."""
+    import torch
+    from repro_torch.kernels.a3_attention import kernel as ak
+    from repro_torch.kernels.flash_attention import kernel as fk
+    k = k.clone()
+    k[:, :, 200] = float("nan")
+    worst = 0.0
+    for dtype in ("bf16", "f32"):
+        qq, kk, vv = (q, k, v) if dtype == "bf16" else \
+            (q.float(), k.float(), v.float())
+        for window in (None, 512):
+            worst = max(worst, nan_rows_check(
+                fk.flash_attention(qq, kk, vv, window=window),
+                fk.flash_attention_plain(qq, kk, vv, window=window),
+                f"#4 on a NaN key ({dtype}, window={window})"))
+        rm = ak.sparse_rowmax(qq, kk, idx, cnt)
+        want_rm = ak.sparse_rowmax_plain(qq, kk, idx, cnt)
+        worst = max(worst, nan_rows_check(rm[..., None], want_rm[..., None],
+                                          f"#5 on a NaN key ({dtype})"))
+        check(bool(torch.isnan(want_rm).any()),
+              "no query admitted the NaN key")
+        for thr in (None, T_CONS):
+            worst = max(worst, nan_rows_check(
+                ak.sparse_attend(qq, kk, vv, idx, cnt, rm, threshold=thr),
+                ak.sparse_attend_plain(qq, kk, vv, idx, cnt, want_rm,
+                                       threshold=thr),
+                f"#6 on a NaN key ({dtype}, thr={thr})"))
+    log(f"  #4-#6 on a NaN key (bf16 and f32): the NaN rows (#4, #5, #6 "
+        f"without threshold) and zero rows (#6 at {T_CONS}) are the plain "
+        f"versions', the other rows within {worst:.3g}")
 
 
 def threshold_zero_check(q, k, v, idx, cnt):
@@ -2977,6 +3447,14 @@ def main() -> int:
     main_launches += ck_launches + phase_chaos(model, cfg, dev, free)
     prefix_mlstm += phase_durable_tiny(dev)
     log(f"  phase [11] took {time.perf_counter() - t11:.1f} s")
+    log("[12] the serving telemetry plane at phi4-mini-3.8b width: A^3 off "
+        "/ conservative, pipeline_depth 0 / 1, telemetry off / every 1 / "
+        "every 8")
+    t12 = time.perf_counter()
+    main_launches += phase_telemetry(model, cfg, dev)
+    log("[12b] TINY, TINY_RG, TINY_XL f32 with telemetry, card vs CPU")
+    prefix_mlstm += phase_telemetry_tiny(dev)
+    log(f"  phase [12] took {time.perf_counter() - t12:.1f} s")
     log("[5] two-pass path")
     two_pass = phase_two_pass(ring, dev)
     log("[6] TINY f32, card vs CPU")

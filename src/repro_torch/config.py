@@ -209,6 +209,14 @@ class ServeConfig:
     # instead of freeing, and a later lookup promotes verified blobs back
     # (a corrupt blob degrades that node to cold prefill). 0 = no tier
     l2_bytes: int = 0
+    # the telemetry plane (serve.telemetry): metrics registry, request
+    # tracing and the A^3 quality probe; off is the telemetry-less
+    # engine, on adds no host sync
+    telemetry: bool = False
+    # the A^3 probe rides every N-th decode dispatch
+    telemetry_every: int = 8
+    # capacity of the trace's event ring (the oldest events drop first)
+    trace_events: int = 4096
     # most terminal entries kept in the status/result maps, results
     # popped on first read (0 = unbounded)
     retain_results: int = 0
@@ -270,6 +278,13 @@ class ServeConfig:
             raise ValueError(
                 f"l2_bytes must be >= 0, got {self.l2_bytes} "
                 f"(0 disables the host-RAM L2 page tier)")
+        if self.telemetry_every < 1:
+            raise ValueError(
+                f"telemetry_every must be >= 1, got "
+                f"{self.telemetry_every}")
+        if self.trace_events < 1:
+            raise ValueError(
+                f"trace_events must be >= 1, got {self.trace_events}")
         if self.retain_results < 0:
             raise ValueError(
                 f"retain_results must be >= 0, got "

@@ -13,7 +13,8 @@
 // (kv_indices [B,Hkv,nq,maxb], kv_counts [B,Hkv,nq], block_q x block_k
 // granularity), s = (q . k) * scale in float32, the causal / window masks
 // of _block_mask apply per element inside each live block, masked scores
-// are -1e30 (so a row with no admitted entry has row max -1e30), pass 2
+// are -1e30 (so a row with no admitted entry has row max -1e30), an
+// admitted NaN score makes its row max NaN (jnp.maximum), pass 2
 // keeps an entry iff it is admitted and s >= rowmax - threshold, takes
 // p = exp(s - rowmax) and writes 0 where l == 0. Block ids outside
 // [0, Sk / block_k) are treated as dead, as the plain version does.
@@ -154,10 +155,10 @@ rowmax_kernel(const T* __restrict__ q, const T* __restrict__ k,
           const int j = lane + 32 * t;
           const bool ok = j < ncols && allowed(pos, c0 + j, g.causal,
                                                g.has_window, g.window);
-          tmax = fmaxf(tmax, ok ? sr[j] : kNegInf);
+          tmax = max_nan(tmax, ok ? sr[j] : kNegInf);
         }
-        tmax = warp_max(tmax);
-        if (lane == 0) sm.rows->m[r] = fmaxf(sm.rows->m[r], tmax);
+        tmax = warp_max_nan(tmax);
+        if (lane == 0) sm.rows->m[r] = max_nan(sm.rows->m[r], tmax);
       }
     }
   }
@@ -552,8 +553,8 @@ __device__ __forceinline__ void rowmax_tile(const float (&sc)[64],
       const int pos = pos_a + ((i & 2) ? 8 : 0);
       if (!allowed(pos, col, causal, has_window, window)) s = kNegInf;
     }
-    if (i & 2) m_b = fmaxf(m_b, s);
-    else m_a = fmaxf(m_a, s);
+    if (i & 2) m_b = max_nan(m_b, s);
+    else m_a = max_nan(m_a, s);
   }
 }
 
@@ -690,8 +691,8 @@ rowmax_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
   // the quad's four lanes share a row: reduce over them, one write a row
 #pragma unroll
   for (int x = 1; x <= 2; x <<= 1) {
-    m_a = fmaxf(m_a, __shfl_xor_sync(0xffffffffu, m_a, x));
-    m_b = fmaxf(m_b, __shfl_xor_sync(0xffffffffu, m_b, x));
+    m_a = max_nan(m_a, __shfl_xor_sync(0xffffffffu, m_a, x));
+    m_b = max_nan(m_b, __shfl_xor_sync(0xffffffffu, m_b, x));
   }
   if ((lane & 3) == 0) {
     rowmax[(size_t)bh * Sq + qa] = m_a;

@@ -56,6 +56,23 @@ __device__ __forceinline__ float warp_max(float x) {
   return x;
 }
 
+// The larger of a and b, NaN when either is NaN (jnp.maximum and
+// torch.maximum; fmaxf drops the NaN): the row max of #5 takes it, so a
+// NaN score poisons its row's max as in the Pallas kernel.
+__device__ __forceinline__ float max_nan(float a, float b) {
+  // one instruction (sm_80+): an isnan select around fmaxf cost #5's
+  // tensor-core route about a fifth of its time on an H100
+  float d;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(d) : "f"(a), "f"(b));
+  return d;
+}
+
+__device__ __forceinline__ float warp_max_nan(float x) {
+  for (int o = 16; o > 0; o >>= 1)
+    x = max_nan(x, __shfl_xor_sync(0xffffffffu, x, o));
+  return x;
+}
+
 // Per-row bookkeeping in shared memory.
 struct Rows {
   long long q_off[kRows];     // element offset of the row's q (-1: no row)

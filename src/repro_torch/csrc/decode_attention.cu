@@ -113,18 +113,16 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-__device__ __forceinline__ float warp_max(float x) {
-  for (int o = 16; o > 0; o >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
 // The larger of a and b, NaN when either is NaN (jnp.maximum and
-// torch.maximum; fmaxf drops the NaN). #1's running max takes it, so a
-// NaN score poisons its query row with or without a threshold, as in the
-// Pallas kernel: a corrupted cache lane then comes out non-finite.
+// torch.maximum; fmaxf drops the NaN). #1's running max and #2's row max
+// take it, so a NaN score poisons its query row's max as in the Pallas
+// kernels: #1's row comes out NaN with or without a threshold, and #3
+// then keeps nothing of it under a threshold (l = 0, a zero row) and NaN
+// without one.
 __device__ __forceinline__ float max_nan(float a, float b) {
-  return (isnan(a) || isnan(b)) ? a + b : fmaxf(a, b);
+  float d;  // one instruction (sm_80+), as attention_tile.cuh's
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(d) : "f"(a), "f"(b));
+  return d;
 }
 
 __device__ __forceinline__ float warp_max_nan(float x) {
@@ -765,9 +763,9 @@ rowmax_cluster_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int g = warp; g < G; g += kWarps) {
       float mx = kNegInf;
       for (int j = lane; j < n; j += 32)
-        mx = fmaxf(mx, mk[g * n + j] ? s_s[sidx(g, j, n)] : kNegInf);
-      mx = warp_max(mx);
-      if (lane == 0) m_s[g] = fmaxf(m_s[g], mx);
+        mx = max_nan(mx, mk[g * n + j] ? s_s[sidx(g, j, n)] : kNegInf);
+      mx = warp_max_nan(mx);
+      if (lane == 0) m_s[g] = max_nan(m_s[g], mx);
     }
     __syncthreads();
   }
@@ -779,7 +777,7 @@ rowmax_cluster_kernel(const T* __restrict__ q, const T* __restrict__ k,
   if (rank != 0) return;
   for (int g = tid; g < G; g += kThreads) {
     float mx = kNegInf;
-    for (int r = 0; r < C; ++r) mx = fmaxf(mx, red_s[r * G + g]);
+    for (int r = 0; r < C; ++r) mx = max_nan(mx, red_s[r * G + g]);
     rowmax[row0 + g] = mx;
   }
 }

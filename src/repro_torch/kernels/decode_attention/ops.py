@@ -70,7 +70,8 @@ def a3_decode_attention_compact(
     sk_scale: Optional[torch.Tensor] = None,     # [B, Hkv, NS, D] float32
     k_scale: Optional[torch.Tensor] = None,      # [B, Hkv, S] float32
     v_scale: Optional[torch.Tensor] = None,      # [B, Hkv, S] float32
-) -> torch.Tensor:
+    return_probe: bool = False,
+):
     """A^3 decode with sharded compaction (reference docstring): the
     ring splits into ``cfg.select_shards`` blocks, each runs the
     prefix-capped greedy walk and keeps its top-(C/NS) rows, and the
@@ -82,8 +83,15 @@ def a3_decode_attention_compact(
     columns, and the per-(block, column) scale is folded into the query
     (a positive scale keeps the walk's order and sign split); with
     ``k_scale``/``v_scale`` (per ring row) K and V may be int8, and only
-    the gathered candidates are dequantized, in float32. (The
-    reference's quality probe is not ported yet.)"""
+    the gathered candidates are dequantized, in float32.
+
+    Quality probe (``return_probe=True``): also returns a ``[B, 2]``
+    float32 tensor per lane: the mean candidate count per kv head, and
+    the captured score mass (softmax mass over the kept candidates over
+    the softmax mass over every valid ring row, both from the full-ring
+    float32 scores against the full-ring max, ``k_scale`` applied; in
+    [0, 1] by construction). It scores the whole ring once, so callers
+    sample it. The attention output runs the identical ops either way."""
     b, hq, d = q.shape
     _, hkv, s_len, dv = v.shape
     group = hq // hkv
@@ -169,4 +177,28 @@ def a3_decode_attention_compact(
     w = w / torch.clamp(w.sum(-1, keepdim=True), min=1e-20)
     vcat = vc.reshape(b, hkv, ns * c_loc, dv)
     out = torch.einsum("bhgc,bhcd->bhgd", w.to(vdt).float(), vcat.float())
-    return out.reshape(b, hq, dv).to(vdt)
+    out = out.reshape(b, hq, dv).to(vdt)
+    if not return_probe:
+        return out
+
+    # captured score mass: the full ring scored once in float32; both
+    # masses use those scores and their max, so the kept mass never
+    # exceeds the full one (blocks are disjoint, top-k rows distinct)
+    kbf = kb.float()
+    if k_scale is not None:
+        kbf = kbf * k_scale.reshape(b, hkv, ns, sl)[..., None]
+    fs = torch.einsum("bhgd,bhnld->bhgnl", qg, kbf)
+    fs = torch.where(valid_b[:, :, None], fs, float("-inf"))  # [B,Hkv,G,NS,SL]
+    mxf = fs.amax((3, 4), keepdim=True)                        # [B,Hkv,G,1,1]
+    finite = torch.isfinite(mxf)
+    full_mass = torch.where(finite & (fs > float("-inf")),
+                            torch.exp(fs - mxf), 0.0).sum((3, 4))
+    idx_g = idx[:, :, None].expand(b, hkv, group, ns, c_loc)
+    fsel = torch.gather(fs, 4, idx_g)                          # [B,Hkv,G,NS,Cl]
+    kept = keep.reshape(b, hkv, group, ns, c_loc) & live[:, :, None]
+    sel_mass = torch.where(kept & finite & (fsel > float("-inf")),
+                           torch.exp(fsel - mxf), 0.0).sum((3, 4))
+    ratio = torch.where(full_mass > 0.0,
+                        sel_mass / torch.clamp(full_mass, min=1e-20), 0.0)
+    cand = live.sum((2, 3)).float()                             # [B,Hkv]
+    return out, torch.stack([cand.mean(1), ratio.mean((1, 2))], 1)

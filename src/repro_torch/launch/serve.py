@@ -14,16 +14,22 @@ requests through the slot engine, optionally with A^3.
       --cache-pages 24 --l2-bytes 4294967296 --checkpoint-dir ckpt
   python -m repro_torch.launch.serve --arch phi4-mini-3.8b \\
       --checkpoint-dir ckpt --restore --chaos-rate 0.1 --chaos-seed 3
+  python -m repro_torch.launch.serve --arch phi4-mini-3.8b --a3 \\
+      conservative --telemetry --telemetry-every 8 --stats-json stats.json \\
+      --metrics-json metrics.json --trace-out trace.json
 
 ``--arch`` takes every arch the port registers (``list_archs``).
 
 Runs on the card unless ``--device cpu`` is given; prints the same
-summary line as ``repro.launch.serve``.
+summary line as ``repro.launch.serve``; ``--stats-json`` writes its
+``a3-serve-stats/v2`` snapshot (the port's knobs under ``config``).
 """
 from __future__ import annotations
 
 import argparse
 import collections
+import dataclasses
+import json
 import time
 
 import numpy as np
@@ -89,6 +95,28 @@ def main(argv=None) -> None:
                     help="decode-block harvests left in flight behind the "
                          "tick loop (the next block's tokens ride the "
                          "device-resident carry); 0 = synchronous harvest")
+    ap.add_argument("--stats-json", default="",
+                    help="write a versioned engine-stats snapshot (schema "
+                         "tag, config echo, counters, and the metrics "
+                         "registry when telemetry is on) as JSON to this "
+                         "path after the run; empty = none")
+    ap.add_argument("--telemetry", action="store_true",
+                    help="the serving telemetry plane: metrics registry "
+                         "(TTFT / TPOT / queue-sojourn histograms), "
+                         "request tracing, and the A^3 quality probe "
+                         "(candidate count and captured score mass, every "
+                         "--telemetry-every decode dispatches); adds no "
+                         "host sync, tokens unchanged")
+    ap.add_argument("--telemetry-every", type=int, default=8,
+                    help="run the A^3 quality probe on every N-th decode "
+                         "dispatch")
+    ap.add_argument("--metrics-json", default="",
+                    help="write the metrics-registry snapshot as JSON to "
+                         "this path after the run; implies --telemetry")
+    ap.add_argument("--trace-out", default="",
+                    help="write the request-lifecycle trace as "
+                         "Chrome-trace JSON (chrome://tracing, Perfetto) "
+                         "to this path after the run; implies --telemetry")
     ap.add_argument("--temperature", type=float, default=0.0,
                     help="sampling temperature, keyed by --seed, request "
                          "uid and position; 0 = greedy argmax")
@@ -126,6 +154,7 @@ def main(argv=None) -> None:
         cfg = smoke_variant(cfg)
     a3 = {"off": A3Config(), "conservative": A3Config.conservative(),
           "aggressive": A3Config.aggressive()}[args.a3]
+    telemetry = bool(args.telemetry or args.metrics_json or args.trace_out)
     serve = ServeConfig(slots=args.slots, max_len=args.max_len,
                         prefill_chunk=args.prefill_chunk or None,
                         prefill_chunk_min=args.prefill_chunk_min or None,
@@ -140,6 +169,8 @@ def main(argv=None) -> None:
                         max_queue=args.max_queue,
                         shed_policy=args.shed_policy,
                         deadline_ticks=args.deadline_ticks or None,
+                        telemetry=telemetry,
+                        telemetry_every=args.telemetry_every,
                         retain_results=args.retain_results)
     chaos = None
     if args.chaos_rate > 0.0:
@@ -179,6 +210,28 @@ def main(argv=None) -> None:
     if chaos is not None:
         print(f"chaos: seed={args.chaos_seed} rate={args.chaos_rate} "
               f"events={chaos.events} victims={sorted(chaos.injected_uids)}")
+    if args.stats_json:
+        snapshot = {
+            "schema": "a3-serve-stats/v2",
+            "config": {"arch": cfg.name, "a3": args.a3,
+                       "smoke": bool(args.smoke),
+                       "requests": args.requests,
+                       "prompt_len": args.prompt_len,
+                       "max_new": args.max_new, "seed": args.seed,
+                       "serve": dataclasses.asdict(serve)},
+            "stats": dict(engine.stats),
+        }
+        if engine.tm is not None:
+            snapshot["metrics"] = engine.tm.metrics_snapshot()
+        with open(args.stats_json, "w") as f:
+            json.dump(snapshot, f, indent=2, sort_keys=True)
+        print(f"wrote engine stats to {args.stats_json}")
+    if args.metrics_json and engine.tm is not None:
+        engine.tm.write_metrics(args.metrics_json)
+        print(f"wrote metrics snapshot to {args.metrics_json}")
+    if args.trace_out and engine.tm is not None:
+        engine.tm.write_trace(args.trace_out)
+        print(f"wrote chrome trace to {args.trace_out}")
     if args.checkpoint_dir:
         engine.checkpoint(args.checkpoint_dir)
         print(f"checkpointed engine to {args.checkpoint_dir}")

@@ -339,22 +339,43 @@ def prefill_chunk(
 # ---------------------------------------------------------------------------
 
 def decode_step(model: Decoder, cfg: ModelConfig, cache: Dict[str, Any],
-                token: torch.Tensor, pos, *, a3: A3Config = A3Config()
-                ) -> Tuple[torch.Tensor, Dict[str, Any]]:
+                token: torch.Tensor, pos, *, a3: A3Config = A3Config(),
+                probe: bool = False):
     """One ragged autoregressive step -> (logits [B, Vp], cache updated
     in place). ``pos`` is a scalar or a per-lane vector [B]; lanes with
-    ``pos < 0`` leave the cache bit-identical."""
+    ``pos < 0`` leave the cache bit-identical.
+
+    ``probe=True`` returns ``(logits, cache, (probe_sum [B, 2],
+    n_probed_layers))``: the A^3 quality probes (mean candidates,
+    captured score mass) of the global-attention layers with a cached
+    sort, summed over each segment's layers and then over segments, as
+    the reference sums them. The logits and cache come from the
+    identical ops either way."""
     h = embed_tokens(model, cfg, token[:, None])
     pos = torch.as_tensor(pos, device=h.device).to(torch.int32).expand(
         h.shape[0])
+    probe_sum, probe_layers = None, 0
     for si, seg in enumerate(build_segments(cfg)):
         mixer = mixer_for(seg, cfg)
+        seg_probe = []
         for l, blk in enumerate(model.segs[si].layers):
             hn = rmsnorm(blk.ln1, h, cfg.norm_eps)
-            o = mixer.decode_step(blk, _layer_state(cache[f"seg{si}"], l),
-                                  hn, cfg=cfg, seg=seg, pos=pos, a3=a3)
+            state = _layer_state(cache[f"seg{si}"], l)
+            o = mixer.decode_step(blk, state, hn, cfg=cfg, seg=seg, pos=pos,
+                                  a3=a3, probe=probe)
+            if "_probe" in state:
+                seg_probe.append(state["_probe"])
             h, _ = _ffn_block(blk, h + o, cfg)
-    return unembed(model, cfg, h)[:, 0], cache
+        if seg_probe:
+            pr = torch.stack(seg_probe).sum(0)
+            probe_sum = pr if probe_sum is None else probe_sum + pr
+            probe_layers += len(seg_probe)
+    logits = unembed(model, cfg, h)[:, 0]
+    if probe:
+        if probe_sum is None:
+            probe_sum = torch.zeros((h.shape[0], 2), device=h.device)
+        return logits, cache, (probe_sum, probe_layers)
+    return logits, cache
 
 
 def resort_sorted_keys(cache: Dict[str, Any], pos: torch.Tensor,
@@ -419,7 +440,8 @@ def decode_block(
     temperature: float = 0.0,
     key: Optional[torch.Tensor] = None,
     sample_ids: Optional[torch.Tensor] = None,   # [B] per-request uids
-) -> Tuple[torch.Tensor, torch.Tensor, Dict[str, Any]]:
+    probe: bool = False,
+):
     """Run ``steps`` decode steps with sampling on the device ->
     (token ring [B, steps] int32, token carry [B] int32, cache).
 
@@ -430,7 +452,14 @@ def decode_block(
     is given; ``sample_ids`` are the lanes' request uids). A lane is
     active while ``pos >= 0`` and its budget is unspent; inactive lanes
     ride along at ``pos = -1`` (ring entries -1, cache untouched). A lane
-    whose logits go non-finite emits :data:`POISON` once and freezes."""
+    whose logits go non-finite emits :data:`POISON` once and freezes.
+
+    ``probe=True`` (A^3 telemetry) returns ``(ring, carry, cache, probe
+    [B, 3])``: per lane, over the block's advanced steps only, (samples,
+    sum of the step's mean candidate count, sum of its captured score
+    mass), each step's layer sum divided by ``max(layers, 1)`` and the
+    mass clipped to [0, 1]. It stays on the device with the ring; the
+    token and cache path runs the identical ops."""
     dev = token.device
     b = token.shape[0]
     pos = torch.as_tensor(pos, device=dev).to(torch.int32).expand(b)
@@ -439,6 +468,7 @@ def decode_block(
     token = token.to(torch.int32)
     do_resort = resort_every > 0 and a3.mode != A3Mode.OFF
     ring = []
+    acc = torch.zeros((b, 3), device=dev) if probe else None
     for t in range(steps):
         active = (pos >= 0) & (remaining > 0)
         eff_pos = torch.where(active, pos, -1)
@@ -446,8 +476,12 @@ def decode_block(
             resort_sorted_keys(cache, eff_pos, resort_every,
                                None if resort_plan is None
                                else resort_plan[t])
-        logits, cache = decode_step(model, cfg, cache, token, eff_pos,
-                                    a3=a3)
+        if probe:
+            logits, cache, (psum, players) = decode_step(
+                model, cfg, cache, token, eff_pos, a3=a3, probe=True)
+        else:
+            logits, cache = decode_step(model, cfg, cache, token, eff_pos,
+                                        a3=a3)
         nxt = sample_logits(logits, temperature=temperature, key=key,
                             pos=eff_pos, ids=sample_ids)
         ok = torch.isfinite(logits).all(-1) & (token != POISON)
@@ -460,4 +494,13 @@ def decode_block(
         remaining = torch.where(poisoned, 0,
                                 torch.where(advance, remaining - 1,
                                             remaining))
-    return torch.stack(ring, 1).to(torch.int32), token, cache
+        if probe:
+            nl = max(players, 1)
+            row = torch.stack([torch.ones((b,), device=dev),
+                               psum[:, 0] / nl,
+                               torch.clamp(psum[:, 1] / nl, 0.0, 1.0)], 1)
+            acc = acc + torch.where(advance[:, None], row, 0.0)
+    ring = torch.stack(ring, 1).to(torch.int32)
+    if probe:
+        return ring, token, cache, acc
+    return ring, token, cache

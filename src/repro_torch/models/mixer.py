@@ -304,9 +304,12 @@ def _attn_prefill_chunk(layer, state: Dict[str, torch.Tensor],
 def _attn_decode_step(layer, state: Dict[str, torch.Tensor],
                       hn: torch.Tensor, *, cfg: ModelConfig,
                       seg: SegmentSpec, pos: torch.Tensor, a3: A3Config,
-                      **_) -> torch.Tensor:
+                      probe: bool = False, **_) -> torch.Tensor:
     """One ragged decode step through one layer: writes the token's K/V
-    into the ring in place and attends over it."""
+    into the ring in place and attends over it. With ``probe`` an A^3
+    layer with a cached sort also leaves its quality probe, ``[B, 2]``
+    (mean candidates, captured score mass), in ``state["_probe"]``; the
+    output runs the identical ops either way."""
     hd = cfg.resolved_head_dim
     q, k, v = attention_qkv(layer.attn, hn, pos[:, None], cfg.num_heads,
                             cfg.num_kv_heads, hd, cfg.rope_theta)
@@ -323,7 +326,9 @@ def _attn_decode_step(layer, state: Dict[str, torch.Tensor],
         o = a3_decode_attention_compact(
             q[:, :, 0], kc, vc, valid, a3,
             SortedKeys(state["sk_vals"], state["sk_rows"]),
-            fresh_mask=fresh)
+            fresh_mask=fresh, return_probe=probe)
+        if probe:
+            o, state["_probe"] = o
     elif use_a3:
         # no cached sort: build one inline (single-shot use)
         o = a3_decode_attention(q[:, :, 0], kc, vc, valid, a3,

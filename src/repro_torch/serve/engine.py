@@ -1,7 +1,7 @@
 """Serving engine of the port: ``repro.serve.engine.ServeEngine`` in
 PyTorch, with its paged prefix cache and host-RAM L2 page tier, its
-crash-consistent checkpoint and restore and its deterministic chaos
-injection; without its telemetry.
+crash-consistent checkpoint and restore, its deterministic chaos
+injection and its telemetry plane.
 
 Slot-based continuous batching with the reference's tick loop::
 
@@ -104,6 +104,22 @@ tick (``chaos_aborted_ticks``) and lets ``EngineCrash`` through; a tick
 aborted between the prefill dispatch and the decode harvest leaves
 handoff tokens that the next prefilling tick flushes with one direct
 read (``_flush_stale_handoff``).
+
+Telemetry (``telemetry=True``, ``serve.telemetry``; off by default, and
+then every hook is one ``is not None`` test and the engine is the
+telemetry-less one, tokens and stats alike): the reference's metrics
+registry (TTFT and queue sojourn keyed by terminal state, TPOT,
+decode-block and prefill-chunk latency, the ``stats`` dict as
+``serve_*`` counters), its request trace (submit, queued, admit,
+prefill chunks, first token, decode blocks from dispatch to harvest,
+terminal, and the engine's and the prefix cache's events; Chrome-trace
+export) and the A^3 quality probe: with A^3 and sorted-key state every
+``telemetry_every``-th decode dispatch runs ``decode_block(probe=True)``,
+whose ``[slots, 3]`` probe is copied to pinned memory before the ring's
+CUDA event is recorded and lands in the same drain, so telemetry adds
+no host sync (``host_syncs`` and ``host_sync_stalls`` are the
+telemetry-off serve's). A checkpoint carries the registry; one without
+it restores with fresh histograms.
 """
 from __future__ import annotations
 
@@ -127,6 +143,7 @@ from repro_torch.serve.chaos import ChaosError, ChaosInjector, EngineCrash, \
 from repro_torch.serve.page_store import CheckpointError, IntegrityError, \
     copy_into, deserialize_tree, serialize_tree
 from repro_torch.serve.prefix_cache import PrefixCache
+from repro_torch.serve.telemetry import Telemetry
 
 # packed control-word layout (the reference's CTRL_* columns)
 CTRL_P_POS = 0        # prefill: per-lane chunk start position
@@ -178,17 +195,20 @@ def prefill_chunk_step(model, cfg: ModelConfig, cache, tokens, ctrl, *,
 def decode_block_step(model, cfg: ModelConfig, cache, token, first_tok,
                       ctrl, *, steps: int, a3: A3Config, resort_every: int,
                       resort_plan=None, temperature: float = 0.0,
-                      key: Optional[torch.Tensor] = None):
+                      key: Optional[torch.Tensor] = None,
+                      probe: bool = False):
     """The blocked-decode dispatch -> (harvest [B, 1+steps], carry [B],
-    cache). Lanes with the handoff bit take ``first_tok`` as input; the
-    harvest prepends the effective input column to the token ring."""
+    cache), and with ``probe`` a fourth item, the A^3 quality probe
+    [B, 3] of ``decoder.decode_block``. Lanes with the handoff bit take
+    ``first_tok`` as input; the harvest prepends the effective input
+    column to the token ring."""
     token = torch.where(ctrl[:, CTRL_D_HMASK] > 0, first_tok, token)
-    ring, carry, cache = decoder.decode_block(
+    ring, carry, cache, *pr = decoder.decode_block(
         model, cfg, cache, token, ctrl[:, CTRL_D_POS], ctrl[:, CTRL_D_STEPS],
         steps=steps, a3=a3, resort_every=resort_every,
         resort_plan=resort_plan, temperature=temperature, key=key,
-        sample_ids=ctrl[:, CTRL_D_IDS])
-    return torch.cat([token[:, None], ring], 1), carry, cache
+        sample_ids=ctrl[:, CTRL_D_IDS], probe=probe)
+    return (torch.cat([token[:, None], ring], 1), carry, cache, *pr)
 
 
 class Request(NamedTuple):
@@ -246,6 +266,11 @@ class _PendingHarvest:
     refs: Dict[int, int]
     # earliest monotonic time the block may be read (0.0 = no emulation)
     ready_at: float = 0.0
+    # telemetry: the A^3 probe [slots, 3] on the host, copied behind the
+    # same event as ``host`` (None on unprobed dispatches), and the
+    # dispatch's monotonic ns (the trace span's start)
+    probe: Optional[torch.Tensor] = None
+    t_dispatch: int = 0
 
 
 def _block_done(e: _PendingHarvest) -> bool:
@@ -269,7 +294,8 @@ class ServeEngine:
                  deadline_ticks: Optional[int] = None,
                  pipeline_depth: int = 0,
                  virtual_device_latency_s: float = 0.0,
-                 retain_results: int = 0,
+                 telemetry: bool = False, telemetry_every: int = 8,
+                 trace_events: int = 4096, retain_results: int = 0,
                  chaos: Optional[ChaosInjector] = None):
         if cfg.frontend:
             # token prompts only, as the reference engine: frontend archs
@@ -331,10 +357,23 @@ class ServeEngine:
         if float(virtual_device_latency_s) < 0.0:
             raise ValueError(f"virtual_device_latency_s must be >= 0, "
                              f"got {virtual_device_latency_s}")
+        if int(telemetry_every) < 1:
+            raise ValueError(f"telemetry_every must be >= 1, got "
+                             f"{telemetry_every}")
+        if int(trace_events) < 1:
+            raise ValueError(f"trace_events must be >= 1, got "
+                             f"{trace_events}")
         if int(retain_results) < 0:
             raise ValueError(f"retain_results must be >= 0, got "
                              f"{retain_results} (0 = unbounded "
                              f"retention)")
+        self.telemetry = bool(telemetry)
+        self.telemetry_every = int(telemetry_every)
+        self.trace_events = int(trace_events)
+        self._tm: Optional[Telemetry] = (
+            Telemetry(trace_events=self.trace_events,
+                      telemetry_every=self.telemetry_every)
+            if self.telemetry else None)
         self.page_size = int(page_size)
         self.cache_pages = int(cache_pages)
         self.kv_quant = kv_quant
@@ -360,6 +399,9 @@ class ServeEngine:
                                         device=self.device)
         self._n_a3_segs = sum(1 for sc in self.cache.values()
                               if "sk_vals" in sc)
+        # the A^3 quality probe: only with telemetry and sorted-key state
+        self._probe = (self._tm is not None and self._use_a3
+                       and self._n_a3_segs > 0)
         self._handoff: set = set()
         self._first_tok: Optional[torch.Tensor] = None
         self._pending: Deque[_PendingHarvest] = collections.deque()
@@ -390,6 +432,9 @@ class ServeEngine:
                       "tick_ns_prefill": 0, "tick_ns_decode": 0,
                       "tick_ns_harvest": 0, "tick_ns_host": 0,
                       "host_sync_stalls": 0}
+        if self._tm is not None:
+            # the stats dict, read by reference at exposition time
+            self._tm.registry.attach_stats("serve_", self.stats)
         # the paged prefix cache (cache_pages 0: none, no pool memory)
         self._pc: Optional[PrefixCache] = None
         if self.cache_pages > 0:
@@ -399,6 +444,7 @@ class ServeEngine:
                                    a3=self._use_a3, kv_quant=kv_quant,
                                    l2_bytes=self.l2_bytes,
                                    stats=self.stats, device=self.device)
+            self._pc.tm = self._tm
             if self._pc.l2 is not None and chaos is not None:
                 # the restore_corrupt site: flip a blob byte right before
                 # its verified restore (the checksum must catch it)
@@ -424,6 +470,9 @@ class ServeEngine:
                    shed_policy=serve.shed_policy,
                    deadline_ticks=serve.deadline_ticks,
                    pipeline_depth=serve.pipeline_depth,
+                   telemetry=serve.telemetry,
+                   telemetry_every=serve.telemetry_every,
+                   trace_events=serve.trace_events,
                    retain_results=serve.retain_results, chaos=chaos)
 
     # -- public API ---------------------------------------------------------
@@ -462,6 +511,8 @@ class ServeEngine:
         uid = self._uid
         self._uid += 1
         self.stats["submitted"] += 1
+        if self._tm is not None:
+            self._tm.on_submit(uid)
         if self._draining:
             self._terminal(uid, REJECTED)
             return uid
@@ -518,6 +569,11 @@ class ServeEngine:
         return self._draining
 
     @property
+    def tm(self) -> Optional[Telemetry]:
+        """The telemetry bundle (None unless ``telemetry=True``)."""
+        return self._tm
+
+    @property
     def in_flight(self) -> int:
         return len(self._queue) + sum(1 for s in self.slots if s.active)
 
@@ -539,10 +595,14 @@ class ServeEngine:
                 # a virtual stall: the tick does no work (deadlines still
                 # elapse)
                 self.stats["chaos_delayed_ticks"] += 1
+                if self._tm is not None:
+                    self._tm.event("chaos_delay", tick=tick)
                 self.stats["tick_ns_host"] += time.monotonic_ns() - t0
                 return
             spill = ch.pick_spill(tick)
             if spill and self._pc is not None:
+                if self._tm is not None:
+                    self._tm.event("chaos_spill", tick=tick, pages=spill)
                 self._pc.spill(spill)
         self._expire_tick()
         self._admit()
@@ -590,6 +650,8 @@ class ServeEngine:
                 raise
             except ChaosError:
                 self.stats["chaos_aborted_ticks"] += 1
+                if self._tm is not None:
+                    self._tm.event("chaos_abort", tick=self.stats["ticks"])
             ticks += 1
         if self.in_flight:
             self.stats["max_ticks_exhausted"] += 1
@@ -622,6 +684,9 @@ class ServeEngine:
                 "deadline_ticks": self.deadline_ticks,
                 "pipeline_depth": self.pipeline_depth,
                 "virtual_device_latency_s": self.virtual_device_latency_s,
+                "telemetry": self.telemetry,
+                "telemetry_every": self.telemetry_every,
+                "trace_events": self.trace_events,
                 "retain_results": self.retain_results}
 
     def checkpoint(self, path: str) -> None:
@@ -633,9 +698,11 @@ class ServeEngine:
         ".tmp"`` first; one ``os.rename`` commits it (an interrupted
         commit leaves ``path + ".old"``, which :meth:`restore` falls back
         to). ``state.json`` carries a crc32 and the arrays are one
-        checksummed blob, so a torn checkpoint fails restore loudly."""
+        checksummed blob, so a torn checkpoint fails restore loudly. With
+        telemetry the registry's counters and histograms go with it."""
         # the snapshot must be host-consistent at a tick boundary: land
         # every harvest in flight and resolve any handoff token
+        t_ck = time.monotonic_ns()
         self._drain_harvests()
         self._flush_stale_handoff()
         self._finish_done_slots()
@@ -667,6 +734,10 @@ class ServeEngine:
                        "max_new": r.max_new_tokens,
                        "deadline": r.deadline} for r in self._queue],
             "slots": slots_meta}
+        if self._tm is not None:
+            # optional key: a checkpoint without it restores with fresh
+            # histograms
+            state["telemetry"] = self._tm.dump_state()
         arrays: Dict[str, Any] = {"cache": self.cache}
         l2_blobs: List[bytes] = []
         if self._pc is not None:
@@ -699,6 +770,9 @@ class ServeEngine:
         os.rename(tmp, path)
         shutil.rmtree(old, ignore_errors=True)
         self.stats["checkpoints"] += 1
+        if self._tm is not None:
+            self._tm.span("checkpoint", ts_ns=t_ck,
+                          dur_ns=time.monotonic_ns() - t_ck, path=path)
 
     @classmethod
     def restore(cls, path: str, model: decoder.Decoder, cfg: ModelConfig,
@@ -796,6 +870,10 @@ class ServeEngine:
                     eng._pc.ref(node)
             eng.slots[si] = s
         eng.stats["restores"] += 1
+        if eng._tm is not None:
+            if "telemetry" in state:
+                eng._tm.load_state(state["telemetry"])
+            eng._tm.event("restore", tick=int(eng.stats["ticks"]))
         return eng
 
     # -- internals ------------------------------------------------------------
@@ -810,6 +888,8 @@ class ServeEngine:
     def _terminal(self, uid: int, status: str):
         self._status[uid] = status
         self.stats[_TERMINAL[status]] += 1
+        if self._tm is not None:
+            self._tm.on_terminal(uid, status)
         if self.retain_results > 0:
             self._terminal_order.append(uid)
             while len(self._terminal_order) > self.retain_results:
@@ -857,6 +937,9 @@ class ServeEngine:
         victim = self._chaos.pick_corrupt_victim(self.stats["ticks"],
                                                  sorted(decoding))
         if victim is not None:
+            if self._tm is not None:
+                self._tm.event("chaos_corrupt", uid=victim,
+                               track=decoding[victim])
             corrupt_cache_lane(self.cache, decoding[victim])
 
     def _admit(self):
@@ -883,6 +966,9 @@ class ServeEngine:
                             self._chaos.gather_fail(self.stats["ticks"],
                                                     req.uid, t)
                         except ChaosError:
+                            if self._tm is not None:
+                                self._tm.event("chaos_gather_fail",
+                                               uid=req.uid)
                             self._terminal(req.uid, FAILED)
                             continue
                     self._pc.ref(node)      # the recording anchor's pin
@@ -899,6 +985,8 @@ class ServeEngine:
                                        planned_upto=t, rec_node=node,
                                        deadline=req.deadline)
             self._status[req.uid] = PREFILLING
+            if self._tm is not None:
+                self._tm.on_admit(req.uid, si, reused_tokens=t)
 
     def _plan_prefill(self, ctrl: np.ndarray) -> Optional[Dict[str, Any]]:
         pre = [si for si, s in enumerate(self.slots)
@@ -947,12 +1035,21 @@ class ServeEngine:
     def _prefill_tick(self, plan: Optional[Dict[str, Any]], ctrl_dev):
         if plan is None:
             return
+        t_disp = time.monotonic_ns() if self._tm is not None else 0
         first_tok, self.cache = prefill_chunk_step(
             self.model, self.cfg, self.cache, self._upload(plan["tokens"]),
             ctrl_dev, a3=self._use_a3,
             sort_any=plan["sort_any"] and self._use_a3,
             temperature=self.temperature, key=self._sample_key)
         self.stats["prefill_dispatches"] += 1
+        if self._tm is not None:
+            # one ragged dispatch serves every prefilling lane: each lane
+            # gets a span of its wall time
+            dur = time.monotonic_ns() - t_disp
+            for si in plan["pre"]:
+                self._tm.on_prefill_chunk(
+                    self.slots[si].uid, si, ts_ns=t_disp, dur_ns=dur,
+                    pos=self.slots[si].cursor, chunk=plan["takes"][si])
         ps = self.page_size
         for si in plan["pre"]:
             s = self.slots[si]
@@ -1074,6 +1171,8 @@ class ServeEngine:
                 self._release_slot(si, FAILED)
             else:
                 s.generated.append(tok)
+                if self._tm is not None:
+                    self._tm.on_first_token(s.uid)
             self._carry_ok[si] = False
         self.stats["tick_ns_harvest"] += time.monotonic_ns() - th
 
@@ -1109,12 +1208,17 @@ class ServeEngine:
         else:
             token_dev = self._token_carry
         first = self._first_tok if handoff else self._zero_tok
-        full, carry, self.cache = decode_block_step(
+        # A^3 telemetry: every telemetry_every-th dispatch also returns
+        # the quality probe (identical token and cache ops)
+        probe = self._probe and \
+            self.stats["decode_dispatches"] % self.telemetry_every == 0
+        t_disp = time.monotonic_ns() if self._tm is not None else 0
+        full, carry, self.cache, *pr = decode_block_step(
             self.model, self.cfg, self.cache, token_dev, first, ctrl_dev,
             steps=t, a3=self.a3,
             resort_every=self.resort_every if self._use_a3 else 0,
             resort_plan=self._resort_plan(plan),
-            temperature=self.temperature, key=self._sample_key)
+            temperature=self.temperature, key=self._sample_key, probe=probe)
         self.stats["decode_steps"] += t
         self.stats["decode_steps_advanced"] += int(min(t, steps_left.max()))
         self.stats["decode_dispatches"] += 1
@@ -1122,7 +1226,7 @@ class ServeEngine:
         self._token_carry = carry
         for si in list(active) + list(handoff):
             self._carry_ok[si] = True
-        host, done = self._copy_to_host(full)
+        host, done, host_pr = self._copy_to_host(full, *pr)
         entry = _PendingHarvest(
             host, done,
             handoff=[(si, self.slots[si].uid) for si in sorted(handoff)
@@ -1132,7 +1236,8 @@ class ServeEngine:
                    for si in active if self.slots[si].decoding],
             refs={},
             ready_at=(time.monotonic() + self.virtual_device_latency_s
-                      if self.virtual_device_latency_s > 0.0 else 0.0))
+                      if self.virtual_device_latency_s > 0.0 else 0.0),
+            probe=host_pr, t_dispatch=t_disp)
         for si, uid in entry.handoff:
             entry.refs[si] = uid
         # pos / budget advance at dispatch: the device runs exactly this
@@ -1149,18 +1254,23 @@ class ServeEngine:
         self._finish_done_slots()
 
     @staticmethod
-    def _copy_to_host(full: torch.Tensor):
-        """Start the harvest's copy to a pinned host buffer behind the
-        block on the current stream -> (host tensor, CUDA event recorded
-        after the copy; None on the CPU, where ``full`` is the host
-        tensor)."""
+    def _copy_to_host(full: torch.Tensor, probe=None):
+        """Start the harvest's copy (and the probe's, if any) to pinned
+        host buffers behind the block on the current stream -> (host
+        harvest, CUDA event recorded after both copies, host probe or
+        None). On the CPU the tensors are the host copies and the event
+        is None."""
         if not full.is_cuda:
-            return full, None
-        host = torch.empty(full.shape, dtype=full.dtype, pin_memory=True)
-        host.copy_(full, non_blocking=True)
+            return full, None, probe
+        copies = []
+        for t in (full, probe):
+            if t is not None:
+                t = torch.empty(t.shape, dtype=t.dtype,
+                                pin_memory=True).copy_(t, non_blocking=True)
+            copies.append(t)
         done = torch.cuda.Event()
         done.record()
-        return host, done
+        return copies[0], done, copies[1]
 
     def _drain_harvests(self, keep: int = 0):
         """Land queued harvests oldest-first at one sync point, leaving
@@ -1176,6 +1286,10 @@ class ServeEngine:
                    for _ in range(len(self._pending) - keep)]
         if any(not _block_done(e) or e.ready_at > now for e in entries):
             self.stats["host_sync_stalls"] += 1
+            if self._tm is not None:
+                self._tm.event("host_sync_stall",
+                               forced_blocks=len(entries),
+                               in_flight=len(self._pending))
         while self._pending and _block_done(self._pending[0]) \
                 and self._pending[0].ready_at <= now:
             entries.append(self._pending.popleft())
@@ -1192,6 +1306,18 @@ class ServeEngine:
     def _apply_harvest(self, e: _PendingHarvest, h: np.ndarray):
         """One block's host bookkeeping, every row guarded by the uid its
         lane held at dispatch."""
+        tm = self._tm
+        if tm is not None:
+            now = time.monotonic_ns()
+            tm.on_decode_block(
+                [(si, uid) for si, uid, _nb, _p0 in e.lanes],
+                ts_ns=e.t_dispatch or now,
+                dur_ns=now - e.t_dispatch if e.t_dispatch else 0,
+                steps=max((nb for _si, _u, nb, _p0 in e.lanes), default=0),
+                deferred=self.pipeline_depth > 0)
+            if e.probe is not None:
+                # landed behind the ring's event: no extra sync
+                tm.on_a3_probe(e.probe.numpy())
         for si, uid in e.handoff:
             s = self.slots[si]
             if s.uid != uid or not s.decoding:
@@ -1201,6 +1327,8 @@ class ServeEngine:
                 self._release_slot(si, FAILED)
             else:
                 s.generated.append(tok)
+                if tm is not None:
+                    tm.on_first_token(s.uid)
         for si, uid, nb, pos0 in e.lanes:
             s = self.slots[si]
             if s.uid != uid or not s.decoding:
@@ -1210,6 +1338,8 @@ class ServeEngine:
                 self._release_slot(si, FAILED)
                 continue
             s.generated.extend(int(tok) for tok in row)
+            if tm is not None and nb > 0:
+                tm.on_decode_steps(s.uid, nb)
             if self._use_a3:
                 # mirror the device watermark (checked before each
                 # step's ring write, as resort_sorted_keys does)

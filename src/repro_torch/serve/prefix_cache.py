@@ -260,6 +260,9 @@ class PrefixCache:
         # chaos hook: called with the blob key before each L2 restore;
         # True corrupts the blob first (the restore_corrupt site)
         self.l2_fault_hook: Optional[Any] = None
+        # the engine's telemetry bundle (None = off): page and L2 events
+        # on the trace's "cache" track
+        self.tm: Optional[Any] = None
         # the demotions' blocking device-to-host reads: count and wall ns
         self.demote_reads = 0
         self.demote_read_ns = 0
@@ -416,6 +419,9 @@ class PrefixCache:
         if not node.parent.children:
             self._push(node.parent)     # the parent may now be evictable
         self.stats["pages_evicted"] += 1
+        if self.tm is not None:
+            self.tm.event("page_evict", track="cache",
+                          demoted=self.l2 is not None, end=node.end)
 
     def spill(self, n: int) -> int:
         """Force-evict up to ``n`` LRU evictable nodes (the chaos
@@ -472,6 +478,8 @@ class PrefixCache:
         self.l2.put(self._path_of(node),
                     {"page": host["page"], "snap": snap, "sk": host["sk"],
                      "meta": {"snap_valid": np.uint8(node.snap_valid)}})
+        if self.tm is not None:
+            self.tm.event("l2_demote", track="cache", end=node.end)
 
     def _page_payload(self, tree: Dict[str, Any]) -> Dict[str, Any]:
         """A blob's pool page, each leaf checked against the pool's
@@ -536,6 +544,9 @@ class PrefixCache:
                 self._free.append(pid)
             self.l2.discard(key)
             self.stats["l2_integrity_drops"] += 1
+            if self.tm is not None:
+                self.tm.event("l2_integrity_drop", track="cache",
+                              tokens=len(key))
             return None
         finally:
             self.unref(parent)
@@ -563,6 +574,8 @@ class PrefixCache:
             if len(charged) == self._sk_cost:
                 child.sk_pages = charged
                 child.sk_snap = staged["sk"]
+        if self.tm is not None:
+            self.tm.event("l2_promote", track="cache", end=child.end)
         return child
 
     # -- admission -----------------------------------------------------------
@@ -621,6 +634,9 @@ class PrefixCache:
         self.stats["prefix_hits"] += len(entries)
         self.stats["prefix_tokens_reused"] += sum(t for _, t, _ in entries)
         self.stats["gather_dispatches"] += 1
+        if self.tm is not None:
+            self.tm.event("prefix_hit", track="cache", hits=len(entries),
+                          tokens=sum(t for _, t, _ in entries))
         return cache
 
     # -- recording -----------------------------------------------------------
@@ -646,6 +662,8 @@ class PrefixCache:
                 if self._has_rec:
                     child.snap = self._snapshot(cache, si)
                 child.snap_valid = True
+            if self.tm is not None:
+                self.tm.event("page_dedupe", track="cache", end=child.end)
             return child
         page_id = self._alloc_page()
         if page_id is None:

@@ -31,7 +31,8 @@ from repro_torch.kernels.a3_attention import ops as tops  # noqa: E402
 from repro_torch.kernels.a3_attention.ref import \
     a3_sparse_attention_ref  # noqa: E402
 
-from test_torch_helpers import N, cuda, tol  # noqa: E402,F401
+from test_torch_helpers import N, assert_nan_and_zero_rows, cuda, \
+    tol  # noqa: E402,F401
 
 torch.set_num_threads(1)
 
@@ -696,3 +697,70 @@ def test_cuda_sparse_head_dim_256_matches_plain(cuda, window, threshold,
                                    threshold=threshold, window=window)
     assert tuple(out.shape) == (1, 8, 512, 256)
     np.testing.assert_allclose(N(out), N(want), **tol(dtype))
+
+
+# ---------------------------------------------------------------------------
+# NaN keys through the pair (#5 row max, #6 attend)
+# ---------------------------------------------------------------------------
+
+NAN_KEY = 200                     # a key of block 1 at 128-row blocks
+
+
+def _nan_qkv(seed, b, hq, hkv, s, d, dtype):
+    """``_qkv`` with key ``NAN_KEY`` NaN in batch 1 (V finite); batch 0
+    clean."""
+    arrs, _ = _qkv(seed, b, hq, hkv, s, d, "float32")
+    arrs[1][1, :, NAN_KEY] = np.nan
+    return arrs, [torch.from_numpy(a).to(getattr(torch, dtype))
+                  for a in arrs]
+
+
+
+@pytest.mark.parametrize("threshold", [None, 3.0])
+def test_sparse_plain_propagates_nan_keys_as_pallas(jx, threshold):
+    """#5's and #6's plain versions against the Pallas sparse kernels in
+    interpret mode on a NaN key: every query that admits it (causally
+    after it, in a live block) gets a NaN row max (``jnp.maximum``), so
+    its row comes out NaN without a threshold and zero under one."""
+    arrs, (tq, tk_, tv) = _nan_qkv(61, 2, 4, 2, 512, 32, "float32")
+    bm = _random_map(61, 2, 4, 4, 4, 0.5)
+    idx, cnt = jx.k.build_block_map(jx.jnp.asarray(bm))
+    ref = jx.k.a3_sparse_attention(*_jax(jx, arrs, "float32"), idx, cnt,
+                                   threshold=threshold, causal=True,
+                                   interpret=True)
+    tidx, tcnt = tak.build_block_map(torch.from_numpy(bm))
+    out = tak.a3_sparse_attention(tq, tk_, tv, tidx, tcnt,
+                                  threshold=threshold, causal=True)
+    assert_nan_and_zero_rows(out, ref, 2e-5, 2e-5)
+    kidx, kcnt = tak.union_block_map_gqa(tidx, tcnt, 2, 4)
+    rm = N(tak.sparse_rowmax_plain(tq, tk_, kidx, kcnt)).reshape(2, 4, 512)
+    poisoned = np.isnan(rm)
+    assert poisoned[1].any() and not poisoned[0].any()
+    assert not poisoned[1, :, :NAN_KEY].any()          # causally before it
+    rows = N(out)[poisoned]
+    assert (np.isnan(rows).all() if threshold is None
+            else (rows == 0).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("threshold", [None, 3.0])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_cuda_sparse_nan_keys_match_plain(cuda, dtype, threshold):
+    """On the card, at phi4-mini's attention width (Hq=24, Hkv=8, S=2048,
+    D=128; bf16 takes the tensor-core routes, float32 the CUDA-core
+    ones): #5 and #6 on a NaN key give their plain versions' NaN and
+    zero rows, the other rows within the tolerance."""
+    _, tt = _nan_qkv(23, 2, 24, 8, 2048, 128, dtype)
+    tq, tk_, tv = [t.to(cuda) for t in tt]
+    bm = torch.from_numpy(_random_map(23, 2, 24, 16, 16, 0.5)).to(cuda)
+    idx, cnt = tak.union_block_map_gqa(*tak.build_block_map(bm), 3, 16)
+    rm = tak.sparse_rowmax(tq, tk_, idx, cnt)
+    want_rm = tak.sparse_rowmax_plain(tq, tk_, idx, cnt)
+    assert_nan_and_zero_rows(rm[..., None], want_rm[..., None],
+                              **tol(dtype))
+    assert bool(torch.isnan(want_rm).any())
+    out = tak.sparse_attend(tq, tk_, tv, idx, cnt, want_rm,
+                            threshold=threshold)
+    want = tak.sparse_attend_plain(tq, tk_, tv, idx, cnt, want_rm,
+                                   threshold=threshold)
+    assert_nan_and_zero_rows(out, want, **tol(dtype))

@@ -20,7 +20,8 @@ from repro_torch.kernels.decode_attention import kernel as tk  # noqa: E402
 from repro_torch.kernels.decode_attention.ref import \
     decode_attention_ref  # noqa: E402
 
-from test_torch_helpers import N, cuda, tol  # noqa: E402,F401
+from test_torch_helpers import N, assert_nan_and_zero_rows, cuda, \
+    tol  # noqa: E402,F401
 
 torch.set_num_threads(1)
 
@@ -403,3 +404,75 @@ def test_cuda_two_pass_threshold_zero_keeps_the_max(cuda, dtype, s, skew_v):
     admits = tm.any(-1)
     lost = int(((out == 0).all(-1) & admits).sum())
     assert lost == 0, f"{lost} of {int(admits.sum())} admitting rows are 0"
+
+
+# ---------------------------------------------------------------------------
+# NaN keys through the two-pass pair (#2 row max, #3 attend)
+# ---------------------------------------------------------------------------
+
+def _nan_inputs(seed, b, hq, hkv, s, d, dtype):
+    """``_inputs`` with NaN keys: lane 1 one NaN key row (row 5, admitted
+    everywhere, V finite), lane 2 a NaN ring whose last row is finite
+    and admitted (a corrupted cache lane the step after); lane 0 clean."""
+    (q, k, v, mask), _ = _inputs(seed, b, hq, hkv, s, d, "float32")
+    mask[1:3, :, 5] = True
+    mask[2, :, s - 1] = True
+    k[1, :, 5] = np.nan
+    k[2, :, :s - 1] = np.nan
+    v[2, :, :s - 1] = np.nan
+    tdt = getattr(torch, dtype)
+    tt = [torch.from_numpy(a).to(tdt) for a in (q, k, v)] + \
+        [torch.from_numpy(mask)]
+    return (q, k, v, mask), tt
+
+
+
+@pytest.mark.parametrize("block_k", [128, 256])
+@pytest.mark.parametrize("threshold", [None, 3.0])
+def test_two_pass_plain_propagates_nan_keys_as_pallas(jx, threshold,
+                                                      block_k):
+    """#2's and #3's plain versions (the CPU route) against the Pallas
+    ``exact_two_pass`` kernels in interpret mode on NaN keys: a NaN score
+    makes its row max NaN (``jnp.maximum``), so the admitting rows of
+    lanes 1 and 2 come out NaN without a threshold and zero under one
+    (every score fails ``s >= NaN - t``: l = 0); lane 0 stays finite."""
+    arrays, (tq, tk_, tv, tm) = _nan_inputs(31, 3, 4, 2, 256, 32,
+                                            "float32")
+    q, k, v, m = _to_jax(jx, arrays, "float32")
+    ref = jx.decode_attention(q, k, v, m, threshold=threshold,
+                              block_k=block_k, interpret=True,
+                              exact_two_pass=True)
+    out = tk.decode_attention_plain(tq, tk_, tv, tm, threshold=threshold,
+                                    block_k=block_k, exact_two_pass=True)
+    assert_nan_and_zero_rows(out, ref, 2e-5, 2e-5)
+    rm = N(tk.rowmax_plain(tq, tk_, tm, block_k=block_k))
+    assert np.isnan(rm[1:3]).all() and np.isfinite(rm[0]).all()
+    lanes = N(out)[1:3]
+    if threshold is None:
+        assert np.isnan(lanes).all()
+    else:
+        assert (lanes == 0).all()
+    assert np.isfinite(N(out)[0]).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("threshold", [None, 3.0])
+@pytest.mark.parametrize("s,block_k", [(512, 128), (4096, 512)])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_cuda_two_pass_nan_keys_match_plain(cuda, dtype, s, block_k,
+                                            threshold):
+    """On the card, at the serving width (B=4, Hq=24, Hkv=8, D=128): #2
+    and #3 on NaN keys give their plain versions' NaN rows and zero rows
+    (#2's NaN row maxima included), the other rows within the
+    tolerance."""
+    _, tt = _nan_inputs(s + 3, 4, 24, 8, s, 128, dtype)
+    tq, tk_, tv, tm = [t.to(cuda) for t in tt]
+    rm = tk.rowmax(tq, tk_, tm, block_k=block_k)
+    want_rm = tk.rowmax_plain(tq, tk_, tm, block_k=block_k)
+    assert_nan_and_zero_rows(rm[..., None], want_rm[..., None],
+                              **tol(dtype))
+    out = tk.attend(tq, tk_, tv, tm, want_rm, threshold=threshold,
+                    block_k=block_k)
+    want = tk.attend_plain(tq, tk_, tv, tm, want_rm, threshold=threshold,
+                           block_k=block_k)
+    assert_nan_and_zero_rows(out, want, **tol(dtype))

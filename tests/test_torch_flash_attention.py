@@ -23,7 +23,8 @@ from repro_torch.kernels.flash_attention.ops import \
 from repro_torch.kernels.flash_attention.ref import \
     attention_ref  # noqa: E402
 
-from test_torch_helpers import N, cuda, tol  # noqa: E402,F401
+from test_torch_helpers import N, assert_nan_and_zero_rows, cuda, \
+    tol  # noqa: E402,F401
 
 torch.set_num_threads(1)
 
@@ -251,3 +252,24 @@ def test_cuda_flash_head_dim_256_matches_plain(cuda, case, dtype):
     assert tuple(out.shape) == (b, hq, sq, dv) and out.dtype == tq.dtype
     want = tfk.flash_attention_plain(tq, tk_, tv, window=window)
     np.testing.assert_allclose(N(out), N(want), **tol(dtype))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("window", [None, 512])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_cuda_flash_nan_key_matches_plain(cuda, dtype, window):
+    """On the card, at phi4-mini's attention width (bf16: the tensor-core
+    route, float32: the CUDA-core one): a NaN key (batch 1, key 200)
+    poisons every row that admits it, as in the plain version, whose
+    running max takes ``torch.maximum``; the other rows stay within the
+    tolerance."""
+    arrs, _ = _qkv(71, 2, 24, 8, 1024, 1024, 128, 128, "float32")
+    arrs[1][1, :, 200] = np.nan
+    tq, tk_, tv = [torch.from_numpy(a).to(getattr(torch, dtype)).to(cuda)
+                   for a in arrs]
+    out = tfk.flash_attention(tq, tk_, tv, causal=True, window=window)
+    want = tfk.flash_attention_plain(tq, tk_, tv, causal=True, window=window)
+    assert_nan_and_zero_rows(out, want, **tol(dtype))
+    want = N(want)
+    seen = slice(200, 200 + (window or 1024))       # rows that admit it
+    assert np.isnan(want[1, :, seen]).all() and not np.isnan(want[0]).any()

@@ -103,6 +103,16 @@ def N(x) -> np.ndarray:
     return arr.astype(np.float32) if arr.dtype.name == "bfloat16" else arr
 
 
+def assert_nan_and_zero_rows(got, want, rtol, atol):
+    """The same NaN entries and the same all-zero rows (last axis) as
+    ``want``; every other entry within the tolerance."""
+    got, want = N(got), N(want)
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+    np.testing.assert_array_equal((got == 0).all(-1), (want == 0).all(-1))
+    fin = ~np.isnan(want)
+    np.testing.assert_allclose(got[fin], want[fin], rtol=rtol, atol=atol)
+
+
 def cache_to_torch(cache) -> dict:
     return {seg: {name: T(leaf) for name, leaf in sc.items()}
             for seg, sc in cache.items()}
@@ -283,7 +293,8 @@ def test_serve_config_fields_match_reference():
     dict(pipeline_depth=-1), dict(temperature=-0.1), dict(max_queue=-1),
     dict(shed_policy="drop-the-table"), dict(deadline_ticks=0),
     dict(retain_results=-1), dict(page_size=0), dict(cache_pages=-1),
-    dict(kv_quant="fp8"), dict(l2_bytes=-1)], ids=lambda kw: next(iter(kw)))
+    dict(kv_quant="fp8"), dict(l2_bytes=-1), dict(telemetry_every=0),
+    dict(trace_events=0)], ids=lambda kw: next(iter(kw)))
 def test_serve_config_rejects_what_the_reference_rejects(bad):
     with pytest.raises(ValueError):
         jcfg.ServeConfig(**bad)

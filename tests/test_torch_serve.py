@@ -485,3 +485,67 @@ def test_cli_durable_state_and_chaos_flags_match_reference_cli(
             assert chaos and chaos == [ln for ln in lines["jax"]
                                        if ln.startswith("chaos:")]
             assert port.stats["l2_spills"] > 0
+
+
+def test_cli_telemetry_flags_match_reference_cli(monkeypatch, capsys,
+                                                 tmp_path):
+    """``--telemetry --telemetry-every 2 --stats-json --metrics-json
+    --trace-out`` with A^3 conservative on both CLIs (float32 smoke
+    config, shared weights, prompts with a shared 24-token head): equal
+    tokens; the stats snapshots share their schema, top-level and config
+    keys, and their ``stats`` are equal but for the clock-timed keys; the
+    metrics snapshots (in the stats file and in the metrics file) have
+    the same schema, counter and histogram names, equal counters but the
+    clock-timed ones, and equal probe histograms; both traces load, with
+    the same schema."""
+    import json
+    import sys
+
+    engines, jcli, tcli = _cli_pair(monkeypatch)
+    base = ["--arch", "phi4-mini-3.8b", "--smoke", "--requests", "4",
+            "--prompt-len", "32", "--max-new", "6", "--decode-block", "2",
+            "--a3", "conservative", "--telemetry", "--telemetry-every", "2"]
+    out = {}
+    for who, cli in (("jax", jcli), ("port", tcli)):
+        files = {f: str(tmp_path / f"{who}_{f}.json")
+                 for f in ("stats", "metrics", "trace")}
+        flags = base + ["--stats-json", files["stats"], "--metrics-json",
+                        files["metrics"], "--trace-out", files["trace"]]
+        if who == "jax":
+            monkeypatch.setattr(sys, "argv", ["serve"] + flags)
+            cli.main()
+        else:
+            cli.main(flags + ["--device", "cpu"])
+        out[who] = {f: json.loads(open(p).read()) for f, p in files.items()}
+    lines = capsys.readouterr().out
+    assert lines.count("wrote engine stats to") == 2
+    ref, port = engines["jax"], engines["port"]
+    assert [port.result(u) for u in range(4)] == \
+        [ref.result(u) for u in range(4)]
+    wall = ("tick_ns_prefill", "tick_ns_decode", "tick_ns_harvest",
+            "tick_ns_host", "host_sync_stalls")
+    j, p = out["jax"]["stats"], out["port"]["stats"]
+    assert j["schema"] == p["schema"] == "a3-serve-stats/v2"
+    assert set(j) == set(p) == {"schema", "config", "stats", "metrics"}
+    assert set(j["config"]) == set(p["config"])
+    assert p["config"]["serve"]["telemetry"] is True
+    assert set(j["stats"]) == set(p["stats"])
+    assert {k: v for k, v in p["stats"].items() if k not in wall} == \
+        {k: v for k, v in j["stats"].items() if k not in wall}
+    for jm, pm in ((j["metrics"], p["metrics"]),
+                   (out["jax"]["metrics"], out["port"]["metrics"])):
+        assert jm["schema"] == pm["schema"] == "a3-serve-metrics/v1"
+        assert set(jm["counters"]) == set(pm["counters"])
+        assert set(jm["histograms"]) == set(pm["histograms"])
+        for k, v in pm["counters"].items():
+            if k[len("serve_"):] not in wall:
+                assert v == jm["counters"][k], k
+        for k in ("serve_a3_candidates", "serve_a3_captured_mass"):
+            assert pm["histograms"][k]["counts"] == \
+                jm["histograms"][k]["counts"], k
+    assert p["metrics"]["counters"]["serve_a3_probe_samples"] > 0
+    for who in ("jax", "port"):
+        tr = out[who]["trace"]
+        assert tr["otherData"]["schema"] == "a3-serve-trace/v1"
+        assert {"submit", "decode_block", "terminal"} <= {
+            e["name"] for e in tr["traceEvents"]}
