@@ -189,12 +189,38 @@ first phase that does not hold:
    engines with telemetry every 2 on the card vs the CPU: tokens,
    clock-free metrics and each request's trace events identical, probe
    rows within 2e-5.
+13. training (after [9]; the phi4 model freed first): (a) xlstm-350m at
+   full width and depth (bf16, AdamW m/v float32, batch 4 x 512, remat
+   full, random weights from seed 0): one batch's grads through
+   ``MLSTMChunk`` (#7's forward; its backward recomputes the plain
+   version) against the same batch with the chunk loop in its plain
+   version on the card (loss and every grad within 2e-2 of max |grad|),
+   every mLSTM parameter's grad finite and non-zero, then 4 steps of
+   ``train_loop`` on ``SyntheticLM`` with #7 launched 21 x 2 a step (the
+   forward and the remat recompute) on its tensor-core route; step ms by
+   events, device ms and kernels of a step by the profiler, peak memory,
+   tok/s; (b) internlm2-1.8b at full width and depth (bf16, m/v float32,
+   ~22 GB of state): 3 steps at remat none and 3 at full from the same
+   weights at batch 1 x 2048 (remat none does not fit at 4 x 2048: the
+   plain float32 attention keeps ~3 GB of scores a layer), losses within
+   1e-3 relative, then 3 steps at 4 x 2048, remat full, ce_chunk 512,
+   and the same figures; the model is freed; (c) TINY and TINY_XL
+   float32: 4 train steps on the card equal the CPU's losses within 1e-4
+   relative from one CPU-drawn init, ``train_with_recovery`` with a crash
+   at step 3 equals the uninterrupted run's last loss within 1e-5, #7 on
+   its CUDA-core route; (d) MemN2N on bAbI: ``tests/test_memn2n.py``'s
+   task (700 steps; exact accuracy > 0.85, A^3 conservative within 0.05
+   of it; the batched A^3 form's candidates equal the single-query
+   function's), then ``examples/babi_memn2n.py``'s task (600 steps):
+   exact accuracy, and per A^3 setting the accuracy, its delta, the mean
+   candidates and the captured softmax mass of each hop.
 
 Prints one JSON line of per-kernel numbers (every row with
 ``device_ms``, the profiler's device time per launch; rows #1-#3 with
 ``s4096``, the long ring's ms, device ms and bound; row #1 with
 ``served_shapes``, phase 9's rows; #1's launches include [10]'s,
-[11]'s and [12]'s A^3-off serves, #7's [10b]'s, [11d]'s and [12b]'s),
+[11]'s and [12]'s A^3-off serves, #7's [10b]'s, [11d]'s, [12b]'s and
+[13]'s: [13a]'s train_loop steps and [13c]'s card steps),
 then, last,
 ``{"ok": true, "device": {...}}``. Exits non-zero, with no result line,
 when CUDA is unavailable or the port's sources are not beside the script.
@@ -202,6 +228,8 @@ when CUDA is unavailable or the port's sources are not beside the script.
 from __future__ import annotations
 
 import copy
+import dataclasses
+import gc
 import json
 import math
 import subprocess
@@ -3384,6 +3412,490 @@ def phase_tiny_families(dev):
 
 
 # ---------------------------------------------------------------------------
+# phase 13: training
+# ---------------------------------------------------------------------------
+
+TRAIN_XL = dict(batch=4, seq=512, steps=4)        # xlstm-350m, remat full
+TRAIN_LM = dict(batch=4, seq=2048, steps=3,      # internlm2-1.8b
+                timed_steps=4)
+TRAIN_LM_CMP_BATCH = 1     # remat none vs full: none keeps ~3 GB of f32
+#                            attention scores a layer per 4 x 2048 tokens
+
+
+def train_run(cfg, seq, batch, remat, directory, total_steps=100, **opt):
+    from repro_torch.config import CheckpointConfig, OptimizerConfig, \
+        RunConfig, ShapeConfig, ShapeKind, ShardingConfig
+    return RunConfig(
+        model=cfg, shape=ShapeConfig("train", ShapeKind.TRAIN, seq, batch),
+        optimizer=OptimizerConfig(total_steps=total_steps,
+                                  warmup_steps=2, **opt),
+        sharding=ShardingConfig(remat=remat),
+        checkpoint=CheckpointConfig(directory=directory, save_every=1000,
+                                    async_save=False))
+
+
+def train_batch(run, step, dev):
+    import torch
+    from repro_torch.data.synthetic import make_lm_batch
+    b = make_lm_batch(step, run.shape.global_batch, run.shape.seq_len,
+                      run.model.vocab_size, run.seed)
+    return {k: torch.from_numpy(v).to(dev) for k, v in b.items()}
+
+
+def loss_and_grads(model, run, batch):
+    """(loss, name -> grad) of one batch through ``lm_loss`` at the run's
+    remat and ce_chunk."""
+    import torch
+    from repro_torch.models import decoder
+    loss, _ = decoder.lm_loss(model, run.model, batch["tokens"],
+                              batch["labels"], remat=run.sharding.remat,
+                              ce_chunk=run.sharding.ce_chunk)
+    params = dict(model.named_parameters())
+    grads = torch.autograd.grad(loss, list(params.values()))
+    return loss.detach(), dict(zip(params, grads))
+
+
+def step_probe(num_steps):
+    """``train_loop`` hooks for a run of ``num_steps`` steps: a CUDA event
+    after each step (the step has ended in the loss's ``.item()``), and a
+    torch.profiler trace of device activity around the last step ->
+    (hook, events, profiler). The last step is the one traced, so the
+    event gaps of the steps before it are timed without the profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    events = []
+    prof = profile(activities=[ProfilerActivity.CUDA])
+
+    def hook(step, metrics):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        events.append(ev)
+        if len(events) == num_steps - 1:
+            torch.cuda.synchronize()
+            prof.start()
+        elif len(events) == num_steps:
+            torch.cuda.synchronize()
+            prof.stop()
+    return hook, events, prof
+
+
+def train_step_figures(run, dev, label, events, prof):
+    """Print step ms by CUDA events between the ends of the loop's steps
+    after the first and before the traced last one (``events`` and
+    ``prof`` from :func:`step_probe`), device ms and kernels of the traced
+    step by torch.profiler (device activity only: a CPU-side trace of an
+    xlstm-350m step's ~500k ops takes minutes), peak memory (since the
+    last reset) and tok/s, with the card."""
+    import torch
+
+    sync(dev)
+    gaps = [a.elapsed_time(b) for a, b in zip(events[:-1], events[1:-1])]
+    ms = sum(gaps) / len(gaps)
+    kern = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+    busy = sum(e.self_device_time_total for e in kern) / 1e3
+    dev_ms = busy if busy > 0 else None
+    n_kernels = sum(e.count for e in kern)
+    top = sorted(kern, key=lambda e: -e.self_device_time_total)[:4]
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    tok_s = run.shape.tokens_per_step / (ms / 1e3)
+    log(f"  {label}: step {ms:.1f} ms by events (steps 2-{len(events) - 1}"
+        ": " + ", ".join(f"{g:.1f}" for g in gaps) + "), "
+        + (f"device busy {dev_ms:.1f} ms of the traced step "
+           f"{len(events)} ({dev_ms / ms:.1%}), {n_kernels} kernels a step"
+           if dev_ms is not None else "device time not measured")
+        + f", peak {peak:.2f} GiB, {tok_s:.0f} tok/s [{CARD}]")
+    if dev_ms is not None:
+        log("    top: " + "; ".join(
+            f"{e.key[:50]} {e.self_device_time_total / 1e3:.1f} ms"
+            for e in top))
+
+
+def phase_train_xlstm(dev):
+    """[13a]: xlstm-350m at full width and depth (bf16, 21 mLSTM + 3
+    sLSTM), batch 4 x 512, remat full: one batch's grads through
+    MLSTMChunk (#7 forward) vs the plain chunkwise (on the card), every
+    mLSTM parameter's grad finite and non-zero, then 4 steps of
+    ``train_loop`` on SyntheticLM with #7 launched 21 x 2 per step ->
+    #7 launches of those steps."""
+    import tempfile
+    import torch
+    from repro_torch.config import BlockKind, get_arch
+    from repro_torch.kernels.mlstm_chunk import kernel as mk
+    from repro_torch.models import xlstm as xl
+    from repro_torch.train.loop import train_loop
+    from repro_torch.train.step import init_train_state
+
+    cfg = get_arch("xlstm-350m")
+    n_mlstm = sum(cfg.block_kind(i) == BlockKind.MLSTM
+                  for i in range(cfg.num_layers))
+    with tempfile.TemporaryDirectory() as td:
+        run = train_run(cfg, TRAIN_XL["seq"], TRAIN_XL["batch"], "full", td)
+        t0 = time.perf_counter()
+        state = init_train_state(run, torch.Generator(device=dev).manual_seed(
+            0), dev)
+        sync(dev)
+        n_params = sum(p.numel() for p in state.model.parameters())
+        log(f"  {cfg.name}: {n_params / 1e9:.3f} B params (bf16), AdamW m/v "
+            f"float32, init {time.perf_counter() - t0:.1f} s")
+        batch = train_batch(run, 0, dev)            # the loop's first batch
+        mk.reset_launch_counts()
+        loss_k, g_k = loss_and_grads(state.model, run, batch)
+        sync(dev)
+        check(mk.LAUNCHES == {"mlstm_chunk_wgmma": 2 * n_mlstm,
+                              "mlstm_chunk_simt": 0},
+              f"one remat-full fwd+bwd launched #7 {mk.LAUNCHES}, expected "
+              f"{2 * n_mlstm} on the tensor-core route (forward and the "
+              f"recomputed forward; MLSTMChunk's backward launches none)")
+        dead = [n for n, g in g_k.items() if ".mlstm." in n and not (
+            bool(torch.isfinite(g).all()) and bool((g != 0).any()))]
+        check(not dead, f"mLSTM parameters with a zero or non-finite grad "
+                        f"after step 1: {dead[:6]}")
+        n_ml = sum(".mlstm." in n for n in g_k)
+        # the same batch with the chunk loop in its plain version
+        kernel_fn = xl.mlstm_chunk_kernel
+        xl.mlstm_chunk_kernel = mk.mlstm_chunk_plain
+        try:
+            loss_p, g_p = loss_and_grads(state.model, run, batch)
+        finally:
+            xl.mlstm_chunk_kernel = kernel_fn
+        sync(dev)
+        scale = max(float(g.float().abs().max()) for g in g_p.values())
+        err = max(float((g_k[n].float() - g.float()).abs().max())
+                  for n, g in g_p.items())
+        worst = max(g_p, key=lambda n: float(
+            (g_k[n].float() - g_p[n].float()).abs().max())
+            / max(float(g_p[n].float().abs().max()), 1e-30))
+        lerr = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
+        log(f"  grads via #7 vs the plain chunkwise (one batch, bf16): loss "
+            f"{float(loss_k):.4f} vs {float(loss_p):.4f} (rel {lerr:.2e}); "
+            f"max |grad diff| {err:.3g} = {err / scale:.2e} of max |grad| "
+            f"{scale:.3g}; worst tensor relative to its own max: {worst}; "
+            f"{n_ml} mLSTM tensors, none zero or non-finite")
+        check(err <= 2e-2 * scale and lerr <= 2e-2,
+              f"xlstm-350m grads through #7 disagree with the plain "
+              f"chunkwise: {err} > 2e-2 x {scale}, or loss rel {lerr}")
+        del g_k, g_p
+        per_step = []
+        hook, events, prof = step_probe(TRAIN_XL["steps"])
+        mk.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        out = train_loop(run, device=dev, num_steps=TRAIN_XL["steps"],
+                         state=state, hooks=[
+                             lambda s, m: per_step.append(mk.launches()),
+                             hook])
+        dt = time.perf_counter() - t0
+        steps = [b - a for a, b in zip([0] + per_step, per_step)]
+        check(steps == [2 * n_mlstm] * TRAIN_XL["steps"]
+              and mk.LAUNCHES["mlstm_chunk_simt"] == 0,
+              f"#7 launches per xlstm-350m train step {steps} "
+              f"({mk.LAUNCHES}), expected {2 * n_mlstm} each")
+        losses = out["losses"]
+        check(all(math.isfinite(x) for x in losses),
+              f"xlstm-350m losses not finite: {losses}")
+        log(f"  train_loop {TRAIN_XL['steps']} steps (B={TRAIN_XL['batch']}"
+            f", S={TRAIN_XL['seq']}, remat full): loss "
+            + " -> ".join(f"{x:.4f}" for x in losses)
+            + f" in {dt:.1f} s; #7 per step {steps} = 2 x {n_mlstm} "
+            f"(forward + remat recompute), tensor-core route")
+        train_step_figures(run, dev,
+                           f"xlstm-350m B={TRAIN_XL['batch']} x "
+                           f"{TRAIN_XL['seq']} remat full", events, prof)
+    return sum(steps)
+
+
+def phase_train_lm(dev):
+    """[13b]: internlm2-1.8b at full width and depth (bf16, AdamW m/v
+    float32): 3 steps at remat none and 3 at full from the same weights
+    at batch 1 x 2048 (losses within 1e-3 relative), then 4 steps at
+    batch 4 x 2048, remat full, ce_chunk 512, timed (the last one
+    traced); the model is freed at the end."""
+    import tempfile
+    import torch
+    from repro_torch.config import get_arch
+    from repro_torch.optim.adamw import adamw_init
+    from repro_torch.train.loop import train_loop
+    from repro_torch.train.step import TrainState, init_train_state
+
+    cfg = get_arch("internlm2-1.8b")
+    with tempfile.TemporaryDirectory() as td:
+        run = train_run(cfg, TRAIN_LM["seq"], TRAIN_LM_CMP_BATCH, "none", td)
+        t0 = time.perf_counter()
+        state = init_train_state(run, torch.Generator(device=dev).manual_seed(
+            0), dev)
+        init = [p.detach().clone() for p in state.model.parameters()]
+        sync(dev)
+        n_params = sum(p.numel() for p in init)
+        opt_gib = sum(t.numel() * t.element_size()
+                      for d in (state.opt.m, state.opt.v)
+                      for t in d.values()) / 2 ** 30
+        log(f"  {cfg.name}: {n_params / 1e9:.3f} B params (bf16), AdamW m/v "
+            f"float32 ({opt_gib:.1f} GiB), init "
+            f"{time.perf_counter() - t0:.1f} s")
+        losses = {}
+        for remat in ("none", "full"):
+            with torch.no_grad():
+                for p, p0 in zip(state.model.parameters(), init):
+                    p.copy_(p0)
+            state = TrainState(state.model, adamw_init(
+                dict(state.model.named_parameters()), run.optimizer))
+            r = dataclasses.replace(run, sharding=dataclasses.replace(
+                run.sharding, remat=remat))
+            torch.cuda.reset_peak_memory_stats(dev)
+            t0 = time.perf_counter()
+            losses[remat] = train_loop(r, device=dev,
+                                       num_steps=TRAIN_LM["steps"],
+                                       state=state)["losses"]
+            dt = time.perf_counter() - t0
+            log(f"  B={TRAIN_LM_CMP_BATCH} x {TRAIN_LM['seq']} remat "
+                f"{remat}: loss " + " -> ".join(f"{x:.5f}"
+                                                for x in losses[remat])
+                + f" in {dt:.1f} s, peak "
+                f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB "
+                f"[{CARD}]")
+        rel = max(abs(a - b) / abs(b) for a, b in zip(losses["none"],
+                                                      losses["full"]))
+        check(all(math.isfinite(x) for x in losses["none"] + losses["full"])
+              and rel <= 1e-3,
+              f"internlm2-1.8b losses at remat none {losses['none']} and "
+              f"full {losses['full']} differ by {rel:.2e} relative")
+        log(f"  remat none vs full: losses within {rel:.2e} relative "
+            f"(limit 1e-3)")
+        del init
+        run = train_run(cfg, TRAIN_LM["seq"], TRAIN_LM["batch"], "full", td)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        hook, events, prof = step_probe(TRAIN_LM["timed_steps"])
+        t0 = time.perf_counter()
+        out = train_loop(run, device=dev, num_steps=TRAIN_LM["timed_steps"],
+                         state=state, hooks=[hook])
+        log(f"  train_loop B={TRAIN_LM['batch']} x {TRAIN_LM['seq']} remat "
+            f"full, ce_chunk {run.sharding.ce_chunk}: loss "
+            + " -> ".join(f"{x:.4f}" for x in out["losses"])
+            + f" in {time.perf_counter() - t0:.1f} s")
+        check(all(math.isfinite(x) for x in out["losses"]),
+              f"internlm2-1.8b losses not finite: {out['losses']}")
+        train_step_figures(run, dev,
+                           f"internlm2-1.8b B={TRAIN_LM['batch']} x "
+                           f"{TRAIN_LM['seq']} remat full", events, prof)
+        del state, out
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def cpu_drawn_state(run, dev):
+    """A TrainState drawn on the CPU from generator seed 0 and copied to
+    ``dev`` (the card and the CPU start from the same bits)."""
+    import torch
+    from repro_torch.models import decoder
+    from repro_torch.train.step import make_train_state
+    return make_train_state(decoder.init_params(
+        run.model, torch.Generator().manual_seed(0), "cpu").to(dev), run)
+
+
+def phase_train_tiny(dev):
+    """[13c]: TINY and TINY_XL in float32: 4 train steps on the card equal
+    the CPU's losses within 1e-4 relative from the same init;
+    ``train_with_recovery`` with a crash at step 3 on the card equals the
+    uninterrupted card run's last loss within 1e-5 -> #7 launches on the
+    card."""
+    import tempfile
+    import torch
+    from repro_torch.config import BlockKind, ModelConfig
+    from repro_torch.kernels.mlstm_chunk import kernel as mk
+    from repro_torch.train.loop import train_loop, train_with_recovery
+
+    tiny = ModelConfig("tiny", "dense", num_layers=2, d_model=64,
+                       num_heads=4, num_kv_heads=2, d_ff=128, vocab_size=256,
+                       head_dim=16, dtype="float32")
+    tiny_xl = ModelConfig("tiny-xl", "ssm", num_layers=3, d_model=64,
+                          num_heads=4, num_kv_heads=4, d_ff=0,
+                          vocab_size=256, head_dim=16,
+                          block_pattern=(BlockKind.MLSTM, BlockKind.MLSTM,
+                                         BlockKind.SLSTM), dtype="float32")
+    launches = 0
+    cpu = torch.device("cpu")
+    for cfg in (tiny, tiny_xl):
+        with tempfile.TemporaryDirectory() as td:
+            run = train_run(cfg, 32, 4, "none", f"{td}/a", total_steps=10,
+                            lr=1e-3)
+            want = train_loop(run, device=cpu, num_steps=4,
+                              state=cpu_drawn_state(run, cpu))["losses"]
+            mk.reset_launch_counts()
+            got = train_loop(run, device=dev, num_steps=4,
+                             state=cpu_drawn_state(run, dev))["losses"]
+            card_launches = mk.launches()
+            rel = max(abs(a - b) / abs(b) for a, b in zip(got, want))
+            rec_run = dataclasses.replace(run, checkpoint=dataclasses.replace(
+                run.checkpoint, directory=f"{td}/b", save_every=2))
+            rec = train_with_recovery(
+                rec_run, device=dev, num_steps=6, fail_at_step=3,
+                init_state=lambda: cpu_drawn_state(rec_run, dev))
+            base = train_loop(run, device=dev, num_steps=6,
+                              state=cpu_drawn_state(run, dev))["losses"]
+        launches += card_launches
+        log(f"  {cfg.name} f32: card losses "
+            + ", ".join(f"{x:.6f}" for x in got)
+            + f" vs CPU within {rel:.2e} relative; recovery (crash at step "
+            f"3, restarts {rec['restarts']}) last loss "
+            f"{rec['losses'][-1]:.7f} vs uninterrupted {base[-1]:.7f}; "
+            f"card #7 launches {card_launches}")
+        check(rel <= 1e-4, f"{cfg.name}: card losses {got} differ from the "
+                           f"CPU's {want} by {rel:.2e} relative")
+        check(rec["restarts"] == [1] and abs(rec["losses"][-1] - base[-1])
+              <= 1e-5 * abs(base[-1]),
+              f"{cfg.name}: the recovered run's last loss "
+              f"{rec['losses'][-1]} differs from the uninterrupted "
+              f"{base[-1]} (restarts {rec['restarts']})")
+        if cfg is tiny_xl:
+            check(card_launches == 2 * 4 and mk.LAUNCHES["mlstm_chunk_wgmma"]
+                  == 0, f"TINY_XL train steps launched #7 {mk.LAUNCHES}, "
+                        f"expected 2 mLSTM layers x 4 steps on the CUDA-core "
+                        f"route")
+    return launches
+
+
+MEMN2N_SMALL = dict(actors=32, places=8, n=24, words=8, d=32, hops=2,
+                    steps=700, statements=20, test=256)   # tests/test_memn2n
+MEMN2N_EXAMPLE = dict(actors=64, places=16, n=64, words=8, d=64, hops=3,
+                      steps=600, statements=48, test=512)  # the example
+
+
+def memn2n_train(spec, dev, seed0):
+    """tests/test_memn2n.py's recipe (batch 64, AdamW lr 1e-2, warmup 10,
+    min_lr_ratio 0.3, no decay) on the card -> (params, cfg, test batch,
+    final loss, seconds)."""
+    import torch
+    from repro_torch.config import OptimizerConfig
+    from repro_torch.data.babi import generate_babi, make_task
+    from repro_torch.models import memn2n
+    from repro_torch.optim.adamw import adamw_init, adamw_update
+
+    task = make_task(num_actors=spec["actors"], num_places=spec["places"],
+                     max_sentences=spec["n"], max_words=spec["words"])
+    cfg = memn2n.MemN2NConfig(vocab_size=task.vocab_size,
+                              d_embed=spec["d"], num_hops=spec["hops"],
+                              max_sentences=spec["n"],
+                              max_words=spec["words"])
+    params = memn2n.init_params(cfg, torch.Generator(device=dev).manual_seed(
+        0), dev)
+    for p in params.values():
+        p.requires_grad_(True)
+    ocfg = OptimizerConfig(lr=1e-2, warmup_steps=10, total_steps=spec["steps"],
+                           weight_decay=0.0, min_lr_ratio=0.3)
+    opt = adamw_init(params, ocfg)
+    t0 = time.perf_counter()
+    for i in range(spec["steps"]):
+        # the host makes batch i while the card runs step i - 1
+        b = generate_babi(task, 64, spec["statements"], seed=seed0 + i)
+        loss = memn2n.loss_fn(params, b, cfg)
+        grads = torch.autograd.grad(loss, list(params.values()))
+        _, opt, _ = adamw_update(dict(zip(params, grads)), opt, params,
+                                 ocfg)
+    sync(dev)
+    dt = time.perf_counter() - t0
+    test = generate_babi(task, spec["test"], spec["statements"], seed=9)
+    return ({k: v.detach() for k, v in params.items()}, cfg, test,
+            loss.item(), dt)
+
+
+def captured_mass(aux, sentences):
+    """Per example, the exact softmax mass (over the valid sentences) that
+    the kept set holds -> [B]."""
+    import torch
+    from repro_torch.core.post_scoring import masked_softmax
+    valid = torch.as_tensor(sentences, device=aux["scores"].device).gt(
+        0).any(-1)
+    exact = masked_softmax(aux["scores"], valid)
+    return (exact * aux["kept"]).sum(-1)
+
+
+def phase_memn2n(dev):
+    """[13d]: MemN2N on bAbI on the card. tests/test_memn2n.py's task:
+    exact accuracy > 0.85 and A^3 conservative within 0.05 of it;
+    ``answer_with_a3`` over a batch selects each example's candidates as
+    for the example alone, on 16 examples. Then examples/babi_memn2n.py's
+    task: exact accuracy, the three A^3 settings' accuracy, delta, mean
+    candidates per hop and each hop's captured mass (the ``aux`` of
+    ``a3_attention_single``)."""
+    import torch
+    from repro_torch.config import A3Config, A3Mode
+    from repro_torch.models import memn2n
+
+    params, cfg, test, loss, dt = memn2n_train(MEMN2N_SMALL, dev, 100)
+    base = float(memn2n.accuracy(params, test, cfg))
+    cons = float(memn2n.accuracy(params, test, cfg,
+                                 A3Config.conservative()))
+    log(f"  tests/test_memn2n.py's task ({MEMN2N_SMALL['steps']} steps in "
+        f"{dt:.1f} s, last loss {loss:.4f}): exact accuracy {base:.3f}, "
+        f"A^3 conservative {cons:.3f} [{CARD}]")
+    check(base > 0.85 and cons >= base - 0.05,
+          f"MemN2N on the card: exact accuracy {base} (needs > 0.85) or "
+          f"conservative A^3 {cons} more than 0.05 below it")
+    _, batch_aux = memn2n.answer_with_a3(
+        params, test["sentences"][:16], test["question"][:16], cfg,
+        A3Config.conservative())
+    for i in range(16):
+        _, aux = memn2n.answer_with_a3(params, test["sentences"][i],
+                                       test["question"][i], cfg,
+                                       A3Config.conservative())
+        for h in aux:
+            check(torch.equal(aux[h]["candidates"],
+                              batch_aux[h]["candidates"][i]),
+                  f"answer_with_a3 over a batch selects other candidates "
+                  f"than for the example alone (example {i}, {h})")
+    log("  A^3 candidates over a batch of 16 = each example's alone, "
+        "2 hops")
+    params, cfg, test, loss, dt = memn2n_train(MEMN2N_EXAMPLE, dev, 1000)
+    base = float(memn2n.accuracy(params, test, cfg))
+    log(f"  examples/babi_memn2n.py's task ({MEMN2N_EXAMPLE['steps']} steps "
+        f"in {dt:.1f} s, last loss {loss:.4f}, n="
+        f"{MEMN2N_EXAMPLE['statements']}): exact accuracy {base:.3f} "
+        f"[{CARD}]")
+    for label, a3 in (("conservative", A3Config.conservative()),
+                      ("aggressive", A3Config.aggressive()),
+                      ("custom M=n/4 T=8%", A3Config(
+                          mode=A3Mode.CUSTOM, m_fraction=0.25,
+                          threshold_pct=8.0))):
+        logits, aux = memn2n.answer_with_a3(
+            params, test["sentences"], test["question"], cfg, a3)
+        gold = torch.as_tensor(test["answer"], device=dev).long()
+        acc = float((logits.argmax(-1) == gold).float().mean())
+        cands = [float(aux[h]["candidates"].sum(-1).float().mean())
+                 for h in sorted(aux)]
+        mass = [float(captured_mass(aux[h], test["sentences"]).mean())
+                for h in sorted(aux)]
+        log(f"    A^3 {label}: accuracy {acc:.3f} (delta "
+            f"{100 * (acc - base):+.1f}%), mean candidates per hop "
+            + ", ".join(f"{c:.1f}" for c in cands)
+            + f" of {MEMN2N_EXAMPLE['statements']}, captured mass per hop "
+            + ", ".join(f"{m:.4f}" for m in mass))
+
+
+def phase_train(dev):
+    """[13] -> #7 launches of the training paths ([13a]'s train_loop
+    steps and [13c]'s card runs)."""
+    log("[13a] xlstm-350m training at full width and depth")
+    t = time.perf_counter()
+    xl_launches = phase_train_xlstm(dev)
+    log(f"  [13a] took {time.perf_counter() - t:.1f} s")
+    log("[13b] internlm2-1.8b training at full width and depth")
+    t = time.perf_counter()
+    phase_train_lm(dev)
+    log(f"  [13b] took {time.perf_counter() - t:.1f} s")
+    log("[13c] TINY and TINY_XL f32 training, card vs CPU, recovery")
+    t = time.perf_counter()
+    xl_launches += phase_train_tiny(dev)
+    log(f"  [13c] took {time.perf_counter() - t:.1f} s")
+    log("[13d] MemN2N on bAbI (the paper's workload)")
+    t = time.perf_counter()
+    phase_memn2n(dev)
+    log(f"  [13d] took {time.perf_counter() - t:.1f} s")
+    return xl_launches
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     global CARD
@@ -3484,6 +3996,14 @@ def main() -> int:
     main_launches += fam_launches
     phase_tiny_families(dev)
     log(f"  phase [9] took {time.perf_counter() - t9:.1f} s")
+    del model, ring
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("[13] training: xlstm-350m and internlm2-1.8b at full width, TINY "
+        "and TINY_XL card vs CPU, MemN2N on bAbI")
+    t13 = time.perf_counter()
+    xl_launches += phase_train(dev)
+    log(f"  phase [13] took {time.perf_counter() - t13:.1f} s")
 
     src = "src/repro_torch/csrc/decode_attention.cu"
     jax_kernel = "src/repro/kernels/decode_attention/kernel.py"

@@ -1,6 +1,6 @@
-"""PyTorch + CUDA port of the A^3 serving stack (``src/repro`` is the
-JAX reference). Entry points run on the card unless the caller asks for
-the CPU; see :func:`resolve_device`."""
+"""PyTorch + CUDA port of the A^3 serving and training stack
+(``src/repro`` is the JAX reference). Entry points run on the card
+unless the caller asks for the CPU; see :func:`resolve_device`."""
 from __future__ import annotations
 
 import torch

@@ -1,6 +1,6 @@
 """Configuration for the PyTorch port: the subset of ``repro.config``
-that the serving path reads, kept as an independent copy so that the
-port imports nothing from the JAX package.
+that the serving and single-device training paths read, kept as an
+independent copy so that the port imports nothing from the JAX package.
 
 Plain dataclasses (stdlib only) and a registry of named architectures.
 Field names, defaults and derived values (``A3Config.m_for``,
@@ -13,7 +13,7 @@ from __future__ import annotations
 import dataclasses
 import enum
 import math
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 
@@ -289,6 +289,124 @@ class ServeConfig:
             raise ValueError(
                 f"retain_results must be >= 0, got "
                 f"{self.retain_results} (0 = unbounded retention)")
+
+
+# ---------------------------------------------------------------------------
+# Training (the reference's shapes and run configuration)
+# ---------------------------------------------------------------------------
+
+class ShapeKind(str, enum.Enum):
+    TRAIN = "train"
+    PREFILL = "prefill"
+    DECODE = "decode"
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    kind: ShapeKind
+    seq_len: int
+    global_batch: int
+
+    @property
+    def tokens_per_step(self) -> int:
+        if self.kind == ShapeKind.DECODE:
+            return self.global_batch  # one new token per sequence
+        return self.seq_len * self.global_batch
+
+
+@dataclass(frozen=True)
+class OptimizerConfig:
+    name: str = "adamw"
+    lr: float = 3e-4
+    warmup_steps: int = 100
+    total_steps: int = 1000
+    min_lr_ratio: float = 0.1
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    grad_clip_norm: float = 1.0
+    # dtypes for optimizer state ("float32" | "bfloat16")
+    m_dtype: str = "float32"
+    v_dtype: str = "float32"
+
+
+REMATS = ("none", "full", "dots")
+# the reference's ShardingConfig fields that only a device mesh reads
+MESH_FIELDS = ("fsdp", "tensor_parallel", "expert_parallel",
+               "sequence_parallel", "attn_dtype", "dp_axes", "fsdp_axis",
+               "tp_axis", "ep_axis")
+
+
+@dataclass(frozen=True, init=False)
+class ShardingConfig:
+    """The single-device part of the reference's ``ShardingConfig``:
+    per-layer ``remat`` (none | full | dots), gradient accumulation over
+    ``microbatches``, the attention KV chunk and the chunked
+    cross-entropy's tokens per chunk (defaults as the reference's). The
+    mesh fields (:data:`MESH_FIELDS`) and ``grad_compression=True`` need
+    a device mesh, which the port does not have yet: they raise rather
+    than be ignored."""
+    remat: str = "full"
+    grad_compression: bool = False
+    microbatches: int = 1
+    attn_chunk: int = 1024
+    ce_chunk: int = 512
+
+    def __init__(self, remat: str = "full", grad_compression: bool = False,
+                 microbatches: int = 1, attn_chunk: int = 1024,
+                 ce_chunk: int = 512, **mesh: Any):
+        if grad_compression or mesh:
+            named = sorted(mesh) + (["grad_compression"]
+                                    if grad_compression else [])
+            raise ValueError(f"{', '.join(named)} needs a device mesh; see "
+                             f"ROADMAP queue 1, launch and analysis tooling")
+        if remat not in REMATS:
+            raise ValueError(f"remat must be one of {REMATS}, got {remat!r}")
+        if microbatches < 1:
+            raise ValueError(f"microbatches must be >= 1, got "
+                             f"{microbatches}")
+        for name, value in (("remat", remat),
+                            ("grad_compression", grad_compression),
+                            ("microbatches", microbatches),
+                            ("attn_chunk", attn_chunk),
+                            ("ce_chunk", ce_chunk)):
+            object.__setattr__(self, name, value)
+
+
+@dataclass(frozen=True)
+class CheckpointConfig:
+    # None: each CheckpointManager makes a fresh temporary directory (the
+    # reference defaults to a fixed /tmp/repro_ckpt, which two runs share)
+    directory: Optional[str] = None
+    save_every: int = 100
+    keep: int = 3
+    async_save: bool = True
+
+
+@dataclass(frozen=True)
+class FaultToleranceConfig:
+    step_timeout_s: float = 1800.0     # watchdog deadline per step
+    max_restarts: int = 10
+    elastic: bool = True               # allow restore onto a different mesh
+
+
+@dataclass(frozen=True)
+class RunConfig:
+    model: ModelConfig
+    shape: ShapeConfig
+    a3: A3Config = field(default_factory=A3Config)
+    serve: ServeConfig = field(default_factory=ServeConfig)
+    optimizer: OptimizerConfig = field(default_factory=OptimizerConfig)
+    sharding: ShardingConfig = field(default_factory=ShardingConfig)
+    checkpoint: CheckpointConfig = field(default_factory=CheckpointConfig)
+    fault: FaultToleranceConfig = field(
+        default_factory=FaultToleranceConfig)
+    seed: int = 0
+
+    def replace(self, **kw) -> "RunConfig":
+        return dataclasses.replace(self, **kw)
 
 
 _REGISTRY: Dict[str, Callable[[], ModelConfig]] = {}

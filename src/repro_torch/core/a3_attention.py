@@ -58,15 +58,17 @@ def _maybe_quantize(x: torch.Tensor, cfg: A3Config) -> torch.Tensor:
 def a3_attention_single(state: A3State, query: torch.Tensor, cfg: A3Config,
                         lut: Optional[LutExp] = None
                         ) -> Tuple[torch.Tensor, dict]:
-    """Queries ``[..., d]`` against one (key [n, d], value [n, dv]) memory
-    — the accelerator's unit op, with leading query dimensions.
+    """Queries ``[..., d]`` against (key [..., n, d], value [..., n, dv])
+    memories — the accelerator's unit op. Leading dimensions broadcast:
+    one [n, d] memory serves a query batch, and a [B, n, d] batch of
+    memories takes a [B, d] query each.
 
     Returns (output [..., dv], aux dict of masks/weights for analysis)."""
     key, value = state.key, state.value
-    n = key.shape[0]
+    n = key.shape[-2]
     q = _maybe_quantize(query, cfg)
     k = _maybe_quantize(key, cfg)
-    lead = q.shape[:-1]
+    lead = torch.broadcast_shapes(q.shape[:-1], key.shape[:-2])
 
     if cfg.mode == A3Mode.OFF:
         cand = torch.ones((*lead, n), dtype=torch.bool, device=q.device)
@@ -75,11 +77,11 @@ def a3_attention_single(state: A3State, query: torch.Tensor, cfg: A3Config,
     else:
         cand, greedy = select_candidates(state.sorted_keys, q, cfg.m_for(n))
 
-    scores = torch.einsum("nd,...d->...n", k, q)                 # [..., n]
+    scores = torch.einsum("...nd,...d->...n", k, q)              # [..., n]
     if cfg.frac_bits is not None:
         scores = quantize_fixed_point(
             scores, 2 * (cfg.int_bits or 4)
-            + int(math.ceil(math.log2(max(key.shape[1], 2)))),
+            + int(math.ceil(math.log2(max(key.shape[-1], 2)))),
             2 * cfg.frac_bits)
 
     if cfg.mode == A3Mode.OFF:
@@ -93,7 +95,8 @@ def a3_attention_single(state: A3State, query: torch.Tensor, cfg: A3Config,
     else:
         weights = masked_softmax(scores, keep)
 
-    out = weights @ _maybe_quantize(value, cfg)
+    out = torch.einsum("...n,...nd->...d", weights,
+                       _maybe_quantize(value, cfg))
     aux = dict(candidates=cand, kept=keep, weights=weights,
                greedy_score=greedy, scores=scores)
     return out, aux

@@ -15,10 +15,16 @@ transposed, its ``conv_w``/``conv_b``/``lam`` go over as they are. A GELU
 FFN has no ``w_gate``. An MoE keeps the reference's layout for its
 ``router`` [d, E] and expert stacks [E, d_in, d_out]; its ``shared``
 SwiGLU is transposed as a dense FFN is.
+
+A training state's parameters go over the same way
+(:func:`train_state_from_numpy`: gradients on, fresh AdamW moments), and
+so does any tree shaped like the parameters — a tree of gradients lands
+on the parameter names of the port. MemN2N's parameters keep their
+layout (:func:`memn2n_from_numpy`).
 """
 from __future__ import annotations
 
-from typing import Any, Mapping
+from typing import Any, Dict, Mapping
 
 import numpy as np
 import torch
@@ -93,3 +99,22 @@ def _put_ffn(ffn, tree: Mapping[str, Any], l: int) -> None:
     for name in ("w_gate", "w_up", "w_down"):
         if name in tree:
             _put(getattr(ffn, name).weight, tree[name][l], transpose=True)
+
+
+def train_state_from_numpy(tree: Mapping[str, Any], run, device="cuda"):
+    """The parameters of a reference ``TrainState`` (numpy) -> the port's
+    :class:`~repro_torch.train.step.TrainState`: the model with gradients
+    on and a zero AdamW state."""
+    from repro_torch.train.step import make_train_state
+    return make_train_state(params_from_numpy(tree, run.model, device), run)
+
+
+def memn2n_from_numpy(tree: Mapping[str, Any], device="cuda"
+                      ) -> Dict[str, torch.Tensor]:
+    """The reference's MemN2N parameters (``embeddings``, ``temporal``,
+    ``query_embed``, ``w_final``; numpy) -> the port's name -> tensor
+    dict, float32 and in the same layout."""
+    dev = resolve_device(device)
+    return {name: torch.from_numpy(np.array(tree[name], dtype=np.float32)
+                                   ).to(dev)
+            for name in ("embeddings", "temporal", "query_embed", "w_final")}

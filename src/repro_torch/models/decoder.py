@@ -1,8 +1,9 @@
 """Decoder stack of the port (PyTorch port of ``repro.models.decoder``):
-parameters as ``nn.Module``s, and the serving paths — whole-prompt
-``prefill``, ragged chunked ``prefill_chunk``, ragged ``decode_step``,
-the in-dispatch A^3 re-sort and the multi-step ``decode_block``; and the
-prefix cache's page pool (``init_page_pool``).
+parameters as ``nn.Module``s; the training forward (``forward_hidden``
+with per-layer remat, ``chunked_ce``, ``lm_loss``); the serving paths —
+whole-prompt ``prefill``, ragged chunked ``prefill_chunk``, ragged
+``decode_step``, the in-dispatch A^3 re-sort and the multi-step
+``decode_block``; and the prefix cache's page pool (``init_page_pool``).
 
 The caches keep the reference layout: per segment ``seg{i}`` a dict of
 ``[L, B, ...]`` tensors (``k``/``v`` rings ``[L, B, Hkv, w, hd]``, the A^3
@@ -22,6 +23,7 @@ given, the function reads the device value, a blocking read.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any, Dict, Optional, Sequence, Tuple
 
@@ -117,7 +119,9 @@ class Decoder(nn.Module):
             seg_mod.layers = nn.ModuleList(
                 Block(cfg, seg, dtype, device) for _ in range(seg.count))
             self.segs.append(seg_mod)
-        self.requires_grad_(False)            # inference only
+        # inference by default; the trainer turns gradients on for its
+        # own model (train.step.init_train_state)
+        self.requires_grad_(False)
 
     @property
     def device(self) -> torch.device:
@@ -237,26 +241,135 @@ def init_page_pool(cfg: ModelConfig, pages: int, page_size: int,
 # forward, prefill
 # ---------------------------------------------------------------------------
 
+def _block_forward(blk: Block, h: torch.Tensor, positions: torch.Tensor,
+                   cfg: ModelConfig, seg: SegmentSpec, attn_chunk: int
+                   ) -> Tuple[torch.Tensor, Any]:
+    """One layer, full sequence -> (h, moe_aux_loss)."""
+    hn = rmsnorm(blk.ln1, h, cfg.norm_eps)
+    o = mixer_for(seg, cfg).forward(blk, hn, cfg=cfg, seg=seg,
+                                    positions=positions,
+                                    attn_chunk=attn_chunk)
+    return _ffn_block(blk, h + o, cfg)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    """``remat="dots"``: keep the outputs of matrix products without a
+    batch dimension (``mm``, ``addmm``) and recompute everything else,
+    ``bmm`` and batched einsums included (the counterpart of
+    ``jax.checkpoint_policies.checkpoint_dots_with_no_batch_dims``)."""
+    from torch.utils.checkpoint import CheckpointPolicy
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _run_layer(blk: Block, h: torch.Tensor, positions: torch.Tensor,
+               cfg: ModelConfig, seg: SegmentSpec, remat: str,
+               attn_chunk: int) -> Tuple[torch.Tensor, Any]:
+    """One layer under the reference's per-layer remat: ``"full"`` keeps
+    only the layer's input and recomputes the layer in the backward,
+    ``"dots"`` keeps its unbatched matrix products as well. Remat changes
+    what the backward keeps, never a number."""
+    if remat == "none":
+        return _block_forward(blk, h, positions, cfg, seg, attn_chunk)
+    from torch.utils.checkpoint import checkpoint, \
+        create_selective_checkpoint_contexts
+    kw = {}
+    if remat == "dots":
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _dots_policy)
+    elif remat != "full":
+        raise ValueError(f"remat must be none, full or dots, got {remat!r}")
+    return checkpoint(_block_forward, blk, h, positions, cfg, seg,
+                      attn_chunk, use_reentrant=False, **kw)
+
+
+def forward_hidden(model: Decoder, cfg: ModelConfig,
+                   tokens: Optional[torch.Tensor] = None,
+                   inputs_embeds: Optional[torch.Tensor] = None, *,
+                   positions: Optional[torch.Tensor] = None,
+                   remat: str = "none", attn_chunk: int = 1024
+                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Full-sequence forward up to (not including) the unembed ->
+    (hidden [B, S, D], {"moe_aux_loss"}), as the reference's
+    ``forward_hidden``; ``remat`` applies per layer (:func:`_run_layer`).
+    ``inputs_embeds`` (the frontend archs) is not ported yet."""
+    if inputs_embeds is not None:
+        raise NotImplementedError(
+            "inputs_embeds needs the frontend archs, which the port does "
+            "not have yet (ROADMAP queue 1)")
+    b, s = tokens.shape
+    h = embed_tokens(model, cfg, tokens)
+    if positions is None:
+        positions = torch.arange(s, dtype=torch.int32,
+                                 device=h.device).expand(b, s)
+    aux = 0.0
+    for si, seg in enumerate(build_segments(cfg)):
+        for blk in model.segs[si].layers:
+            h, a = _run_layer(blk, h, positions, cfg, seg, remat,
+                              attn_chunk)
+            aux = aux + a
+    return h, {"moe_aux_loss": torch.as_tensor(aux, dtype=torch.float32,
+                                               device=h.device)}
+
+
 def forward(model: Decoder, cfg: ModelConfig, tokens: torch.Tensor, *,
+            positions: Optional[torch.Tensor] = None, remat: str = "none",
             attn_chunk: int = 1024
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Full-sequence forward, no state -> (logits [B, S, Vp],
     {"moe_aux_loss"}), as the reference's ``forward``."""
-    b, s = tokens.shape
-    h = embed_tokens(model, cfg, tokens)
-    positions = torch.arange(s, dtype=torch.int32,
-                             device=h.device).expand(b, s)
-    aux = 0.0
-    for si, seg in enumerate(build_segments(cfg)):
-        mixer = mixer_for(seg, cfg)
-        for blk in model.segs[si].layers:
-            hn = rmsnorm(blk.ln1, h, cfg.norm_eps)
-            o = mixer.forward(blk, hn, cfg=cfg, seg=seg,
-                              positions=positions, attn_chunk=attn_chunk)
-            h, a = _ffn_block(blk, h + o, cfg)
-            aux = aux + a
-    return unembed(model, cfg, h), {
-        "moe_aux_loss": torch.as_tensor(aux, device=h.device)}
+    h, aux = forward_hidden(model, cfg, tokens, positions=positions,
+                            remat=remat, attn_chunk=attn_chunk)
+    return unembed(model, cfg, h), aux
+
+
+def _chunk_nll(model: Decoder, cfg: ModelConfig, hc: torch.Tensor,
+               lc: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(summed NLL, count of labels != -1) of one sequence chunk."""
+    lf = unembed(model, cfg, hc).float()                  # [B, c, Vp]
+    m = lf.amax(-1, keepdim=True)
+    lse = torch.log(torch.exp(lf - m).sum(-1)) + m[..., 0]
+    safe = torch.clamp(lc, min=0).long()
+    gold = torch.gather(lf, -1, safe[..., None])[..., 0]
+    valid = (lc != -1).float()
+    return ((lse - gold) * valid).sum(), valid.sum()
+
+
+def chunked_ce(model: Decoder, cfg: ModelConfig, h: torch.Tensor,
+               labels: torch.Tensor, ce_chunk: int = 512) -> torch.Tensor:
+    """Mean cross-entropy over labels != -1 without materializing the
+    [B, S, Vp] logits (reference ``chunked_ce``): the unembed and the
+    log-sum-exp run per sequence chunk of ``ce_chunk`` tokens under
+    ``torch.utils.checkpoint``, so the backward recomputes each chunk's
+    logits instead of keeping them. S not a multiple of the chunk falls
+    back to one chunk, as in the reference."""
+    from torch.utils.checkpoint import checkpoint
+    s = h.shape[1]
+    c = min(ce_chunk, s)
+    if s % c != 0:
+        c = s                                # fallback: single chunk
+    labels = labels.to(h.device)
+    nll = cnt = 0.0
+    for lo in range(0, s, c):
+        n_c, k_c = checkpoint(_chunk_nll, model, cfg, h[:, lo:lo + c],
+                              labels[:, lo:lo + c], use_reentrant=False)
+        nll, cnt = nll + n_c, cnt + k_c
+    return nll / torch.clamp(cnt, min=1.0)
+
+
+def lm_loss(model: Decoder, cfg: ModelConfig, tokens: torch.Tensor,
+            labels: torch.Tensor, *,
+            inputs_embeds: Optional[torch.Tensor] = None,
+            remat: str = "none", attn_chunk: int = 1024,
+            ce_chunk: int = 512
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Training loss -> (lm loss + moe_aux_loss, {"lm_loss",
+    "moe_aux_loss"}), as the reference's ``lm_loss``."""
+    h, aux = forward_hidden(model, cfg, tokens, inputs_embeds, remat=remat,
+                            attn_chunk=attn_chunk)
+    loss = chunked_ce(model, cfg, h, labels, ce_chunk)
+    return loss + aux["moe_aux_loss"], {"lm_loss": loss, **aux}
 
 
 def prefill(model: Decoder, cfg: ModelConfig, tokens: torch.Tensor, *,

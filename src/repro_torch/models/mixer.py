@@ -518,8 +518,8 @@ def _mlstm_init_state(cfg: ModelConfig, seg: SegmentSpec, batch: int,
 
 def _mlstm_forward(layer, hn: torch.Tensor, *, cfg: ModelConfig,
                    **_) -> torch.Tensor:
-    return xl.mlstm_chunkwise(layer.mlstm, hn, cfg.num_heads,
-                              cfg.resolved_head_dim)[0]
+    return xl.mlstm_parallel(layer.mlstm, hn, cfg.num_heads,
+                             cfg.resolved_head_dim)
 
 
 def _mlstm_prefill_full(layer, hn: torch.Tensor, *, cfg: ModelConfig, **_

@@ -2,11 +2,16 @@
 
 mLSTM (matrix memory): per head a d_k x d_v matrix memory C with
 exponential input and forget gates in log space (stabiliser m). The
-prefill runs chunkwise: quadratic gate-decay attention inside a chunk,
-the (C, n, m) state carried between chunks. That chunk loop is kernel #7
-(``kernels/mlstm_chunk``): on CUDA tensors it runs the hand-written
-kernel, on CPU tensors its plain version. The one-token decode step is
-plain torch, as it is jnp in the reference.
+prefill and the training forward run chunkwise: quadratic gate-decay
+attention inside a chunk, the (C, n, m) state carried between chunks.
+That chunk loop is kernel #7 (``kernels/mlstm_chunk``): on CUDA tensors it
+runs the hand-written kernel, on CPU tensors its plain version. The
+kernel writes its outputs through ctypes, outside autograd, so
+:class:`MLSTMChunk` gives it a backward: the plain version recomputed on
+the saved inputs and differentiated by autograd, the recurrence the
+reference's ``value_and_grad`` differentiates (the JAX package has no
+backward kernel). The one-token decode step is plain torch, as it is jnp
+in the reference.
 
 sLSTM (scalar memory): a per-channel recurrence with exponential gating,
 a stabiliser and block-diagonal recurrent weights (one block per head).
@@ -30,7 +35,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from repro_torch.kernels.mlstm_chunk.kernel import mlstm_chunk_kernel
+from repro_torch.kernels.mlstm_chunk.kernel import mlstm_chunk_kernel, \
+    mlstm_chunk_plain
 from repro_torch.models.common import NEG_INF, _linear, dense_init_
 
 State = Tuple[torch.Tensor, ...]
@@ -103,6 +109,51 @@ def mlstm_init_state(batch: int, num_heads: int, head_dim: int,
     return C, n, m
 
 
+class MLSTMChunk(torch.autograd.Function):
+    """Kernel #7 with a backward.
+
+    Forward: ``mlstm_chunk_kernel`` (the kernel on CUDA tensors, its plain
+    version on CPU tensors) -> (h [B,H,S,Dv] float32, C, n, m), saving q,
+    k, v, the log gates and the initial state. Backward: recompute
+    ``mlstm_chunk_plain`` on the saved inputs under ``enable_grad`` and
+    return ``torch.autograd.grad`` of it; no kernel launches there.
+
+    Memory: the recompute holds one chunk's autograd intermediates at a
+    time per output chunk, the largest being the decay matrix ``dmat``
+    and its exponent, [B, H, L, L] float32 each (4 MiB at xlstm-350m's
+    B=4, H=4, L=256), beside [B, H, L, D] float32 copies of q, k, v."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, log_i, log_f, C, n, m, chunk: int,
+                scale: float):
+        h, (C1, n1, m1) = mlstm_chunk_kernel(
+            q, k, v, log_i, log_f, chunk=chunk, scale=scale,
+            state=(C, n, m), return_state=True)
+        ctx.save_for_backward(q, k, v, log_i, log_f, C, n, m)
+        ctx.chunk, ctx.scale = chunk, scale
+        return h, C1, n1, m1
+
+    @staticmethod
+    def backward(ctx, *grad_outs):
+        saved = ctx.saved_tensors
+        need = ctx.needs_input_grad[:len(saved)]
+        inputs = [t.detach().requires_grad_(r) for t, r in zip(saved, need)]
+        with torch.enable_grad():
+            h, state = mlstm_chunk_plain(
+                *inputs[:5], chunk=ctx.chunk, scale=ctx.scale,
+                state=tuple(inputs[5:]), return_state=True)
+        outs = [(o, g) for o, g in zip((h, *state), grad_outs)
+                if g is not None and o.requires_grad]
+        wrt = [t for t, r in zip(inputs, need) if r]
+        grads = torch.autograd.grad([o for o, _ in outs],
+                                    wrt, [g for _, g in outs],
+                                    allow_unused=True) if outs and wrt else \
+            [None] * len(wrt)
+        it = iter(grads)
+        res = [next(it) if r else None for r in need]
+        return (*res, None, None)
+
+
 def mlstm_chunkwise(p: MLSTM, x: torch.Tensor, num_heads: int,
                     head_dim: int, *, chunk: int = 256,
                     state: Optional[State] = None,
@@ -134,14 +185,21 @@ def mlstm_chunkwise(p: MLSTM, x: torch.Tensor, num_heads: int,
     if state is None:
         state = mlstm_init_state(b, num_heads, head_dim, x.device)
     # streams stay in the model dtype; the kernel widens each tile
-    hs, state = mlstm_chunk_kernel(
-        *(t.contiguous() for t in (q, k, v, log_i, log_f)),
-        chunk=min(chunk, s), scale=1.0 / math.sqrt(head_dim),
-        state=tuple(t.contiguous() for t in state), return_state=True)
+    hs, *state = MLSTMChunk.apply(
+        *(t.contiguous() for t in (q, k, v, log_i, log_f, *state)),
+        min(chunk, s), 1.0 / math.sqrt(head_dim))
     h = _headwise_ln(hs, p.ln_scale[None, :, None, :])
     o = torch.sigmoid(F.linear(x, p.w_o.weight).float())
     h = h.transpose(1, 2).reshape(b, s, dh) * o
-    return F.linear(h.to(x.dtype), p.w_out.weight), state
+    return F.linear(h.to(x.dtype), p.w_out.weight), tuple(state)
+
+
+def mlstm_parallel(p: MLSTM, x: torch.Tensor, num_heads: int,
+                   head_dim: int, chunk: int = 256,
+                   state: Optional[State] = None) -> torch.Tensor:
+    """Output-only view of :func:`mlstm_chunkwise` (train / forward)."""
+    return mlstm_chunkwise(p, x, num_heads, head_dim, chunk=chunk,
+                           state=state)[0]
 
 
 def mlstm_decode_step(p: MLSTM, x: torch.Tensor, state: State,

@@ -1,5 +1,6 @@
-"""The port stands alone: no module of ``src/repro_torch`` and not
-``chip_smoke.py`` imports ``jax``, the JAX package (``repro`` /
+"""The port stands alone: no module of ``src/repro_torch``, not
+``chip_smoke.py`` and not the port's examples (``examples/*_torch.py``)
+imports ``jax``, the JAX package (``repro`` /
 ``repro.*``) or ``ml_dtypes`` (the card's machine has none; the page
 store moves bfloat16 as raw 16-bit words); ``repro_torch`` itself is
 allowed."""
@@ -14,7 +15,7 @@ pytest.importorskip("torch")
 
 ROOT = Path(__file__).resolve().parents[1]
 FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
-    [ROOT / "chip_smoke.py"]
+    [ROOT / "chip_smoke.py"] + sorted((ROOT / "examples").glob("*_torch.py"))
 BANNED = ("jax", "jaxlib", "repro", "ml_dtypes")
 
 
@@ -41,7 +42,10 @@ def test_port_package_is_covered():
             "candidate_selection.py", "chip_smoke.py", "quantization.py",
             "post_scoring.py", "a3_attention.py", "xlstm.py", "rglru.py",
             "moe.py", "gemma3_4b.py", "deepseek_moe_16b.py",
-            "page_store.py", "chaos.py", "telemetry.py"} <= names
+            "page_store.py", "chaos.py", "telemetry.py", "adamw.py",
+            "memn2n.py", "step.py", "loop.py", "checkpoint.py", "fault.py",
+            "synthetic.py", "babi.py", "train.py", "train_lm_torch.py",
+            "babi_memn2n_torch.py"} <= names
     rel = {str(p.relative_to(ROOT)) for p in FILES}
     for family in ("decode_attention", "flash_attention", "a3_attention",
                    "mlstm_chunk"):

@@ -440,3 +440,119 @@ def test_cuda_simt_route_matches_plain(cuda, dtype, d, chunk):
     np.testing.assert_allclose(N(h_k), N(h_p), **SEQ)
     for name, a, w in zip("Cnm", st_k, st_p):
         np.testing.assert_allclose(N(a), N(w), **SEQ, err_msg=name)
+
+
+# ---------------------------------------------------------------------------
+# MLSTMChunk: kernel #7 with a backward (training)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,d,s", [("bfloat16", 256, 512),
+                                       ("float32", 32, 100)])
+def test_cuda_mlstm_chunk_function_forward_and_grads(cuda, dtype, d, s):
+    """On the card: MLSTMChunk's forward is kernel #7's output (one
+    launch), and its input gradients (the plain version recomputed in the
+    backward, no launch) are within 2e-2 of the largest gradient of
+    autograd through the plain version on the same inputs."""
+    from repro_torch.models.xlstm import MLSTMChunk
+    b, h, chunk = 2, 2, 256
+    arrs = _inputs(d + s, b, h, s, d, d) + _state(d, b, h, d, d)
+    tt = _t(arrs, getattr(torch, dtype), cuda)
+    ins = [t.clone().requires_grad_() for t in tt]
+    tmk.reset_launch_counts()
+    h_f, C_f, n_f, m_f = MLSTMChunk.apply(*ins, chunk, d ** -0.5)
+    assert tmk.launches() == 1
+    h_k, st_k = tmk.mlstm_chunk_kernel(*tt[:5], chunk=chunk,
+                                       scale=d ** -0.5,
+                                       state=tuple(tt[5:]),
+                                       return_state=True)
+    assert torch.equal(h_f, h_k) and torch.equal(C_f, st_k[0])
+    g = torch.Generator(device=cuda).manual_seed(0)
+    w_h, w_c = (torch.randn(t.shape, generator=g, device=cuda)
+                for t in (h_f, C_f))
+    tmk.reset_launch_counts()
+    got = torch.autograd.grad((h_f * w_h).sum() + (C_f * w_c).sum(), ins)
+    assert tmk.launches() == 0
+    ref = [t.clone().requires_grad_() for t in tt]
+    h_p, (C_p, _, _) = tmk.mlstm_chunk_plain(
+        *ref[:5], chunk=chunk, scale=d ** -0.5, state=tuple(ref[5:]),
+        return_state=True)
+    want = torch.autograd.grad((h_p * w_h).sum() + (C_p * w_c).sum(), ref)
+    torch.cuda.synchronize()
+    for name, a, w in zip(("q", "k", "v", "log_i", "log_f", "C", "n", "m"),
+                          got, want):
+        scale = float(w.float().abs().max())
+        np.testing.assert_allclose(N(a), N(w), rtol=0,
+                                   atol=2e-2 * max(scale, 1e-6),
+                                   err_msg=name)
+
+
+@pytest.mark.gpu
+def test_cuda_serving_call_launches_as_before(cuda):
+    """The serving path (no grad) through ``mlstm_chunkwise`` launches
+    kernel #7 once per call on the route ``kernel_route`` picks, as
+    before the autograd wrapper, and returns the kernel's numbers."""
+    from repro_torch.models import xlstm as xl
+    d_model, heads, hd, s = 512, 2, 256, 512
+    p = xl.MLSTM(d_model, heads, hd, torch.bfloat16, cuda)
+    xl.mlstm_init_(p, torch.Generator(device=cuda).manual_seed(0))
+    p.requires_grad_(False)
+    x = torch.randn((2, s, d_model), device=cuda).to(torch.bfloat16)
+    tmk.reset_launch_counts()
+    with torch.no_grad():
+        out, state = xl.mlstm_chunkwise(p, x, heads, hd)
+    assert tmk.LAUNCHES == {"mlstm_chunk_wgmma": 1, "mlstm_chunk_simt": 0}
+    assert out.grad_fn is None and all(t.grad_fn is None for t in state)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(out.float()).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["tiny-xl", "xlstm-350m-width"])
+def test_cuda_remat_dots_through_mlstm_chunk(cuda, arch):
+    """On the card, ``remat="dots"`` (selective checkpointing over aten
+    ops) around layers whose mLSTM runs kernel #7 through MLSTMChunk:
+    the loss and every gradient equal ``remat="none"``'s (within 1e-4 of
+    the largest gradient in float32, 2e-2 in bf16), every mLSTM parameter
+    gets a finite non-zero gradient, and the forward launches #7. TINY_XL
+    (float32, CUDA-core route, with its sLSTM layer) and two mLSTM layers
+    at xlstm-350m's widths (bf16, tensor-core route)."""
+    import dataclasses
+    from repro_torch.config import BlockKind, get_arch
+    from repro_torch.models import decoder as tdec
+    from test_torch_helpers import TINY_XL, port_cfg
+    if arch == "tiny-xl":
+        cfg, b, s, tol = port_cfg(TINY_XL), 2, 40, 1e-4
+    else:
+        cfg = dataclasses.replace(get_arch("xlstm-350m"), num_layers=2,
+                                  block_pattern=(BlockKind.MLSTM,))
+        b, s, tol = 2, 512, 2e-2
+    n_mlstm = sum(cfg.block_kind(i) == BlockKind.MLSTM
+                  for i in range(cfg.num_layers))
+    model = tdec.init_params(cfg, torch.Generator(device=cuda).manual_seed(0),
+                             cuda)
+    model.requires_grad_(True)
+    g = torch.Generator(device=cuda).manual_seed(1)
+    toks, labels = (torch.randint(0, cfg.vocab_size, (b, s), generator=g,
+                                  device=cuda) for _ in range(2))
+    params = dict(model.named_parameters())
+    out = {}
+    for remat in ("none", "dots"):
+        tmk.reset_launch_counts()
+        loss, _ = tdec.lm_loss(model, cfg, toks, labels, remat=remat)
+        fwd = tmk.launches()
+        grads = torch.autograd.grad(loss, list(params.values()))
+        out[remat] = (loss.detach().item(), dict(zip(params, grads)),
+                      fwd)
+    torch.cuda.synchronize()
+    (l0, g0, f0), (l1, g1, f1) = out["none"], out["dots"]
+    assert f0 == f1 == n_mlstm, (f0, f1)
+    assert l1 == pytest.approx(l0, rel=1e-6)
+    scale = max(float(t.float().abs().max()) for t in g0.values())
+    for name, want in g0.items():
+        got = g1[name]
+        np.testing.assert_allclose(N(got.float()), N(want.float()), rtol=0,
+                                   atol=tol * scale, err_msg=name)
+        if ".mlstm." in name:
+            assert bool(torch.isfinite(got).all()) and bool(
+                (got != 0).any()), name
