@@ -214,13 +214,44 @@ first phase that does not hold:
    function's), then ``examples/babi_memn2n.py``'s task (600 steps):
    exact accuracy, and per A^3 setting the accuracy, its delta, the mean
    candidates and the captured softmax mass of each hop.
+14. the frontend archs from precomputed embeddings (after [13]), each at
+   full width and depth with random bf16 weights from seed 0, one model
+   on the card at a time: (a) musicgen-medium (48 layers, MHA 24 x 64):
+   ``prefill(inputs_embeds=...)`` of B=4 x 1000 stub EnCodec frames
+   (``audio_frame_embeds``, a 20 s prompt at 50 Hz), max_len 1064, then
+   64 ``decode_step(input_embed=...)`` steps each fed the next frame,
+   A^3 off and conservative (``prefill(a3=True)``); (b) internvl2-2b
+   (24 layers, Hq 16, Hkv 8, D 128): 256 stub InternViT patches and a
+   256-token text prompt (``vlm_sequence``, the text through
+   ``embed_tokens``) prefilled at B=4, then 32 greedy
+   ``decode_step(token)`` steps, A^3 off and conservative. For each:
+   prefill ms and ms a decode step (CUDA events), one step's device busy
+   time and kernels (the profiler), #1 once per layer per A^3-off step
+   (none with A^3, the compact path), peak memory, and the share of
+   (lane, step) argmaxes A^3 conservative shares with off; (c) #1
+   against its plain version on 4 layers' rings as each A^3-off run
+   left them (phase 9's check: within 2e-2 of max |plain|, masking every
+   other key must exceed that), timed beside its plain version, SDPA and
+   its bytes bound (musicgen G=1, D=64, S=1064; internvl2 G=2, D=128,
+   S=544); (d) musicgen-medium training on ``{"embeds", "labels"}``
+   batches, B=4 x 1024, remat full, AdamW m/v float32, 3 steps of
+   ``make_train_step``: losses finite, ``embed``'s gradient exactly zero
+   (its moments stay 0) and ``embed`` the decay-only AdamW update within
+   one bf16 step; step ms, busy share, kernels, peak memory, tok/s; (e)
+   both smoke variants in float32 on the card vs the CPU from one
+   CPU-drawn init and numpy embeddings: forward, prefill and decode
+   logits within 1e-5, internvl2's layout's greedy tokens equal, 2
+   embeds train steps' losses within 1e-6 relative; (f)
+   ``examples/quickstart_torch.py`` and ``examples/serve_lm_torch.py``
+   (its defaults) run on the card and exit 0.
 
 Prints one JSON line of per-kernel numbers (every row with
 ``device_ms``, the profiler's device time per launch; rows #1-#3 with
 ``s4096``, the long ring's ms, device ms and bound; row #1 with
-``served_shapes``, phase 9's rows; #1's launches include [10]'s,
-[11]'s and [12]'s A^3-off serves, #7's [10b]'s, [11d]'s, [12b]'s and
-[13]'s: [13a]'s train_loop steps and [13c]'s card steps),
+``served_shapes``, phase 9's and [14c]'s rows; #1's launches include
+[10]'s, [11]'s, [12]'s and [14]'s A^3-off decode steps, #7's [10b]'s,
+[11d]'s, [12b]'s and [13]'s: [13a]'s train_loop steps and [13c]'s card
+steps),
 then, last,
 ``{"ok": true, "device": {...}}``. Exits non-zero, with no result line,
 when CUDA is unavailable or the port's sources are not beside the script.
@@ -3896,6 +3927,412 @@ def phase_train(dev):
 
 
 # ---------------------------------------------------------------------------
+# phase 14: the frontend archs from precomputed embeddings
+# ---------------------------------------------------------------------------
+
+# musicgen-medium: B=4 x 1000 frames (a 20 s prompt at EnCodec's 50 Hz),
+# then 64 decode steps, each fed the next precomputed frame
+MUSICGEN = dict(batch=4, frames=1000, new=64)
+# internvl2-2b: 256 patches (one 448 x 448 tile) + a 256-token text
+# prompt, then 32 greedy text tokens
+VLM = dict(batch=4, patches=256, text=256, new=32)
+TRAIN_AUDIO = dict(batch=4, seq=1024, steps=3)      # musicgen-medium
+FRONTEND_TINY = dict(batch=2, seq=32)
+
+
+def frontend_decode(model, cfg, dev, prompt, feed, steps, a3, label):
+    """Prefill ``prompt`` [B, S, D] (A^3 sort built when ``a3`` is on),
+    then ``steps`` decode steps, each fed ``feed(i, logits)``: a
+    precomputed frame (``input_embed``) or the greedy token. Returns
+    (argmax of each step's input logits [steps, B] on the host, the
+    cache, #1 launches of the steps, figures)."""
+    import torch
+    from repro_torch.config import A3Mode
+    from repro_torch.kernels.decode_attention import kernel as tk
+    from repro_torch.models import decoder
+
+    use_a3 = a3.mode != A3Mode.OFF
+    b, s = prompt.shape[:2]
+    max_len = s + steps
+    # warm-up of the shapes' kernels on a short prompt (not measured)
+    _, c = decoder.prefill(model, cfg, inputs_embeds=prompt[:, :16],
+                           max_len=max_len, a3=use_a3)
+    del c
+    sync(dev)
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    logits, cache = decoder.prefill(model, cfg, inputs_embeds=prompt,
+                                    max_len=max_len, a3=use_a3)
+    t1.record()
+    sync(dev)
+    prefill_ms = t0.elapsed_time(t1)
+    picks = []
+    tk.reset_launch_counts()
+    t0.record()
+    for i in range(steps):
+        picks.append(torch.argmax(logits, -1))
+        kw = feed(i, picks[-1])
+        logits, cache = decoder.decode_step(model, cfg, cache, pos=s + i,
+                                            a3=a3, **kw)
+    t1.record()
+    sync(dev)
+    fused = tk.LAUNCHES["decode_attention_fused"]
+    step_ms = t0.elapsed_time(t1) / steps
+    check(bool(torch.isfinite(logits.float()).all()),
+          f"{label}: non-finite logits after {steps} decode steps")
+    last_kw = feed(steps - 1, picks[-1])
+
+    def step():                  # rewrites the last position's own row
+        decoder.decode_step(model, cfg, cache, pos=s + steps - 1, a3=a3,
+                            **last_kw)
+    dev_ms, n_kernels, top, _ = profile_steps(step, steps=2)
+    figures = dict(prefill_ms=prefill_ms, step_ms=step_ms, dev_ms=dev_ms,
+                   kernels=n_kernels, top=top)
+    return torch.stack(picks).cpu(), cache, fused, figures
+
+
+def frontend_arch(arch, dev, make_inputs):
+    """[14a] / [14b]: ``arch`` at full width and depth (random bf16
+    weights from seed 0), A^3 off then conservative on the same inputs;
+    #1 against its plain version on the A^3-off rings (phase 9's
+    ``served_fused_check``). -> (#1 launches, the served-shape row)."""
+    import torch
+    from repro_torch.config import A3Config, get_arch
+    from repro_torch.models import decoder
+
+    cfg = get_arch(arch)
+    torch.cuda.reset_peak_memory_stats(dev)
+    held = torch.cuda.memory_allocated(dev)
+    t0 = time.perf_counter()
+    model = decoder.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    sync(dev)
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"  {arch}: {n_params / 1e9:.3f} B params ({cfg.dtype}), "
+        f"{cfg.num_layers} layers, Hq {cfg.num_heads}, Hkv "
+        f"{cfg.num_kv_heads}, D {cfg.resolved_head_dim}, random init from "
+        f"seed 0 in {time.perf_counter() - t0:.1f} s")
+    prompt, feed, steps, what = make_inputs(cfg, model)
+    n_attn, per_step = attention_layers(cfg, False)
+    picks, launches, row = {}, 0, None
+    for mode, a3 in (("off", A3Config()),
+                     ("conservative", A3Config.conservative())):
+        picks[mode], cache, fused, fig = frontend_decode(
+            model, cfg, dev, prompt, feed, steps, a3, f"{arch} a3={mode}")
+        _, per_step = attention_layers(cfg, mode != "off")
+        check(fused == per_step * steps,
+              f"{arch} a3={mode}: fused kernel launched {fused} times in "
+              f"{steps} decode steps, expected {per_step} a step")
+        if mode == "off":
+            check(fused > 0, f"{arch}: #1 was not launched")
+        launches += fused
+        busy = (f"device busy {fig['dev_ms']:.3f} ms "
+                f"({fig['dev_ms'] / fig['step_ms']:.1%} of the step), "
+                f"{fig['kernels']:.0f} kernels a step; top: "
+                + "; ".join(f"{n} {x:.3f} ms" for n, x in fig["top"][:4])
+                if fig["dev_ms"] is not None else
+                "device time not measured (the profiler saw no device "
+                "activity)")
+        line = (f"  {arch} a3={mode} ({what}): prefill {fig['prefill_ms']:.1f}"
+                f" ms, decode {fig['step_ms']:.3f} ms a step over {steps} "
+                f"steps (CUDA events), {busy}; #1 launches {fused} = "
+                f"{fused // steps} a step")
+        if mode != "off":
+            agree = float((picks[mode] == picks["off"]).float().mean())
+            line += (f"; argmax agreeing with A^3 off on {agree:.1%} of "
+                     f"{picks[mode].numel()} (lane, step) pairs")
+        log(line + f" [{CARD}]")
+        if mode == "off":
+            # #1 on the rings as the off run left them, every slot written
+            row, _ = served_fused_check("global", cfg, cache,
+                                        [(0, decoder.build_segments(cfg)[0])],
+                                        prompt.shape[1] + steps - 1, dev)
+        del cache
+        gc.collect()
+    peak = torch.cuda.max_memory_allocated(dev)
+    log(f"  peak device memory {peak / 2**30:.2f} GiB, "
+        f"{(peak - held) / 2**30:.2f} GiB above the {held / 2**30:.2f} "
+        f"GiB held before the model [{CARD}]")
+    del model, prompt
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, row
+
+
+def musicgen_inputs(cfg, model):
+    """[14a]: B=4 x (1000 + 64) stub EnCodec frames (seed 1): the first
+    1000 the prompt, frame 1000 + i the input of decode step i."""
+    import torch
+    from repro_torch.models.frontend import audio_frame_embeds
+    mg = MUSICGEN
+    frames = audio_frame_embeds(
+        torch.Generator(device=model.device).manual_seed(1), mg["batch"],
+        mg["frames"] + mg["new"], cfg)
+
+    def feed(i, _pick):
+        return {"input_embed": frames[:, mg["frames"] + i]}
+    return (frames[:, :mg["frames"]], feed, mg["new"],
+            f"B={mg['batch']} x {mg['frames']} frames, {mg['new']} frames "
+            f"fed")
+
+
+def vlm_inputs(cfg, model):
+    """[14b]: 256 stub InternViT patches and a 256-token text prompt from
+    ``vlm_sequence`` (seed 1), the text through ``embed_tokens``; each
+    decode step fed the greedy token."""
+    import torch
+    from repro_torch.models import decoder
+    from repro_torch.models.frontend import vlm_sequence
+    v = VLM
+    vis, text = vlm_sequence(
+        torch.Generator(device=model.device).manual_seed(1), v["batch"],
+        v["patches"] + v["text"], v["patches"], cfg)
+    prompt = torch.cat([vis, decoder.embed_tokens(model, cfg, text)], 1)
+
+    def feed(_i, pick):
+        return {"token": pick.to(torch.int32)}
+    return (prompt, feed, v["new"],
+            f"B={v['batch']} x ({v['patches']} patches + {v['text']} text "
+            f"tokens), {v['new']} greedy tokens")
+
+
+def phase_train_audio(dev):
+    """[14d]: musicgen-medium training at full width and depth (bf16,
+    AdamW m/v float32) on {"embeds", "labels"} batches, B=4 x 1024, remat
+    full, 3 steps of ``make_train_step``: losses finite, ``embed``'s
+    gradient exactly zero (its m and v stay 0), ``embed`` after the steps
+    the AdamW decay-only update of its initial value (within one bf16
+    step); step ms, busy share, kernels, peak memory, tok/s."""
+    import tempfile
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.config import get_arch
+    from repro_torch.models.frontend import audio_frame_embeds
+    from repro_torch.optim.adamw import cosine_schedule
+    from repro_torch.train.step import init_train_state, make_train_step
+
+    cfg = get_arch("musicgen-medium")
+    ta = TRAIN_AUDIO
+    run = train_run(cfg, ta["seq"], ta["batch"], "full", None)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    state = init_train_state(run, torch.Generator(device=dev).manual_seed(0),
+                             dev)
+    embed0 = state.model.embed.detach().clone()
+    sync(dev)
+    log(f"  {cfg.name}: {sum(p.numel() for p in state.model.parameters()) / 1e9:.3f}"
+        f" B params (bf16), AdamW m/v float32, init "
+        f"{time.perf_counter() - t0:.1f} s")
+    g = torch.Generator(device=dev).manual_seed(2)
+    batches = [{"embeds": audio_frame_embeds(g, ta["batch"], ta["seq"], cfg),
+                "labels": torch.randint(0, cfg.vocab_size,
+                                        (ta["batch"], ta["seq"]),
+                                        generator=g, device=dev,
+                                        dtype=torch.int32)}
+               for _ in range(ta["steps"])]
+    step = make_train_step(run)
+    events, losses = [], []
+    prof = profile(activities=[ProfilerActivity.CUDA])
+    for i, batch in enumerate(batches):
+        if i == ta["steps"] - 1:
+            sync(dev)
+            prof.start()
+        state, metrics = step(state, batch)
+        losses.append(metrics["loss"])
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        events.append(ev)
+    sync(dev)
+    prof.stop()
+    losses = [float(x) for x in losses]
+    check(all(math.isfinite(x) for x in losses),
+          f"musicgen-medium losses not finite: {losses}")
+    check(not state.opt.m["embed"].any() and not state.opt.v["embed"].any(),
+          "musicgen-medium: embed got a non-zero gradient from an embeds "
+          "batch (its AdamW moments moved)")
+    want = embed0.float()
+    for i in range(1, ta["steps"] + 1):
+        lr = cosine_schedule(run.optimizer, torch.tensor(i, device=dev))
+        want = (want - lr * (run.optimizer.weight_decay * want)).to(
+            torch.bfloat16).float()
+    got = state.model.embed.detach().float()
+    ulp = (2.0 ** -7) * want.abs()
+    err = float(((got - want).abs() - ulp).max())
+    moved = float((got - embed0.float()).abs().max())
+    # lr x weight_decay (~1e-5 in these warm-up steps) is below bf16's
+    # resolution, so the decay-only update may leave the table as it was
+    check(err <= 0, f"musicgen-medium: embed after {ta['steps']} steps is "
+                    f"not the decay-only AdamW update (max excess over one "
+                    f"bf16 step {err}, moved {moved})")
+    log(f"  {ta['steps']} steps on embeds batches (B={ta['batch']} x "
+        f"{ta['seq']}, remat full): loss "
+        + " -> ".join(f"{x:.4f}" for x in losses)
+        + f"; embed's grad exactly zero (m, v stay 0), embed = the "
+        f"decay-only update within one bf16 step (the table moved up to "
+        f"{moved:.3g})")
+    train_step_figures(run, dev, f"musicgen-medium B={ta['batch']} x "
+                       f"{ta['seq']} remat full (embeds)", events, prof)
+    del state, batches, step, embed0
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def frontend_tiny_run(base, cfg, d, emb, text, labels):
+    """[14e] on device ``d`` from a copy of ``base``: (forward, prefill
+    and decode_step logits on the CPU, internvl2's layout's 6 greedy
+    tokens [6, B], 2 embeds train-step losses)."""
+    import torch
+    from repro_torch.models import decoder
+    from repro_torch.train.step import make_train_step, make_train_state
+
+    s = emb.shape[1]
+    model = copy.deepcopy(base).to(d)
+    e = emb.to(d)
+    full, _ = decoder.forward(model, cfg, inputs_embeds=e)
+    lp, cache = decoder.prefill(model, cfg, inputs_embeds=e[:, :-1],
+                                max_len=s + 8)
+    ld, _ = decoder.decode_step(model, cfg, cache, pos=s - 1,
+                                input_embed=e[:, -1])
+    # internvl2's layout: 16 patches, 16 text tokens, 6 greedy steps
+    seq = torch.cat([e[:, :16], decoder.embed_tokens(model, cfg,
+                                                     text.to(d))], 1)
+    lg, cache = decoder.prefill(model, cfg, inputs_embeds=seq, max_len=s + 8)
+    toks = []
+    for i in range(6):
+        toks.append(torch.argmax(lg, -1).to(torch.int32))
+        lg, cache = decoder.decode_step(model, cfg, cache, toks[-1],
+                                        seq.shape[1] + i)
+    run = train_run(cfg, s, emb.shape[0], "none", None, total_steps=10,
+                    lr=1e-3)
+    state, step, losses = make_train_state(model, run), \
+        make_train_step(run), []
+    for _ in range(2):
+        state, m = step(state, {"embeds": e, "labels": labels.to(d)})
+        losses.append(float(m["loss"]))
+    return ([x.detach().cpu() for x in (full, lp, ld)],
+            torch.stack(toks).cpu(), losses)
+
+
+def phase_frontend_tiny(dev):
+    """[14e]: the smoke variants of both frontend archs in float32, drawn
+    on the CPU from seed 0, on the card vs the CPU with the same numpy
+    embeddings: forward, prefill and decode_step logits within 1e-5;
+    internvl2's patches + text then 6 greedy tokens equal; 2 train steps
+    on an embeds batch, losses within 1e-6 relative. -> #1 launches on
+    the card."""
+    import numpy as np
+    import torch
+    from repro_torch.config import get_arch, smoke_variant
+    from repro_torch.kernels.decode_attention import kernel as tk
+    from repro_torch.models import decoder
+
+    cpu = torch.device("cpu")
+    b, s = FRONTEND_TINY["batch"], FRONTEND_TINY["seq"]
+    launches = 0
+    for arch in ("musicgen-medium", "internvl2-2b"):
+        cfg = dataclasses.replace(smoke_variant(get_arch(arch)),
+                                  dtype="float32")
+        rng = np.random.default_rng(3)
+        emb = torch.from_numpy(rng.standard_normal(
+            (b, s, cfg.d_model)).astype(np.float32))
+        text = torch.from_numpy(rng.integers(
+            0, cfg.vocab_size, size=(b, 16)).astype(np.int32))
+        labels = torch.from_numpy(rng.integers(
+            0, cfg.vocab_size, size=(b, s)).astype(np.int32))
+        base = decoder.init_params(cfg, torch.Generator().manual_seed(0),
+                                   "cpu")
+        tk.reset_launch_counts()
+        want, got = (frontend_tiny_run(base, cfg, d, emb, text, labels)
+                     for d in (cpu, dev))
+        launches += tk.LAUNCHES["decode_attention_fused"]
+        errs = [float((g - w).abs().max()) for g, w in zip(got[0], want[0])]
+        rel = max(abs(g - w) / abs(w) for g, w in zip(got[2], want[2]))
+        same = torch.equal(got[1], want[1])
+        log(f"  {arch} smoke f32, card vs CPU: forward / prefill / decode "
+            f"logits within {errs[0]:.2e} / {errs[1]:.2e} / {errs[2]:.2e} "
+            f"(limit 1e-5); greedy tokens after patches + text "
+            f"{'equal' if same else 'DIFFER'}; train losses "
+            + ", ".join(f"{x:.7f}" for x in got[2])
+            + f" within {rel:.2e} relative (limit 1e-6); card #1 launches "
+            f"{tk.LAUNCHES['decode_attention_fused']}")
+        check(max(errs) <= 1e-5, f"{arch}: card logits differ from the CPU's "
+                                 f"by {errs}")
+        check(same, f"{arch}: card greedy tokens {got[1].tolist()} != "
+                    f"CPU's {want[1].tolist()}")
+        check(rel <= 1e-6, f"{arch}: card train losses {got[2]} vs CPU "
+                           f"{want[2]}")
+        check(tk.LAUNCHES["decode_attention_fused"] > 0,
+              f"{arch}: #1 not launched on the card")
+    return launches
+
+
+def phase_examples(dev):
+    """[14f]: ``examples/quickstart_torch.py`` and
+    ``examples/serve_lm_torch.py`` (its defaults: phi4-mini-3.8b's smoke
+    variant) on the card, both started together; each must exit 0."""
+    import os
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    procs = {name: subprocess.Popen(
+        [sys.executable, str(ROOT / "examples" / name)], env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for name in ("quickstart_torch.py", "serve_lm_torch.py")}
+    try:
+        for name, p in procs.items():
+            t0 = time.perf_counter()
+            text, _ = p.communicate(timeout=300)
+            lines = text.strip().splitlines()
+            log(f"  examples/{name}: exit {p.returncode} "
+                f"({time.perf_counter() - t0:.1f} s waited); last lines:")
+            for ln in lines[-4:]:
+                log(f"    {ln[:160]}")
+            check(p.returncode == 0, f"examples/{name} exited "
+                                     f"{p.returncode}:\n{text[-2000:]}")
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+
+
+def phase_frontend(dev):
+    """[14] -> (#1 launches of [14a], [14b] and [14e]'s card runs, the
+    served-shape rows of [14c])."""
+    log("[14a] musicgen-medium from stub EnCodec frames at full width and "
+        "depth")
+    t = time.perf_counter()
+    launches, rows = 0, []
+    n, row = frontend_arch("musicgen-medium", dev, musicgen_inputs)
+    launches += n
+    rows.append(row)
+    log(f"  [14a] took {time.perf_counter() - t:.1f} s")
+    log("[14b] internvl2-2b from stub InternViT patches + text at full "
+        "width and depth")
+    t = time.perf_counter()
+    n, row = frontend_arch("internvl2-2b", dev, vlm_inputs)
+    launches += n
+    rows.append(row)
+    log(f"  [14b] took {time.perf_counter() - t:.1f} s")
+    log("[14c] #1 vs its plain version on the served rings: see the '#1 on' "
+        "lines of [14a] and [14b] (musicgen-medium G=1, D=64; internvl2-2b "
+        "G=2, D=128)")
+    log("[14d] musicgen-medium training on embeds batches at full width")
+    t = time.perf_counter()
+    phase_train_audio(dev)
+    log(f"  [14d] took {time.perf_counter() - t:.1f} s")
+    log("[14e] the smoke variants in float32, card vs CPU")
+    t = time.perf_counter()
+    launches += phase_frontend_tiny(dev)
+    log(f"  [14e] took {time.perf_counter() - t:.1f} s")
+    log("[14f] examples/quickstart_torch.py and examples/serve_lm_torch.py "
+        "on the card")
+    t = time.perf_counter()
+    phase_examples(dev)
+    log(f"  [14f] took {time.perf_counter() - t:.1f} s")
+    return launches, rows
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     global CARD
@@ -4004,6 +4441,15 @@ def main() -> int:
     t13 = time.perf_counter()
     xl_launches += phase_train(dev)
     log(f"  phase [13] took {time.perf_counter() - t13:.1f} s")
+    log("[14] the frontend archs from precomputed embeddings: "
+        "musicgen-medium and internvl2-2b at full width and depth, #1 on "
+        "their rings, musicgen training, smoke variants card vs CPU, the "
+        "quickstart and serve_lm examples")
+    t14 = time.perf_counter()
+    fe_launches, fe_served = phase_frontend(dev)
+    main_launches += fe_launches
+    served += fe_served
+    log(f"  phase [14] took {time.perf_counter() - t14:.1f} s")
 
     src = "src/repro_torch/csrc/decode_attention.cu"
     jax_kernel = "src/repro/kernels/decode_attention/kernel.py"

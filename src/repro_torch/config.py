@@ -422,8 +422,7 @@ def register_arch(name: str):
 def get_arch(name: str) -> ModelConfig:
     import repro_torch.configs  # noqa: F401  (populates the registry)
     if name not in _REGISTRY:
-        raise KeyError(f"arch {name!r} is not yet ported to repro_torch; "
-                       f"have {sorted(_REGISTRY)}")
+        raise KeyError(f"unknown arch {name!r}; have {sorted(_REGISTRY)}")
     return _REGISTRY[name]()
 
 

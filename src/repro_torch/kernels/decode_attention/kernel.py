@@ -14,8 +14,9 @@ one route ``score_route(k)`` picks from K alone.
 The device of the tensors decides the route: CUDA tensors launch the
 kernel (or raise), CPU tensors take the plain PyTorch version, which
 repeats the kernel's arithmetic tile by tile (running max advanced once
-per ``block_k`` tile, masked scores at -1e30). There is no fallback from
-the kernel to the plain version.
+per ``block_k`` tile, masked scores at -1e30; a ring that ``block_k``
+does not divide is one tile). There is no fallback from the kernel to
+the plain version.
 
 ``LAUNCHES`` counts kernel launches per kernel (plain calls do not
 count), so a run can show that it went through the kernels.
@@ -117,7 +118,10 @@ def _check(q, k, v, mask, block_k) -> Tuple[int, int, int, int, int, int, int]:
                          f"{mask.dtype} {tuple(mask.shape)}")
     bk = min(block_k, s)
     if s % bk != 0:
-        raise ValueError(f"S={s} is not a multiple of block_k={bk}")
+        # the Pallas kernel asserts here; a ring that block_k does not
+        # divide (max_len 1064) is one tile, the exact threshold rule of
+        # the reference's jnp path, which its models decode through
+        bk = s
     return b, hq, hkv, s, d, dv, bk
 
 
@@ -228,7 +232,7 @@ def fused(q, k, v, mask, *, threshold=None, scale=None, block_k=512):
     err = _entry("decode_attention_fused")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
         out.data_ptr(), int(q.dtype == torch.bfloat16), b, hq, hkv, s, d,
-        dv, bk, cluster_size(s, block_k), scale, has_thr, thr,
+        dv, bk, cluster_size(s, bk), scale, has_thr, thr,
         build.stream(q.device))
     build.raise_on(err, "decode_attention_fused")
     LAUNCHES["decode_attention_fused"] += 1

@@ -284,6 +284,17 @@ def _run_layer(blk: Block, h: torch.Tensor, positions: torch.Tensor,
                       attn_chunk, use_reentrant=False, **kw)
 
 
+def _embed_input(model: Decoder, cfg: ModelConfig,
+                 tokens: Optional[torch.Tensor],
+                 inputs_embeds: Optional[torch.Tensor]) -> torch.Tensor:
+    """The stack's input [B, S, D]: precomputed embeddings (the frontend
+    archs) cast to ``cfg.dtype`` as they are, without ``embed_tokens``'
+    sqrt(d_model) factor, as in the reference; else the tokens' rows."""
+    if inputs_embeds is not None:
+        return inputs_embeds.to(device=model.device, dtype=DTYPES[cfg.dtype])
+    return embed_tokens(model, cfg, tokens)
+
+
 def forward_hidden(model: Decoder, cfg: ModelConfig,
                    tokens: Optional[torch.Tensor] = None,
                    inputs_embeds: Optional[torch.Tensor] = None, *,
@@ -293,13 +304,9 @@ def forward_hidden(model: Decoder, cfg: ModelConfig,
     """Full-sequence forward up to (not including) the unembed ->
     (hidden [B, S, D], {"moe_aux_loss"}), as the reference's
     ``forward_hidden``; ``remat`` applies per layer (:func:`_run_layer`).
-    ``inputs_embeds`` (the frontend archs) is not ported yet."""
-    if inputs_embeds is not None:
-        raise NotImplementedError(
-            "inputs_embeds needs the frontend archs, which the port does "
-            "not have yet (ROADMAP queue 1)")
-    b, s = tokens.shape
-    h = embed_tokens(model, cfg, tokens)
+    ``inputs_embeds`` [B, S, D] takes the place of ``tokens``."""
+    h = _embed_input(model, cfg, tokens, inputs_embeds)
+    b, s = h.shape[:2]
     if positions is None:
         positions = torch.arange(s, dtype=torch.int32,
                                  device=h.device).expand(b, s)
@@ -313,14 +320,17 @@ def forward_hidden(model: Decoder, cfg: ModelConfig,
                                                device=h.device)}
 
 
-def forward(model: Decoder, cfg: ModelConfig, tokens: torch.Tensor, *,
+def forward(model: Decoder, cfg: ModelConfig,
+            tokens: Optional[torch.Tensor] = None,
+            inputs_embeds: Optional[torch.Tensor] = None, *,
             positions: Optional[torch.Tensor] = None, remat: str = "none",
             attn_chunk: int = 1024
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Full-sequence forward, no state -> (logits [B, S, Vp],
     {"moe_aux_loss"}), as the reference's ``forward``."""
-    h, aux = forward_hidden(model, cfg, tokens, positions=positions,
-                            remat=remat, attn_chunk=attn_chunk)
+    h, aux = forward_hidden(model, cfg, tokens, inputs_embeds,
+                            positions=positions, remat=remat,
+                            attn_chunk=attn_chunk)
     return unembed(model, cfg, h), aux
 
 
@@ -358,8 +368,8 @@ def chunked_ce(model: Decoder, cfg: ModelConfig, h: torch.Tensor,
     return nll / torch.clamp(cnt, min=1.0)
 
 
-def lm_loss(model: Decoder, cfg: ModelConfig, tokens: torch.Tensor,
-            labels: torch.Tensor, *,
+def lm_loss(model: Decoder, cfg: ModelConfig,
+            tokens: Optional[torch.Tensor], labels: torch.Tensor, *,
             inputs_embeds: Optional[torch.Tensor] = None,
             remat: str = "none", attn_chunk: int = 1024,
             ce_chunk: int = 512
@@ -372,13 +382,16 @@ def lm_loss(model: Decoder, cfg: ModelConfig, tokens: torch.Tensor,
     return loss + aux["moe_aux_loss"], {"lm_loss": loss, **aux}
 
 
-def prefill(model: Decoder, cfg: ModelConfig, tokens: torch.Tensor, *,
+def prefill(model: Decoder, cfg: ModelConfig,
+            tokens: Optional[torch.Tensor] = None,
+            inputs_embeds: Optional[torch.Tensor] = None, *,
             max_len: Optional[int] = None, attn_chunk: int = 1024,
             a3: bool = False, select_shards: int = 1
             ) -> Tuple[torch.Tensor, Dict[str, Any]]:
-    """Process a prompt -> (last-token logits [B, Vp], filled cache)."""
-    b, s = tokens.shape
-    h = embed_tokens(model, cfg, tokens)
+    """Process a prompt (``tokens`` [B, S] or ``inputs_embeds``
+    [B, S, D]) -> (last-token logits [B, Vp], filled cache)."""
+    h = _embed_input(model, cfg, tokens, inputs_embeds)
+    b, s = h.shape[:2]
     max_len = max_len or s
     positions = torch.arange(s, dtype=torch.int32,
                              device=h.device).expand(b, s)
@@ -452,11 +465,13 @@ def prefill_chunk(
 # ---------------------------------------------------------------------------
 
 def decode_step(model: Decoder, cfg: ModelConfig, cache: Dict[str, Any],
-                token: torch.Tensor, pos, *, a3: A3Config = A3Config(),
-                probe: bool = False):
+                token: Optional[torch.Tensor] = None, pos=None, *,
+                input_embed: Optional[torch.Tensor] = None,
+                a3: A3Config = A3Config(), probe: bool = False):
     """One ragged autoregressive step -> (logits [B, Vp], cache updated
     in place). ``pos`` is a scalar or a per-lane vector [B]; lanes with
-    ``pos < 0`` leave the cache bit-identical.
+    ``pos < 0`` leave the cache bit-identical. ``input_embed`` [B, D]
+    (the frontend archs) takes the place of ``token``.
 
     ``probe=True`` returns ``(logits, cache, (probe_sum [B, 2],
     n_probed_layers))``: the A^3 quality probes (mean candidates,
@@ -464,7 +479,8 @@ def decode_step(model: Decoder, cfg: ModelConfig, cache: Dict[str, Any],
     sort, summed over each segment's layers and then over segments, as
     the reference sums them. The logits and cache come from the
     identical ops either way."""
-    h = embed_tokens(model, cfg, token[:, None])
+    h = _embed_input(model, cfg, None if token is None else token[:, None],
+                     None if input_embed is None else input_embed[:, None])
     pos = torch.as_tensor(pos, device=h.device).to(torch.int32).expand(
         h.shape[0])
     probe_sum, probe_layers = None, 0

@@ -330,9 +330,13 @@ def _attn_decode_step(layer, state: Dict[str, torch.Tensor],
         if probe:
             o, state["_probe"] = o
     elif use_a3:
-        # no cached sort: build one inline (single-shot use)
+        # no cached sort: build one inline (single-shot use). The two-pass
+        # pair tests every score against the whole ring's max, the exact
+        # threshold rule of the oracle the reference's models decode
+        # through; #1 advances its max a block_k tile at a time
         o = a3_decode_attention(q[:, :, 0], kc, vc, valid, a3,
-                                sorted_keys=sort_key_columns(kc))
+                                sorted_keys=sort_key_columns(kc),
+                                exact_two_pass=True)
     else:
         o = a3_decode_attention(q[:, :, 0], kc, vc, valid, A3Config())
     return attention_out(layer.attn, o[:, :, None, :])

@@ -56,11 +56,18 @@ def _as_tensor(x, device) -> torch.Tensor:
 
 
 def _grads_one(model, cfg, batch, remat, attn_chunk, ce_chunk=512):
-    total, _ = decoder.lm_loss(model, cfg, batch["tokens"], batch["labels"],
+    """(loss, name -> grad) of one batch. A leaf the loss does not reach
+    gets a zero gradient, as ``jax.value_and_grad`` gives it: the untied
+    ``embed`` table of a batch of precomputed ``embeds``, which AdamW then
+    still decays."""
+    total, _ = decoder.lm_loss(model, cfg, batch.get("tokens"),
+                               batch["labels"],
+                               inputs_embeds=batch.get("embeds"),
                                remat=remat, attn_chunk=attn_chunk,
                                ce_chunk=ce_chunk)
     params = dict(model.named_parameters())
-    grads = torch.autograd.grad(total, list(params.values()))
+    grads = torch.autograd.grad(total, list(params.values()),
+                                allow_unused=True, materialize_grads=True)
     return total.detach(), dict(zip(params, grads))
 
 
@@ -71,7 +78,7 @@ def _grads_accumulated(model, cfg, batch, remat, attn_chunk, n_micro):
     As in the reference, ``_grads_one`` is called without ``ce_chunk``
     here, so a microbatched step always takes the default chunk of 512
     tokens whatever ``ShardingConfig.ce_chunk`` says."""
-    b = batch["tokens"].shape[0]
+    b = batch["labels"].shape[0]
     if b % n_micro:
         raise ValueError(f"batch {b} is not a multiple of {n_micro} "
                          f"microbatches")
@@ -92,7 +99,8 @@ def make_train_step(run: RunConfig
                     ) -> Callable[[TrainState, Dict],
                                   Tuple[TrainState, Dict[str, torch.Tensor]]]:
     """The train step: ``step(state, batch) -> (state, metrics)``, with
-    ``batch`` {"tokens", "labels"} [B, S] (numpy or tensors; moved to the
+    ``batch`` {"tokens", "labels"} [B, S] or, for the frontend archs,
+    {"embeds" [B, S, D], "labels"} (numpy or tensors; moved to the
     model's device) and metrics {"loss", "grad_norm", "lr"} as device
     tensors. The state's parameters and moments are updated in place."""
     cfg = run.model
@@ -103,7 +111,8 @@ def make_train_step(run: RunConfig
 
     def step(state: TrainState, batch) -> Tuple[TrainState, Dict]:
         dev = state.model.device
-        batch = {k: _as_tensor(batch[k], dev) for k in ("tokens", "labels")}
+        batch = {k: _as_tensor(batch[k], dev)
+                 for k in ("tokens", "embeds", "labels") if k in batch}
         if n_micro > 1:
             loss, grads = _grads_accumulated(state.model, cfg, batch, remat,
                                              attn_chunk, n_micro)

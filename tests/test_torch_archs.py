@@ -3,10 +3,11 @@ of each (``smoke_variant``, float32) with the reference's weights carried
 over: the full-sequence ``forward`` logits and MoE aux loss, whole-prompt
 ``prefill`` logits and caches (A^3 sort leaves included), and one decode
 step after it, within the reference's own 2e-4 for logits through a
-whole smoke model (``tests/test_archs_smoke.py``). Plus the registry: the
-JAX package's archs minus the two frontend ones, each config and smoke
-variant equal field for field, and ``param_count`` equal on the full
-configs.
+whole smoke model (``tests/test_archs_smoke.py``); the two frontend
+archs take tokens here too (their embeddings input is in
+``tests/test_torch_frontend.py``). Plus the registry: the JAX package's
+archs, all ten, each config and smoke variant equal field for field, and
+``param_count`` equal on the full configs.
 """
 from __future__ import annotations
 
@@ -38,12 +39,13 @@ B, S = 2, 32
 
 
 def test_registry_is_the_reference_minus_frontends():
-    assert ARCHS == [a for a in jcfg.list_archs() if a not in FRONTEND]
-    assert len(ARCHS) == 8
+    """The name is kept from when the port lacked the frontend archs: the
+    registry now equals the reference's, the frontend archs included."""
+    assert ARCHS == jcfg.list_archs()
+    assert len(ARCHS) == 10
     for arch in FRONTEND:
         assert jcfg.get_arch(arch).frontend
-        with pytest.raises(KeyError, match="not yet ported"):
-            tcfg.get_arch(arch)
+        assert tcfg.get_arch(arch).frontend == jcfg.get_arch(arch).frontend
 
 
 @pytest.mark.parametrize("arch", ARCHS)

@@ -45,7 +45,9 @@ def test_port_package_is_covered():
             "page_store.py", "chaos.py", "telemetry.py", "adamw.py",
             "memn2n.py", "step.py", "loop.py", "checkpoint.py", "fault.py",
             "synthetic.py", "babi.py", "train.py", "train_lm_torch.py",
-            "babi_memn2n_torch.py"} <= names
+            "babi_memn2n_torch.py", "frontend.py", "musicgen_medium.py",
+            "internvl2_2b.py", "quickstart_torch.py",
+            "serve_lm_torch.py"} <= names
     rel = {str(p.relative_to(ROOT)) for p in FILES}
     for family in ("decode_attention", "flash_attention", "a3_attention",
                    "mlstm_chunk"):

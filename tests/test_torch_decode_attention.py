@@ -153,11 +153,19 @@ def test_cpu_route_is_plain_and_counts_no_launch(two_pass):
 
 
 def test_wrapper_rejects_bad_shapes():
+    """Bad shapes raise. A ring that block_k does not divide (where the
+    Pallas kernel asserts) is one tile: the exact threshold rule of the
+    reference oracle, as a served ring of max_len 1064 needs."""
     _, (tq, tk_, tv, tm) = _inputs(5, 1, 4, 2, 384, 32, "float32")
-    with pytest.raises(ValueError, match="multiple of block_k"):
-        tk.fused(tq, tk_, tv, tm, block_k=256)
+    out = tk.fused(tq, tk_, tv, tm, threshold=T_CONS, block_k=256)
+    assert torch.equal(out, tk.fused_plain(tq, tk_, tv, tm, threshold=T_CONS,
+                                           block_k=384))
+    ref = decode_attention_ref(tq, tk_, tv, tm, threshold=T_CONS)
+    np.testing.assert_allclose(N(out), N(ref), **tol("float32"))
     with pytest.raises(ValueError, match="mask"):
         tk.fused(tq, tk_, tv, tm[:, :2])
+    with pytest.raises(ValueError, match="shape mismatch"):
+        tk.fused(tq, tk_[..., :16], tv, tm)
 
 
 @pytest.mark.gpu
@@ -315,6 +323,11 @@ FUSED_CASES = [
     (4, 10, 1, 2048, 256, "bfloat16", 512, None),  # recurrentgemma-2b
     (1, 8, 1, 1024, 256, "float32", 512, 3.0),     # G = 8, D = 256
     (1, 16, 1, 4096, 256, "bfloat16", 512, None),  # G = 16: one slot
+    # the frontend archs' served rings: musicgen-medium (MHA, D = 64, 128-B
+    # rows) and internvl2-2b (G = 2, D = 128)
+    (4, 24, 24, 1064, 64, "bfloat16", 512, None),
+    (4, 24, 24, 1064, 64, "bfloat16", 512, 3.0),
+    (4, 16, 8, 544, 128, "bfloat16", 512, None),
 ]
 
 

@@ -264,3 +264,28 @@ def test_native_init_distributions():
         std = float(w.float().std()) * fan_in ** 0.5
         assert abs(std - 1.0) < 0.05, (tuple(w.shape), std)
         assert abs(float(w.float().mean())) * fan_in ** 0.5 < 0.05
+
+
+def test_a3_decode_without_cached_sort_on_a_long_ring_matches():
+    """A^3 conservative decode over a cache prefilled without the sort,
+    on a 1024-row ring (two of #1's 512-key tiles): the layer builds the
+    sort inline and must keep the reference oracle's exact threshold
+    rule against the whole ring's max (the two-pass pair), not a running
+    max advanced per tile; logits within the f32 tolerance."""
+    jcfg = CONFIGS["phi4smoke-f32"]
+    params = jdec.init_params(jax.random.PRNGKey(0), jcfg)
+    model = params_from_numpy(jax.tree_util.tree_map(np.asarray, params),
+                              port_cfg(jcfg), device="cpu")
+    toks = _prompts(jcfg, 2, 700, seed=1)
+    a3 = A3Config.conservative()
+    _, jc = jdec.prefill(params, jcfg, jnp.asarray(toks[:, :699]),
+                         max_len=1024)
+    _, tc = tdec.prefill(model, port_cfg(jcfg), T(toks[:, :699]),
+                         max_len=1024)
+    assert "sk_vals" not in tc["seg0"]
+    jl, _ = jdec.decode_step(params, jcfg, jc, jnp.asarray(toks[:, 699]),
+                             jnp.int32(699), a3=a3)
+    tl, _ = tdec.decode_step(model, port_cfg(jcfg), tc, T(toks[:, 699]),
+                             699, a3=port_a3(a3))
+    np.testing.assert_allclose(N(tl), N(jl), rtol=TOL["float32"]["logits"],
+                               atol=TOL["float32"]["logits"])

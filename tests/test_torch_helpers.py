@@ -255,9 +255,12 @@ def test_xlstm_config_matches_reference():
 
 
 def test_unported_arch_raises():
-    """The frontend archs wait for the port's frontend module."""
-    with pytest.raises(KeyError, match="not yet ported"):
-        tcfg.get_arch("musicgen-medium")
+    """A name neither package registers raises, as in the reference."""
+    assert "gpt-2" not in jcfg.list_archs()
+    with pytest.raises(KeyError, match="unknown arch"):
+        jcfg.get_arch("gpt-2")
+    with pytest.raises(KeyError, match="unknown arch"):
+        tcfg.get_arch("gpt-2")
 
 
 @pytest.mark.parametrize("mode", ["conservative", "aggressive"])

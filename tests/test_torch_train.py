@@ -143,8 +143,12 @@ def test_forward_hidden_then_unembed_is_forward():
     h, _ = tdec.forward_hidden(model, cfg, toks)
     logits, _ = tdec.forward(model, cfg, toks)
     assert torch.equal(tdec.unembed(model, cfg, h), logits)
-    with pytest.raises(NotImplementedError):
-        tdec.forward_hidden(model, cfg, inputs_embeds=torch.zeros(1, 2, 64))
+    emb = torch.randn((2, 8, cfg.d_model), generator=torch.Generator(
+        ).manual_seed(1))
+    h, _ = tdec.forward_hidden(model, cfg, inputs_embeds=emb)
+    logits, _ = tdec.forward(model, cfg, inputs_embeds=emb)
+    assert h.shape == (2, 8, cfg.d_model)
+    assert torch.equal(tdec.unembed(model, cfg, h), logits)
 
 
 @pytest.mark.parametrize("with_state", [False, True])
