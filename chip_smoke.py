@@ -244,14 +244,30 @@ first phase that does not hold:
    embeds train steps' losses within 1e-6 relative; (f)
    ``examples/quickstart_torch.py`` and ``examples/serve_lm_torch.py``
    (its defaults) run on the card and exit 0.
+15. the device mesh (after [14]), on a one-rank NCCL ("data", "model")
+   mesh (``launch.mesh``; the tool gives one card, NCCL takes one rank a
+   card): (a) internlm2-1.8b (B=4 x 2048) and (b) xlstm-350m (B=4 x 512)
+   at full width and depth, remat full, 3 steps of the unsharded step
+   and 3 of the sharded step (``make_train_step(run, mesh)``: DTensor
+   parameters and moments, weights gathered per layer) from the same
+   seed and batches, one model on the card at a time: losses within 1e-5
+   relative, step ms (CUDA events) and peak memory, #7 launched 2 x 21 a
+   sharded xlstm-350m step; (c) on CUDA tensors: ``psum_compressed``
+   over a one-rank pod axis (within half a quantization step, mean + err
+   = g), ``pipeline_forward`` through one stage (= the stage), a
+   compressed sharded TINY step, and a sharded TINY state saved and
+   restored bit-equal through the mesh checkpoint path; (d) TINY float32
+   on four gloo CPU ranks (a (data 2, model 2) mesh, subprocesses of this
+   script started with ``--mesh-rank``) against the card's one-rank
+   mesh: 3 sharded steps' losses within 2e-5 relative.
 
 Prints one JSON line of per-kernel numbers (every row with
 ``device_ms``, the profiler's device time per launch; rows #1-#3 with
 ``s4096``, the long ring's ms, device ms and bound; row #1 with
 ``served_shapes``, phase 9's and [14c]'s rows; #1's launches include
 [10]'s, [11]'s, [12]'s and [14]'s A^3-off decode steps, #7's [10b]'s,
-[11d]'s, [12b]'s and [13]'s: [13a]'s train_loop steps and [13c]'s card
-steps),
+[11d]'s, [12b]'s, [13]'s ([13a]'s train_loop steps and [13c]'s card
+steps) and [15b]'s sharded steps),
 then, last,
 ``{"ok": true, "device": {...}}``. Exits non-zero, with no result line,
 when CUDA is unavailable or the port's sources are not beside the script.
@@ -4333,6 +4349,285 @@ def phase_frontend(dev):
 
 
 # ---------------------------------------------------------------------------
+# phase 15: the device mesh (one NCCL rank on the card, four gloo ranks on
+# the CPU)
+# ---------------------------------------------------------------------------
+
+MESH_LM = dict(batch=4, seq=2048, steps=3)       # internlm2-1.8b
+MESH_XL = dict(batch=4, seq=512, steps=3)        # xlstm-350m
+MESH_TINY_STEPS = 3
+MESH_CPU_WORLD = 4                               # a (data 2, model 2) mesh
+
+
+def mesh_tiny_run():
+    """TINY in float32 (tests/test_serve_conformance's config), B=8 x 16,
+    remat none: the run both the card's one-rank mesh and the CPU's four
+    gloo ranks train."""
+    from repro_torch.config import ModelConfig
+    tiny = ModelConfig("tiny", "dense", num_layers=2, d_model=64,
+                       num_heads=4, num_kv_heads=2, d_ff=128, vocab_size=256,
+                       head_dim=16, dtype="float32")
+    run = train_run(tiny, 16, 8, "none", None, total_steps=10, lr=1e-3)
+    return dataclasses.replace(run, optimizer=dataclasses.replace(
+        run.optimizer, warmup_steps=1))
+
+
+def mesh_tiny_losses(run, dev, mesh):
+    """MESH_TINY_STEPS sharded steps of ``run`` on ``mesh`` from a
+    CPU-drawn init (generator seed 0) -> losses."""
+    import torch
+    from repro_torch.models import decoder
+    from repro_torch.train.step import make_train_state, make_train_step
+    state = make_train_state(decoder.init_params(
+        run.model, torch.Generator().manual_seed(0), "cpu").to(dev), run,
+        mesh)
+    step = make_train_step(run, mesh)
+    losses = []
+    for i in range(MESH_TINY_STEPS):
+        state, m = step(state, train_batch(run, i, dev))
+        losses.append(float(m["loss"]))
+    return losses
+
+
+def mesh_rank_main(argv):
+    """``chip_smoke.py --mesh-rank RANK STORE OUT``: one of the CPU gloo
+    ranks of [15d] (no card): TINY's sharded losses on a (data 2, model 2)
+    mesh, written by rank 0 to OUT as JSON."""
+    rank, store, out = int(argv[0]), argv[1], argv[2]
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import init_distributed, make_mesh
+    torch.set_num_threads(1)
+    init_distributed("cpu", rank=rank, world_size=MESH_CPU_WORLD,
+                     init_method=f"file://{store}")
+    try:
+        mesh = make_mesh((2, MESH_CPU_WORLD // 2), ("data", "model"), "cpu")
+        losses = mesh_tiny_losses(mesh_tiny_run(), torch.device("cpu"), mesh)
+        if rank == 0:
+            Path(out).write_text(json.dumps(losses))
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def start_cpu_ranks(directory):
+    """Start [15d]'s CPU gloo ranks in the background -> (processes,
+    result path)."""
+    import os
+    store, out = Path(directory) / "store", Path(directory) / "losses.json"
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1")
+    procs = [subprocess.Popen(
+        [sys.executable, str(ROOT / "chip_smoke.py"), "--mesh-rank", str(r),
+         str(store), str(out)], env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for r in range(MESH_CPU_WORLD)]
+    return procs, out
+
+
+def finish_cpu_ranks(procs, out, timeout=300):
+    """Wait for the CPU ranks (killing any still running at the timeout)
+    -> their losses."""
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=timeout)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    check(all(p.returncode == 0 for p in procs) and out.exists(),
+          "[15d] the CPU gloo ranks failed:\n" + "\n".join(
+              log[-2000:] for log in logs))
+    return json.loads(out.read_text())
+
+
+def mesh_full_width(arch, shape, dev, mesh):
+    """[15a]/[15b]: ``arch`` at full width and depth (bf16, AdamW m/v
+    float32), remat full, ``shape``'s batch and steps: the unsharded step
+    and the sharded step on the one-rank mesh, each from generator seed 0
+    on the card and the same SyntheticLM batches, one model on the card
+    at a time -> (unsharded losses, sharded losses, #7 launches of the
+    sharded steps)."""
+    import torch
+    from repro_torch.kernels.mlstm_chunk import kernel as mk
+    from repro_torch.config import get_arch
+    from repro_torch.train.step import init_train_state, make_train_step
+
+    cfg = get_arch(arch)
+    run = train_run(cfg, shape["seq"], shape["batch"], "full", None)
+    out, launches = {}, None
+    for label, m in (("unsharded", None), ("sharded", mesh)):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        state = init_train_state(run, torch.Generator(device=dev).manual_seed(
+            0), dev, m)
+        step = make_train_step(run, m)
+        batches = [train_batch(run, i, dev) for i in range(shape["steps"])]
+        sync(dev)
+        mk.reset_launch_counts()
+        losses, ends = [], []
+        start = torch.cuda.Event(enable_timing=True)
+        start.record()
+        t0 = time.perf_counter()
+        for b in batches:
+            state, metrics = step(state, b)
+            losses.append(float(metrics["loss"]))
+            ends.append(torch.cuda.Event(enable_timing=True))
+            ends[-1].record()
+        sync(dev)
+        if m is not None:
+            launches = mk.launches()
+        ms = [a.elapsed_time(b) for a, b in zip([start] + ends[:-1], ends)]
+        peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+        log(f"  {arch} {label}{' (one-rank mesh)' if m is not None else ''}"
+            f" B={shape['batch']} x {shape['seq']} remat full: loss "
+            + " -> ".join(f"{x:.6f}" for x in losses)
+            + "; step ms " + ", ".join(f"{x:.1f}" for x in ms)
+            + f" (CUDA events; {time.perf_counter() - t0:.1f} s), peak "
+            f"{peak:.2f} GiB, #7 {mk.launches()} [{CARD}]")
+        out[label] = losses
+        del state, step, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out["unsharded"], out["sharded"], launches
+
+
+def mesh_primitives(dev, mesh):
+    """[15c] on CUDA tensors: ``psum_compressed`` over a one-rank pod
+    axis, ``pipeline_forward`` through one stage, the compressed sharded
+    step, and a sharded TINY train state saved and restored through the
+    mesh checkpoint path."""
+    import tempfile
+    import torch
+    from repro_torch.config import CheckpointConfig
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import decoder
+    from repro_torch.sharding.compression import psum_compressed
+    from repro_torch.sharding.pipeline import pipeline_forward
+    from repro_torch.train.checkpoint import CheckpointManager, _flatten
+    from repro_torch.train.step import empty_train_state, make_train_state, \
+        make_train_step
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    pods = make_mesh((1, 1, 1), ("pod", "data", "model"), "cuda")
+    g = torch.randn(1 << 20, generator=gen, device=dev)
+    mean, err = psum_compressed({"g": g}, pods.get_group("pod"))
+    half_step = float(g.abs().max()) / 127 / 2
+    gap = float((mean["g"] - g).abs().max())
+    back = float((mean["g"] + err["g"] - g).abs().max())
+    check(gap <= half_step * (1 + 1e-5) and back <= 1e-6,
+          f"[15c] psum_compressed on the card: |mean - g| {gap} > half a "
+          f"step {half_step}, or mean + err misses g by {back}")
+    pipe = make_mesh((1,), ("pipe",), "cuda")
+    w = torch.randn((1, 256, 256), generator=gen, device=dev) * 0.06
+    x = torch.randn((8, 2, 128, 256), generator=gen, device=dev)
+    out = pipeline_forward(lambda p, h: torch.tanh(h @ p["w"]), {"w": w}, x,
+                           pipe)
+    # the stage on each microbatch alone: the same GEMM shapes, so the
+    # same cuBLAS kernels and sums
+    check(torch.equal(out, torch.stack([torch.tanh(xm @ w[0]) for xm in x])),
+          "[15c] pipeline_forward through one stage differs from the stage")
+    run = mesh_tiny_run()
+    comp = dataclasses.replace(run, sharding=dataclasses.replace(
+        run.sharding, grad_compression=True))
+    state = make_train_state(decoder.init_params(
+        run.model, torch.Generator().manual_seed(0), "cpu").to(dev), comp,
+        pods)
+    state, metrics = make_train_step(comp, pods)(state,
+                                                 train_batch(comp, 0, dev))
+    check(math.isfinite(float(metrics["loss"])),
+          "[15c] the compressed sharded step's loss is not finite")
+    with tempfile.TemporaryDirectory() as td:
+        mgr = CheckpointManager(CheckpointConfig(directory=td), mesh=mesh)
+        state = make_train_state(decoder.init_params(
+            run.model, torch.Generator().manual_seed(0), "cpu").to(dev), run,
+            mesh)
+        state, _ = make_train_step(run, mesh)(state, train_batch(run, 0, dev))
+        mgr.save(1, state)
+        restored, _ = mgr.restore(empty_train_state(run, dev, mesh))
+        same = all(torch.equal(a.full_tensor() if hasattr(a, "full_tensor")
+                               else a,
+                               b.full_tensor() if hasattr(b, "full_tensor")
+                               else b)
+                   for (_, a), (_, b) in zip(_flatten(state),
+                                             _flatten(restored)))
+    check(same, "[15c] a sharded train state saved and restored on the card "
+                "differs")
+    log(f"  [15c] psum_compressed over 2^20 floats: |mean - g| {gap:.3g} "
+        f"<= half a step {half_step:.3g}, mean + err = g within {back:.1g}; "
+        f"pipeline_forward = the stage; compressed step loss "
+        f"{float(metrics['loss']):.6f}; checkpoint save / restore "
+        f"bit-equal ({len(list(_flatten(state)))} leaves)")
+
+
+def phase_mesh(dev):
+    """[15] -> #7 launches of [15b]'s sharded xlstm-350m steps."""
+    import socket
+    import tempfile
+    import torch.distributed as dist
+    from repro_torch.config import BlockKind, get_arch
+    from repro_torch.launch.mesh import init_distributed, make_mesh
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    init_distributed("cuda", rank=0, world_size=1,
+                     init_method=f"tcp://127.0.0.1:{port}")
+    try:
+        with tempfile.TemporaryDirectory() as td:
+            procs, out = start_cpu_ranks(td)
+            try:
+                mesh = make_mesh((1, 1), ("data", "model"), "cuda")
+                log("[15a] internlm2-1.8b, unsharded and on the one-rank "
+                    "mesh")
+                t = time.perf_counter()
+                want, got, _ = mesh_full_width("internlm2-1.8b", MESH_LM, dev,
+                                               mesh)
+                rel = max(abs(a - b) / abs(b) for a, b in zip(got, want))
+                check(rel <= 1e-5, f"[15a] internlm2-1.8b sharded losses {got} "
+                                   f"differ from the unsharded {want} "
+                                   f"({rel:.2e} relative)")
+                log(f"  [15a] losses equal within {rel:.2e} relative "
+                    f"(limit 1e-5); {time.perf_counter() - t:.1f} s")
+                log("[15b] xlstm-350m, unsharded and on the one-rank mesh")
+                t = time.perf_counter()
+                want, got, launches = mesh_full_width("xlstm-350m", MESH_XL,
+                                                      dev, mesh)
+                rel = max(abs(a - b) / abs(b) for a, b in zip(got, want))
+                check(rel <= 1e-5, f"[15b] xlstm-350m sharded losses {got} "
+                                   f"differ from the unsharded {want} "
+                                   f"({rel:.2e} relative)")
+                xl = get_arch("xlstm-350m")
+                n_mlstm = sum(xl.block_kind(i) == BlockKind.MLSTM
+                              for i in range(xl.num_layers))
+                check(launches == 2 * n_mlstm * MESH_XL["steps"],
+                      f"[15b] #7 launched {launches} times in the sharded "
+                      f"steps, expected 2 x {n_mlstm} a step")
+                log(f"  [15b] losses equal within {rel:.2e} relative "
+                    f"(limit 1e-5); #7 {launches} = 2 x {n_mlstm} x "
+                    f"{MESH_XL['steps']}; {time.perf_counter() - t:.1f} s")
+                log("[15c] psum_compressed, pipeline_forward, the compressed "
+                    "step and a mesh checkpoint on CUDA tensors")
+                mesh_primitives(dev, mesh)
+                log("[15d] TINY f32 sharded: the card's one-rank mesh vs four "
+                    "gloo CPU ranks on a (data 2, model 2) mesh")
+                card = mesh_tiny_losses(mesh_tiny_run(), dev, mesh)
+            finally:
+                cpu = finish_cpu_ranks(procs, out)
+            rel = max(abs(a - b) / abs(b) for a, b in zip(card, cpu))
+            log(f"  [15d] card losses " + ", ".join(f"{x:.7f}" for x in card)
+                + f"; CPU ranks " + ", ".join(f"{x:.7f}" for x in cpu)
+                + f"; within {rel:.2e} relative (limit 2e-5)")
+            check(rel <= 2e-5, f"[15d] the card's sharded TINY losses {card} "
+                               f"differ from the CPU ranks' {cpu}")
+    finally:
+        dist.destroy_process_group()
+    return launches
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     global CARD
@@ -4450,6 +4745,12 @@ def main() -> int:
     main_launches += fe_launches
     served += fe_served
     log(f"  phase [14] took {time.perf_counter() - t14:.1f} s")
+    log("[15] the device mesh: internlm2-1.8b and xlstm-350m sharded on a "
+        "one-rank NCCL mesh vs unsharded, the mesh primitives on CUDA "
+        "tensors, TINY on four gloo CPU ranks vs the card")
+    t15 = time.perf_counter()
+    xl_launches += phase_mesh(dev)
+    log(f"  phase [15] took {time.perf_counter() - t15:.1f} s")
 
     src = "src/repro_torch/csrc/decode_attention.cu"
     jax_kernel = "src/repro/kernels/decode_attention/kernel.py"
@@ -4504,4 +4805,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--mesh-rank"]:
+        sys.exit(mesh_rank_main(sys.argv[2:]))
     sys.exit(main())

@@ -1,6 +1,6 @@
 """Configuration for the PyTorch port: the subset of ``repro.config``
-that the serving and single-device training paths read, kept as an
-independent copy so that the port imports nothing from the JAX package.
+that the serving, training and mesh paths read, kept as an independent
+copy so that the port imports nothing from the JAX package.
 
 Plain dataclasses (stdlib only) and a registry of named architectures.
 Field names, defaults and derived values (``A3Config.m_for``,
@@ -315,6 +315,26 @@ class ShapeConfig:
         return self.seq_len * self.global_batch
 
 
+SHAPE_SUITE: Dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", ShapeKind.TRAIN, 4096, 256),
+    "prefill_32k": ShapeConfig("prefill_32k", ShapeKind.PREFILL, 32768, 32),
+    "decode_32k": ShapeConfig("decode_32k", ShapeKind.DECODE, 32768, 128),
+    "long_500k": ShapeConfig("long_500k", ShapeKind.DECODE, 524288, 1),
+}
+
+# archs allowed to run long_500k (sub-quadratic attention)
+LONG_CONTEXT_ARCHS = frozenset(
+    {"recurrentgemma-2b", "xlstm-350m", "h2o-danube-1.8b", "gemma3-4b"}
+)
+
+
+def applicable_shapes(arch: str) -> List[str]:
+    names = ["train_4k", "prefill_32k", "decode_32k"]
+    if arch in LONG_CONTEXT_ARCHS:
+        names.append("long_500k")
+    return names
+
+
 @dataclass(frozen=True)
 class OptimizerConfig:
     name: str = "adamw"
@@ -333,46 +353,44 @@ class OptimizerConfig:
 
 
 REMATS = ("none", "full", "dots")
-# the reference's ShardingConfig fields that only a device mesh reads
-MESH_FIELDS = ("fsdp", "tensor_parallel", "expert_parallel",
-               "sequence_parallel", "attn_dtype", "dp_axes", "fsdp_axis",
-               "tp_axis", "ep_axis")
 
 
-@dataclass(frozen=True, init=False)
+@dataclass(frozen=True)
 class ShardingConfig:
-    """The single-device part of the reference's ``ShardingConfig``:
-    per-layer ``remat`` (none | full | dots), gradient accumulation over
-    ``microbatches``, the attention KV chunk and the chunked
-    cross-entropy's tokens per chunk (defaults as the reference's). The
-    mesh fields (:data:`MESH_FIELDS`) and ``grad_compression=True`` need
-    a device mesh, which the port does not have yet: they raise rather
-    than be ignored."""
-    remat: str = "full"
-    grad_compression: bool = False
-    microbatches: int = 1
-    attn_chunk: int = 1024
-    ce_chunk: int = 512
+    """The reference's ``ShardingConfig``, every field with its default.
 
-    def __init__(self, remat: str = "full", grad_compression: bool = False,
-                 microbatches: int = 1, attn_chunk: int = 1024,
-                 ce_chunk: int = 512, **mesh: Any):
-        if grad_compression or mesh:
-            named = sorted(mesh) + (["grad_compression"]
-                                    if grad_compression else [])
-            raise ValueError(f"{', '.join(named)} needs a device mesh; see "
-                             f"ROADMAP queue 1, launch and analysis tooling")
-        if remat not in REMATS:
-            raise ValueError(f"remat must be one of {REMATS}, got {remat!r}")
-        if microbatches < 1:
+    Without a mesh only ``remat``, ``microbatches``, ``attn_chunk`` and
+    ``ce_chunk`` matter. On a mesh (``train.step.make_train_step(run,
+    mesh)``) the logical knobs and axis names decide the parameter
+    layout (``sharding.rules``); ``grad_compression`` needs a mesh with a
+    ``pod`` axis, and the step raises without one where the reference
+    ignores it. ``sequence_parallel`` and ``attn_dtype`` are carried for
+    the reference's configurations; no port path reads them, as none of
+    the reference's does."""
+    # logical parallelism knobs
+    fsdp: bool = True            # shard params/opt-state over the data axis
+    tensor_parallel: bool = True
+    expert_parallel: bool = True
+    sequence_parallel: bool = False
+    remat: str = "full"          # none | full | dots
+    grad_compression: bool = False    # int8 + error-feedback on the pod axis
+    microbatches: int = 1             # >1 enables gradient accumulation
+    attn_chunk: int = 1024            # attention KV chunk length
+    ce_chunk: int = 512               # chunked cross-entropy tokens/chunk
+    attn_dtype: str = "float32"
+    # logical role -> mesh axis name(s)
+    dp_axes: Tuple[str, ...] = ("pod", "data", "ep")
+    fsdp_axis: str = "data"
+    tp_axis: str = "model"
+    ep_axis: str = "model"
+
+    def __post_init__(self):
+        if self.remat not in REMATS:
+            raise ValueError(f"remat must be one of {REMATS}, got "
+                             f"{self.remat!r}")
+        if self.microbatches < 1:
             raise ValueError(f"microbatches must be >= 1, got "
-                             f"{microbatches}")
-        for name, value in (("remat", remat),
-                            ("grad_compression", grad_compression),
-                            ("microbatches", microbatches),
-                            ("attn_chunk", attn_chunk),
-                            ("ce_chunk", ce_chunk)):
-            object.__setattr__(self, name, value)
+                             f"{self.microbatches}")
 
 
 @dataclass(frozen=True)

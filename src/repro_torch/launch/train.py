@@ -1,5 +1,5 @@
 """Training launcher of the port: the reference's ``repro.launch.train``
-flags, single device, through the full training stack (config registry,
+flags, through the full training stack (config registry,
 data pipeline, checkpointing, watchdog, restart supervisor).
 
   python -m repro_torch.launch.train --arch internlm2-1.8b --smoke \\
@@ -7,15 +7,23 @@ data pipeline, checkpointing, watchdog, restart supervisor).
   python -m repro_torch.launch.train --arch internlm2-1.8b --smoke \\
       --device cpu --steps 4 --batch 2 --seq 32
 
-Runs on the card unless ``--device cpu`` is given. The reference's
-``--distributed`` (multi-host) waits for a device mesh in the port
-(ROADMAP queue 1, launch and analysis tooling) and is not offered.
+Runs on the card unless ``--device cpu`` is given. ``--distributed``
+joins the process group torchrun describes in the environment (NCCL on
+the card, gloo with ``--device cpu``), the counterpart of the
+reference's ``jax.distributed.initialize()``; like the reference it
+passes no mesh, so every rank trains its own replica:
+
+  torchrun --nproc-per-node 2 -m repro_torch.launch.train \\
+      --arch internlm2-1.8b --smoke --distributed
+
 Prints the reference's summary line.
 """
 from __future__ import annotations
 
 import argparse
 import time
+
+import torch.distributed as dist
 
 from repro_torch import resolve_device
 from repro_torch.config import (
@@ -29,6 +37,7 @@ from repro_torch.config import (
     list_archs,
     smoke_variant,
 )
+from repro_torch.launch.mesh import init_distributed
 from repro_torch.train.loop import train_with_recovery
 
 
@@ -48,9 +57,14 @@ def main(argv=None) -> None:
                     choices=["none", "dots", "full"])
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without a card) or cpu")
+    ap.add_argument("--distributed", action="store_true",
+                    help="multi-process: join torchrun's process group")
     args = ap.parse_args(argv)
 
-    device = resolve_device(args.device)
+    if args.distributed:
+        device = init_distributed(args.device)
+    else:
+        device = resolve_device(args.device)
     cfg = get_arch(args.arch)
     if args.smoke:
         cfg = smoke_variant(cfg)
@@ -65,7 +79,11 @@ def main(argv=None) -> None:
     )
 
     t0 = time.time()
-    out = train_with_recovery(run, device=device, num_steps=args.steps)
+    try:
+        out = train_with_recovery(run, device=device, num_steps=args.steps)
+    finally:
+        if args.distributed:
+            dist.destroy_process_group()
     dt = time.time() - t0
     losses = out["losses"]
     toks = shape.tokens_per_step * len(losses)

@@ -10,6 +10,8 @@ transposed), so ``F.linear(x, W)`` computes the reference's ``x @ W``.
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import math
 from typing import Optional, Tuple
 
@@ -18,6 +20,42 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 NEG_INF = -1e30
+
+
+# ---------------------------------------------------------------------------
+# the batch a layer sees on a mesh
+#
+# The reference's train step runs one GSPMD program over the global batch
+# (``activation_shardings`` / ``shard_act`` pin where its activations
+# live). The port's sharded step runs each rank on its own rows instead,
+# which is the same computation for every layer that treats rows apart,
+# but not for the MoE: its capacity, its expert ranks and its
+# load-balance loss are statistics of the whole batch. ``batch_rows``
+# carries the step's plan of the rows to the layers; under it
+# ``moe_apply`` routes the rows of every rank that shares its batch
+# (``rows.gather``) and keeps its own rows of the output (``rows.own``).
+# The step enters it inside each layer's computation (a remat recompute
+# may run on autograd's device thread, which sees no context set around
+# the step).
+# ---------------------------------------------------------------------------
+
+_BATCH_ROWS = contextvars.ContextVar("repro_torch_batch_rows", default=None)
+
+
+@contextlib.contextmanager
+def batch_rows(rows):
+    """Layers inside see ``rows`` (see above; None: the whole batch is
+    this rank's)."""
+    token = _BATCH_ROWS.set(rows)
+    try:
+        yield
+    finally:
+        _BATCH_ROWS.reset(token)
+
+
+def current_batch_rows():
+    """The plan :func:`batch_rows` installed, or None."""
+    return _BATCH_ROWS.get()
 
 
 # ---------------------------------------------------------------------------

@@ -14,7 +14,9 @@ RG-LRU's dense ``w_in_gate``/``w_in_rnn``/``w_a``/``w_x``/``w_out`` are
 transposed, its ``conv_w``/``conv_b``/``lam`` go over as they are. A GELU
 FFN has no ``w_gate``. An MoE keeps the reference's layout for its
 ``router`` [d, E] and expert stacks [E, d_in, d_out]; its ``shared``
-SwiGLU is transposed as a dense FFN is.
+SwiGLU is transposed as a dense FFN is. All of that is one rule: an
+``nn.Linear``'s ``.weight`` is transposed, every other parameter keeps the
+reference's layout (:func:`reference_leaf`).
 
 A training state's parameters go over the same way
 (:func:`train_state_from_numpy`: gradients on, fresh AdamW moments), and
@@ -24,36 +26,44 @@ layout (:func:`memn2n_from_numpy`).
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.config import BlockKind, ModelConfig
+from repro_torch.config import ModelConfig
 from repro_torch.models.decoder import Decoder
-from repro_torch.models.mixer import build_segments
-
-# per block kind: (tree key, transposed dense leaves, leaves as they are)
-_MIXER_LEAVES = {
-    BlockKind.ATTENTION: ("attn", ("wq", "wk", "wv", "wo"), ()),
-    BlockKind.RGLRU: ("rnn", ("w_in_gate", "w_in_rnn", "w_a", "w_x", "w_out"),
-                      ("conv_w", "conv_b", "lam")),
-    BlockKind.MLSTM: ("mlstm", ("wq", "wk", "wv", "w_o", "w_out"),
-                      ("w_i", "w_f", "b_i", "b_f", "ln_scale")),
-    BlockKind.SLSTM: ("slstm", ("wx", "w_out"), ("wr", "b", "ln_scale")),
-}
 
 
-def _put(dst: torch.Tensor, src: Any, transpose: bool = False) -> None:
-    arr = np.asarray(src)
-    t = torch.from_numpy(np.ascontiguousarray(arr.astype(np.float32)))
-    if transpose:
-        t = t.t()
-    if tuple(t.shape) != tuple(dst.shape):
-        raise ValueError(f"shape mismatch: {tuple(t.shape)} into "
-                         f"{tuple(dst.shape)}")
-    dst.copy_(t.to(dst.dtype))
+def reference_leaf(name: str) -> Tuple[Tuple[str, ...], Optional[int],
+                                       bool]:
+    """Where a port parameter lives in the reference tree -> (path, layer,
+    transposed). ``segs.{i}.layers.{l}.<rest>`` is row ``l`` of the
+    stacked leaf ``seg{i}/<rest>``; every other name is a leaf of its own
+    (``layer`` None). A ``.weight`` is an ``nn.Linear``'s, stored
+    ``[d_out, d_in]`` where the reference keeps ``[d_in, d_out]``
+    (``transposed``); every other parameter has the reference's layout.
+    This is the one layout map: :func:`params_from_numpy` carries values
+    over by it and ``sharding.rules`` derives the port's specs from it."""
+    parts = name.split(".")
+    transposed = parts[-1] == "weight"
+    if transposed:
+        parts = parts[:-1]
+    if parts[0] == "segs":
+        return (f"seg{parts[1]}", *parts[4:]), int(parts[3]), transposed
+    return tuple(parts), None, transposed
+
+
+def _reference_value(tree: Mapping[str, Any], name: str):
+    """The value of port parameter ``name`` in the reference tree, in the
+    port's layout (numpy, float32)."""
+    path, layer, transposed = reference_leaf(name)
+    arr = tree
+    for key in path:
+        arr = arr[key]
+    arr = np.asarray(arr if layer is None else arr[layer]).astype(np.float32)
+    return arr.T if transposed else arr
 
 
 def params_from_numpy(tree: Mapping[str, Any], cfg: ModelConfig,
@@ -65,48 +75,25 @@ def params_from_numpy(tree: Mapping[str, Any], cfg: ModelConfig,
     exactly, so a bf16 tree arrives bit-identical."""
     model = Decoder(cfg, device=resolve_device(device))
     with torch.no_grad():
-        _put(model.embed, tree["embed"])
-        _put(model.final_norm.scale, tree["final_norm"]["scale"])
-        if not cfg.tie_embeddings:
-            _put(model.lm_head.weight, tree["lm_head"], transpose=True)
-        for si, (seg, seg_mod) in enumerate(zip(build_segments(cfg),
-                                                model.segs)):
-            st = tree[f"seg{si}"]
-            key, dense, plain = _MIXER_LEAVES[seg.kind]
-            for l, blk in enumerate(seg_mod.layers):
-                _put(blk.ln1.scale, st["ln1"]["scale"][l])
-                mix = getattr(blk, key)
-                for name in dense:
-                    _put(getattr(mix, name).weight, st[key][name][l],
-                         transpose=True)
-                for name in plain:
-                    _put(getattr(mix, name), st[key][name][l])
-                if seg.ffn == "none":
-                    continue
-                _put(blk.ln2.scale, st["ln2"]["scale"][l])
-                if blk.ffn is not None:
-                    _put_ffn(blk.ffn, st["ffn"], l)
-                else:
-                    moe = st["moe"]
-                    for name in ("router", "w_gate", "w_up", "w_down"):
-                        _put(getattr(blk.moe, name), moe[name][l])
-                    if blk.moe.shared is not None:
-                        _put_ffn(blk.moe.shared, moe["shared"], l)
+        for name, p in model.named_parameters():
+            t = torch.from_numpy(np.ascontiguousarray(
+                _reference_value(tree, name)))
+            if tuple(t.shape) != tuple(p.shape):
+                raise ValueError(f"{name}: shape {tuple(t.shape)} into "
+                                 f"{tuple(p.shape)}")
+            p.copy_(t.to(p.dtype))
     return model
 
 
-def _put_ffn(ffn, tree: Mapping[str, Any], l: int) -> None:
-    for name in ("w_gate", "w_up", "w_down"):
-        if name in tree:
-            _put(getattr(ffn, name).weight, tree[name][l], transpose=True)
-
-
-def train_state_from_numpy(tree: Mapping[str, Any], run, device="cuda"):
+def train_state_from_numpy(tree: Mapping[str, Any], run, device="cuda",
+                           mesh=None):
     """The parameters of a reference ``TrainState`` (numpy) -> the port's
     :class:`~repro_torch.train.step.TrainState`: the model with gradients
-    on and a zero AdamW state."""
+    on and a zero AdamW state. On ``mesh`` each rank keeps its shard of
+    what :func:`params_from_numpy` gives (``sharding.rules`` layout)."""
     from repro_torch.train.step import make_train_state
-    return make_train_state(params_from_numpy(tree, run.model, device), run)
+    return make_train_state(params_from_numpy(tree, run.model, device), run,
+                            mesh)
 
 
 def memn2n_from_numpy(tree: Mapping[str, Any], device="cuda"

@@ -22,6 +22,7 @@ given, the function reads the device value, a blocking read.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import math
@@ -242,14 +243,19 @@ def init_page_pool(cfg: ModelConfig, pages: int, page_size: int,
 # ---------------------------------------------------------------------------
 
 def _block_forward(blk: Block, h: torch.Tensor, positions: torch.Tensor,
-                   cfg: ModelConfig, seg: SegmentSpec, attn_chunk: int
-                   ) -> Tuple[torch.Tensor, Any]:
-    """One layer, full sequence -> (h, moe_aux_loss)."""
-    hn = rmsnorm(blk.ln1, h, cfg.norm_eps)
-    o = mixer_for(seg, cfg).forward(blk, hn, cfg=cfg, seg=seg,
-                                    positions=positions,
-                                    attn_chunk=attn_chunk)
-    return _ffn_block(blk, h + o, cfg)
+                   cfg: ModelConfig, seg: SegmentSpec, attn_chunk: int,
+                   layer_context=None) -> Tuple[torch.Tensor, Any]:
+    """One layer, full sequence -> (h, moe_aux_loss). ``layer_context``
+    (blk -> context manager), when given, is entered around the layer's
+    computation, its remat recompute included: a sharded train step
+    gathers the layer's weights there."""
+    with (layer_context(blk) if layer_context is not None
+          else contextlib.nullcontext()):
+        hn = rmsnorm(blk.ln1, h, cfg.norm_eps)
+        o = mixer_for(seg, cfg).forward(blk, hn, cfg=cfg, seg=seg,
+                                        positions=positions,
+                                        attn_chunk=attn_chunk)
+        return _ffn_block(blk, h + o, cfg)
 
 
 def _dots_policy(ctx, op, *args, **kwargs):
@@ -265,13 +271,15 @@ def _dots_policy(ctx, op, *args, **kwargs):
 
 def _run_layer(blk: Block, h: torch.Tensor, positions: torch.Tensor,
                cfg: ModelConfig, seg: SegmentSpec, remat: str,
-               attn_chunk: int) -> Tuple[torch.Tensor, Any]:
+               attn_chunk: int, layer_context=None
+               ) -> Tuple[torch.Tensor, Any]:
     """One layer under the reference's per-layer remat: ``"full"`` keeps
     only the layer's input and recomputes the layer in the backward,
     ``"dots"`` keeps its unbatched matrix products as well. Remat changes
     what the backward keeps, never a number."""
     if remat == "none":
-        return _block_forward(blk, h, positions, cfg, seg, attn_chunk)
+        return _block_forward(blk, h, positions, cfg, seg, attn_chunk,
+                              layer_context)
     from torch.utils.checkpoint import checkpoint, \
         create_selective_checkpoint_contexts
     kw = {}
@@ -281,7 +289,7 @@ def _run_layer(blk: Block, h: torch.Tensor, positions: torch.Tensor,
     elif remat != "full":
         raise ValueError(f"remat must be none, full or dots, got {remat!r}")
     return checkpoint(_block_forward, blk, h, positions, cfg, seg,
-                      attn_chunk, use_reentrant=False, **kw)
+                      attn_chunk, layer_context, use_reentrant=False, **kw)
 
 
 def _embed_input(model: Decoder, cfg: ModelConfig,
@@ -299,12 +307,14 @@ def forward_hidden(model: Decoder, cfg: ModelConfig,
                    tokens: Optional[torch.Tensor] = None,
                    inputs_embeds: Optional[torch.Tensor] = None, *,
                    positions: Optional[torch.Tensor] = None,
-                   remat: str = "none", attn_chunk: int = 1024
+                   remat: str = "none", attn_chunk: int = 1024,
+                   layer_context=None
                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Full-sequence forward up to (not including) the unembed ->
     (hidden [B, S, D], {"moe_aux_loss"}), as the reference's
     ``forward_hidden``; ``remat`` applies per layer (:func:`_run_layer`).
-    ``inputs_embeds`` [B, S, D] takes the place of ``tokens``."""
+    ``inputs_embeds`` [B, S, D] takes the place of ``tokens``.
+    ``layer_context`` is entered around each layer (:func:`_block_forward`)."""
     h = _embed_input(model, cfg, tokens, inputs_embeds)
     b, s = h.shape[:2]
     if positions is None:
@@ -314,7 +324,7 @@ def forward_hidden(model: Decoder, cfg: ModelConfig,
     for si, seg in enumerate(build_segments(cfg)):
         for blk in model.segs[si].layers:
             h, a = _run_layer(blk, h, positions, cfg, seg, remat,
-                              attn_chunk)
+                              attn_chunk, layer_context)
             aux = aux + a
     return h, {"moe_aux_loss": torch.as_tensor(aux, dtype=torch.float32,
                                                device=h.device)}
@@ -349,7 +359,15 @@ def _chunk_nll(model: Decoder, cfg: ModelConfig, hc: torch.Tensor,
 def chunked_ce(model: Decoder, cfg: ModelConfig, h: torch.Tensor,
                labels: torch.Tensor, ce_chunk: int = 512) -> torch.Tensor:
     """Mean cross-entropy over labels != -1 without materializing the
-    [B, S, Vp] logits (reference ``chunked_ce``): the unembed and the
+    [B, S, Vp] logits (reference ``chunked_ce``; :func:`chunked_nll`)."""
+    nll, cnt = chunked_nll(model, cfg, h, labels, ce_chunk)
+    return nll / torch.clamp(cnt, min=1.0)
+
+
+def chunked_nll(model: Decoder, cfg: ModelConfig, h: torch.Tensor,
+                labels: torch.Tensor, ce_chunk: int = 512
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(summed NLL, count) over labels != -1: the unembed and the
     log-sum-exp run per sequence chunk of ``ce_chunk`` tokens under
     ``torch.utils.checkpoint``, so the backward recomputes each chunk's
     logits instead of keeping them. S not a multiple of the chunk falls
@@ -365,7 +383,7 @@ def chunked_ce(model: Decoder, cfg: ModelConfig, h: torch.Tensor,
         n_c, k_c = checkpoint(_chunk_nll, model, cfg, h[:, lo:lo + c],
                               labels[:, lo:lo + c], use_reentrant=False)
         nll, cnt = nll + n_c, cnt + k_c
-    return nll / torch.clamp(cnt, min=1.0)
+    return nll, cnt
 
 
 def lm_loss(model: Decoder, cfg: ModelConfig,

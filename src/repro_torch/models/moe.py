@@ -33,7 +33,8 @@ import torch.nn.functional as F
 
 from repro_torch.config import MoEConfig
 from repro_torch.core.candidate_selection import top_k
-from repro_torch.models.common import FFN, ffn_apply, ffn_init_
+from repro_torch.models.common import FFN, current_batch_rows, \
+    ffn_apply, ffn_init_
 
 CAPACITY_FACTOR = 1.25
 
@@ -106,7 +107,13 @@ def moe_apply(p: MoE, x: torch.Tensor, moe: MoEConfig, *,
               capacity_factor: float = CAPACITY_FACTOR
               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """x [B, S, d] -> (out [B, S, d], {"moe_aux_loss",
-    "moe_drop_fraction"})."""
+    "moe_drop_fraction"}). Under ``common.batch_rows`` (a sharded train
+    step) the routing runs over the rows of every rank that shares the
+    batch, as the single-device step routes the whole batch; ``out`` is
+    this rank's rows."""
+    rows = current_batch_rows()
+    if rows is not None:
+        x = rows.gather(x)
     b, s, d = x.shape
     t = b * s
     e, k = moe.num_experts, moe.top_k
@@ -145,5 +152,7 @@ def moe_apply(p: MoE, x: torch.Tensor, moe: MoEConfig, *,
     aux_loss = e * torch.sum(frac_tokens * frac_probs) \
         * moe.load_balance_coef
     dropped = 1.0 - keep.float().mean()
-    return out.reshape(b, s, d), {"moe_aux_loss": aux_loss,
-                                  "moe_drop_fraction": dropped}
+    out = out.reshape(b, s, d)
+    if rows is not None:
+        out = rows.own(out)
+    return out, {"moe_aux_loss": aux_loss, "moe_drop_fraction": dropped}

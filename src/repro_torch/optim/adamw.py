@@ -19,7 +19,7 @@ reads nothing back to the host.
 from __future__ import annotations
 
 import math
-from typing import Dict, Mapping, NamedTuple, Tuple
+from typing import Callable, Dict, Mapping, NamedTuple, Tuple
 
 import torch
 
@@ -57,10 +57,12 @@ def global_norm(tree: Tree) -> torch.Tensor:
 
 
 def adamw_init(params: Tree, cfg: OptimizerConfig) -> OptState:
+    """Zero moments laid out as the parameters (a sharded parameter, a
+    DTensor, gets moments sharded the same way) and step 0."""
     m_dt, v_dt = DTYPES[cfg.m_dtype], DTYPES[cfg.v_dtype]
-    m = {n: torch.zeros(p.shape, dtype=m_dt, device=p.device)
+    m = {n: torch.zeros_like(p, dtype=m_dt, requires_grad=False)
          for n, p in params.items()}
-    v = {n: torch.zeros(p.shape, dtype=v_dt, device=p.device)
+    v = {n: torch.zeros_like(p, dtype=v_dt, requires_grad=False)
          for n, p in params.items()}
     dev = next(iter(params.values())).device
     return OptState(step=torch.zeros((), dtype=torch.int32, device=dev),
@@ -69,15 +71,18 @@ def adamw_init(params: Tree, cfg: OptimizerConfig) -> OptState:
 
 @torch.no_grad()
 def adamw_update(grads: Tree, state: OptState, params: Tree,
-                 cfg: OptimizerConfig
+                 cfg: OptimizerConfig, *,
+                 grad_norm: Callable[[Tree], torch.Tensor] = global_norm
                  ) -> Tuple[Tree, OptState, Dict[str, torch.Tensor]]:
     """One AdamW step -> (params, new state, {"grad_norm", "lr"}).
     ``params`` and the state's moments are updated in place; ``grads``
-    holds a gradient for every name of ``params``."""
+    holds a gradient for every name of ``params``. ``grad_norm`` gives
+    the clip's global norm: a sharded step passes its shards and a norm
+    over every rank's."""
     step = state.step + 1
     lr = cosine_schedule(cfg, step)
 
-    gnorm = global_norm(grads)
+    gnorm = grad_norm(grads)
     clip = torch.clamp(cfg.grad_clip_norm / (gnorm + 1e-9), max=1.0)
 
     b1, b2 = cfg.b1, cfg.b2

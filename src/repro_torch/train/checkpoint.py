@@ -15,10 +15,22 @@ the writer thread then only writes files. ``keep`` bounds the steps kept.
 
 Leaf names are the port's own: a :class:`TrainState` flattens to its
 model's parameter names under ``params`` and ``opt::step``,
-``opt::m::<name>``, ``opt::v::<name>``; nested dicts join their keys
-with ``::``. A checkpoint of the JAX trainer is not expected to load.
+``opt::m::<name>``, ``opt::v::<name>`` (and ``err::<name>`` with an
+error-feedback state); nested dicts join their keys with ``::``, as the
+reference's do, so a checkpoint of a reference tree of arrays restores
+into a port dict of the same keys. A checkpoint of the JAX trainer's
+state is not expected to load (other names, stacked layers).
 ``restore`` writes into the target's tensors in place, cast to each
 target's dtype.
+
+On a mesh (``CheckpointManager(cfg, mesh=...)``) leaves may be DTensors.
+``save`` writes the *logical* array as the reference does: every rank
+joins each leaf's gather on the calling thread, global rank 0 alone
+writes (the async writer thread runs no collective), and the other
+ranks wait for its write in the next ``wait`` (a barrier). ``restore``
+then places each leaf by the target's own layout, whatever mesh wrote
+it ("elastic resharding"): every rank reads the logical array and keeps
+its shard, with no collective.
 """
 from __future__ import annotations
 
@@ -27,10 +39,11 @@ import os
 import shutil
 import tempfile
 import threading
-from typing import Any, Dict, Iterator, List, Optional, Tuple
+from typing import Any, Dict, Iterator, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn as nn
 
 from repro_torch.config import CheckpointConfig
@@ -44,7 +57,10 @@ def _flatten(tree: Any, prefix: str = "") -> Iterator[Tuple[str, Any]]:
     tensors, in a fixed order."""
     join = (lambda k: f"{prefix}{_SEP}{k}") if prefix else (lambda k: k)
     if isinstance(tree, TrainState):
-        yield from _flatten({"params": tree.model, "opt": tree.opt}, prefix)
+        parts = {"params": tree.model, "opt": tree.opt}
+        if tree.err is not None:
+            parts["err"] = tree.err
+        yield from _flatten(parts, prefix)
     elif isinstance(tree, nn.Module):
         for name, p in tree.named_parameters():
             yield join(name), p
@@ -71,13 +87,24 @@ def _from_file(arr: np.ndarray, dtype: str) -> torch.Tensor:
     return torch.from_numpy(arr.astype(np.dtype(dtype), copy=False))
 
 
+def _is_dtensor(t) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(t, DTensor)
+
+
 class CheckpointManager:
-    def __init__(self, cfg: CheckpointConfig):
+    def __init__(self, cfg: CheckpointConfig, mesh=None):
         self.cfg = cfg
+        self.mesh = mesh
+        self._writes = mesh is None or dist.get_rank() == 0
         # no directory given: a fresh one of this manager's own, so that no
         # two runs meet in a shared default and restore each other's steps
-        self.directory = cfg.directory or tempfile.mkdtemp(
-            prefix="repro_torch_ckpt_")
+        # (on a mesh, rank 0's, shared with every rank)
+        directory = [cfg.directory or (tempfile.mkdtemp(
+            prefix="repro_torch_ckpt_") if self._writes else None)]
+        if mesh is not None and cfg.directory is None:
+            dist.broadcast_object_list(directory, src=0)
+        self.directory = directory[0]
         os.makedirs(self.directory, exist_ok=True)
         self._thread: Optional[threading.Thread] = None
 
@@ -103,8 +130,14 @@ class CheckpointManager:
     def save(self, step: int, state: Any, extra: Optional[Dict] = None,
              blocking: Optional[bool] = None):
         blocking = (not self.cfg.async_save) if blocking is None else blocking
-        # host copy NOW (consistent snapshot), the write may be async
-        host = [(name, *_to_host(leaf)) for name, leaf in _flatten(state)]
+        # host copy NOW (consistent snapshot), the write may be async; a
+        # DTensor's gather is a collective every rank joins, here
+        host = []
+        for name, leaf in _flatten(state):
+            if _is_dtensor(leaf):
+                leaf = leaf.full_tensor()
+            if self._writes:
+                host.append((name, *_to_host(leaf)))
 
         def write():
             tmp = self._step_dir(step) + ".tmp"
@@ -125,16 +158,26 @@ class CheckpointManager:
             self._gc()
 
         if blocking:
-            write()
+            if self._writes:
+                write()
+            self._barrier()
         else:
             self.wait()
-            self._thread = threading.Thread(target=write, daemon=True)
-            self._thread.start()
+            if self._writes:
+                self._thread = threading.Thread(target=write, daemon=True)
+                self._thread.start()
 
     def wait(self):
+        """Join a pending write; on a mesh every rank then waits for rank
+        0's."""
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        self._barrier()
+
+    def _barrier(self):
+        if self.mesh is not None:
+            dist.barrier()
 
     def _gc(self):
         steps = self.all_steps()
@@ -142,13 +185,20 @@ class CheckpointManager:
             shutil.rmtree(self._step_dir(s), ignore_errors=True)
 
     # -- restore ------------------------------------------------------------
-    def restore(self, target: Any, step: Optional[int] = None
+    def restore(self, target: Any, step: Optional[int] = None,
+                shardings: Optional[Mapping[str, Any]] = None
                 ) -> Tuple[Any, Dict]:
         """Restore the checkpoint at ``step`` (default: the latest) into
         ``target`` (a TrainState, module, NamedTuple or dict of tensors),
-        in place -> (target, extra). Raises FileNotFoundError without a
+        in place -> (target, extra). A DTensor leaf takes its shard of the
+        logical array. With ``shardings`` (a dict shaped as ``target``,
+        leaves :class:`~repro_torch.sharding.rules.Sharding`) the target
+        is a dict whose leaves give only names, shapes and dtypes (meta
+        tensors will do), and the result is a new dict of DTensors laid
+        out by ``shardings``. Raises FileNotFoundError without a
         checkpoint, KeyError for a leaf the checkpoint lacks and
         ValueError on a shape mismatch, before writing anything."""
+        from repro_torch.sharding.rules import distribute, local_shard
         self.wait()
         step = self.latest_step() if step is None else step
         if step is None:
@@ -168,8 +218,40 @@ class CheckpointManager:
                 raise ValueError(
                     f"shape mismatch for {name}: ckpt {tuple(arr.shape)} "
                     f"vs target {tuple(tgt.shape)}")
-            loaded.append((tgt, arr))
+            loaded.append((name, tgt, arr))
+        if shardings is not None:
+            shd = dict(_flatten_shardings(shardings))
+            out: Dict[str, Any] = {}
+            for name, tgt, arr in loaded:
+                s = shd[name]
+                dev = (torch.device(s.mesh.device_type) if tgt.is_meta
+                       else tgt.device)
+                _insert(out, name, distribute(
+                    arr.to(device=dev, dtype=tgt.dtype), s))
+            return out, manifest["extra"]
         with torch.no_grad():
-            for tgt, arr in loaded:
-                tgt.copy_(arr)
+            for _, tgt, arr in loaded:
+                if _is_dtensor(tgt):
+                    tgt.to_local().copy_(local_shard(
+                        arr, tgt.device_mesh, tgt.placements))
+                else:
+                    tgt.copy_(arr)
         return target, manifest["extra"]
+
+
+def _flatten_shardings(tree: Any, prefix: str = ""
+                       ) -> Iterator[Tuple[str, Any]]:
+    from repro_torch.sharding.rules import Sharding
+    if isinstance(tree, Sharding):
+        yield prefix, tree
+        return
+    for k, v in tree.items():
+        yield from _flatten_shardings(v, f"{prefix}{_SEP}{k}" if prefix
+                                      else str(k))
+
+
+def _insert(tree: Dict[str, Any], name: str, leaf: Any) -> None:
+    *outer, last = name.split(_SEP)
+    for k in outer:
+        tree = tree.setdefault(k, {})
+    tree[last] = leaf

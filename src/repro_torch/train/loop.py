@@ -5,7 +5,9 @@ wired for restart-from-checkpoint fault tolerance (PyTorch port of
 ``train_loop`` is the single-invocation loop; ``train_with_recovery``
 wraps it in the restart supervisor so an injected failure (tests) or a
 real crash resumes from the latest checkpoint with the data pipeline
-seeked to the right step.
+seeked to the right step. With ``mesh=`` both run the sharded step
+(``train.step``): every rank draws the same batches and initial weights
+from the seed, and the checkpoints hold the logical arrays.
 """
 from __future__ import annotations
 
@@ -22,17 +24,18 @@ from repro_torch.train.step import TrainState, empty_train_state, \
     init_train_state, make_train_step
 
 
-def seeded_state(run: RunConfig, device="cuda") -> TrainState:
+def seeded_state(run: RunConfig, device="cuda", mesh=None) -> TrainState:
     """The loop's default initial state: weights drawn from a generator
-    on ``device`` seeded with ``run.seed``."""
+    on ``device`` seeded with ``run.seed`` (sharded on ``mesh``)."""
     dev = resolve_device(device)
     return init_train_state(run, torch.Generator(device=dev).manual_seed(
-        run.seed), dev)
+        run.seed), dev, mesh)
 
 
 def train_loop(
     run: RunConfig,
     *,
+    mesh=None,
     device="cuda",
     num_steps: Optional[int] = None,
     state: Optional[TrainState] = None,
@@ -43,17 +46,17 @@ def train_loop(
 ) -> Dict[str, Any]:
     """Steps ``start_step .. num_steps - 1`` on ``SyntheticLM`` batches
     -> {"state", "losses", "final_step"}. ``state`` (default:
-    :func:`seeded_state` on ``device``) is trained in place. Each step
+    :func:`seeded_state` on ``device`` and ``mesh``) is trained in place. Each step
     runs under the watchdog, which times it up to the loss's ``.item()``;
     every ``save_every`` steps the state and the data cursor
     (``extra={"data": pipeline.state}``) are checkpointed."""
     cfg = run.model
     num_steps = num_steps or run.optimizer.total_steps
-    step_fn = make_train_step(run)
+    step_fn = make_train_step(run, mesh)
     if state is None:
-        state = seeded_state(run, device)
+        state = seeded_state(run, device, mesh)
     if ckpt is None:
-        ckpt = CheckpointManager(run.checkpoint)
+        ckpt = CheckpointManager(run.checkpoint, mesh=mesh)
     watchdog = Watchdog(run.fault.step_timeout_s)
 
     pipeline = SyntheticLM(run.shape.global_batch, run.shape.seq_len,
@@ -85,7 +88,7 @@ def train_loop(
     return {"state": state, "losses": losses, "final_step": num_steps}
 
 
-def train_with_recovery(run: RunConfig, *, device="cuda",
+def train_with_recovery(run: RunConfig, *, mesh=None, device="cuda",
                         num_steps: Optional[int] = None,
                         fail_at_step: Optional[int] = None,
                         init_state: Optional[Callable[[], TrainState]] = None,
@@ -93,23 +96,24 @@ def train_with_recovery(run: RunConfig, *, device="cuda",
     """Restart supervisor around train_loop. Restores the latest
     checkpoint (params + opt state + data cursor) on each restart; an
     attempt with no checkpoint to restore starts from ``init_state()``
-    (default: :func:`seeded_state` on ``device``)."""
-    ckpt = CheckpointManager(run.checkpoint)
+    (default: :func:`seeded_state` on ``device`` and ``mesh``)."""
+    ckpt = CheckpointManager(run.checkpoint, mesh=mesh)
     restarts: List[int] = []
     if init_state is None:
         def init_state():
-            return seeded_state(run, device)
+            return seeded_state(run, device, mesh)
 
     def body(attempt: int):
         latest = ckpt.latest_step()
         if latest is not None:
-            state, _ = ckpt.restore(empty_train_state(run, device))
+            state, _ = ckpt.restore(empty_train_state(run, device, mesh))
             start = latest
         else:
             state, start = init_state(), 0
         # only inject the failure on the first attempt
         fail = fail_at_step if attempt == 0 else None
-        return train_loop(run, device=device, num_steps=num_steps,
+        return train_loop(run, mesh=mesh, device=device,
+                          num_steps=num_steps,
                           state=state, start_step=start, ckpt=ckpt,
                           fail_at_step=fail)
 

@@ -47,7 +47,8 @@ def test_port_package_is_covered():
             "synthetic.py", "babi.py", "train.py", "train_lm_torch.py",
             "babi_memn2n_torch.py", "frontend.py", "musicgen_medium.py",
             "internvl2_2b.py", "quickstart_torch.py",
-            "serve_lm_torch.py"} <= names
+            "serve_lm_torch.py", "mesh.py", "rules.py", "compression.py",
+            "pipeline.py"} <= names
     rel = {str(p.relative_to(ROOT)) for p in FILES}
     for family in ("decode_attention", "flash_attention", "a3_attention",
                    "mlstm_chunk"):

@@ -49,6 +49,7 @@ from repro_torch.models import decoder as tdec  # noqa: E402
 from repro_torch.models.convert import params_from_numpy, \
     train_state_from_numpy  # noqa: E402
 from repro_torch.models.xlstm import MLSTMChunk  # noqa: E402
+from repro_torch.train import step as tstep  # noqa: E402
 from repro_torch.train.checkpoint import CheckpointManager  # noqa: E402
 from repro_torch.train.fault import Watchdog, WatchdogTimeout, \
     run_with_restarts  # noqa: E402
@@ -344,18 +345,24 @@ def test_run_with_restarts():
 
 
 def test_mesh_fields_raise():
-    with pytest.raises(ValueError, match="device mesh"):
-        tcfg.ShardingConfig(grad_compression=True)
-    with pytest.raises(ValueError, match="device mesh"):
-        tcfg.ShardingConfig(fsdp=True)
+    """The mesh fields are the reference's, with its defaults; what needs
+    a mesh raises without one: ``grad_compression`` at the step, where
+    the reference ignores it."""
+    sh = tcfg.ShardingConfig(fsdp=False, tp_axis="x")
+    assert (sh.fsdp, sh.tp_axis) == (False, "x")
     with pytest.raises(ValueError):
         tcfg.ShardingConfig(remat="some")
     sh = tcfg.ShardingConfig()
     ref = jcfg.ShardingConfig()
-    for f in ("remat", "microbatches", "attn_chunk", "ce_chunk",
-              "grad_compression"):
-        assert getattr(sh, f) == getattr(ref, f)
+    for f in dataclasses.fields(jcfg.ShardingConfig):
+        assert getattr(sh, f.name) == getattr(ref, f.name), f.name
     assert dataclasses.replace(sh, microbatches=2).microbatches == 2
+    run = tcfg.RunConfig(model=port_cfg(TINY),
+                         shape=tcfg.ShapeConfig("t", tcfg.ShapeKind.TRAIN,
+                                                32, 2),
+                         sharding=tcfg.ShardingConfig(grad_compression=True))
+    with pytest.raises(ValueError, match="needs a mesh"):
+        tstep.make_train_step(run)
 
 
 # ---------------------------------------------------------------------------
