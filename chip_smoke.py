@@ -260,6 +260,20 @@ first phase that does not hold:
    on four gloo CPU ranks (a (data 2, model 2) mesh, subprocesses of this
    script started with ``--mesh-rank``) against the card's one-rank
    mesh: 3 sharded steps' losses within 2e-5 relative.
+16. the training dry run (``launch.dryrun``; after [15]): children of
+   this script (``--dryrun-cell``) trace one step with fake cuda tensors
+   while the card runs real ones: (a) internlm2-1.8b at [13b]'s shape
+   (4 x 2048, remat full) on one device against one real step: FLOPs
+   equal to ``FlopCounterMode``'s around the real step within 1e-6
+   relative, the traced peak within 10% of ``max_memory_allocated``, the
+   step's CUDA-event time at or above the roofline's largest term, and
+   model FLOPs / (step s x 989e12) printed as ``mfu``; (b) xlstm-350m at
+   [13a]'s shape: the same, and the trace's #7 ops equal to the real
+   step's launches (2 x 21) with #7's FLOPs the formula times the
+   launches; (c) internlm2-1.8b ``train_4k`` on fake (16, 16) and
+   (2, 16, 16) worlds: per-rank FLOPs, HBM and collective bytes, peak,
+   roofline terms and bottleneck, and per-rank FLOPs x ranks against
+   the one-device trace of the cell (no product left replicated).
 
 Prints one JSON line of per-kernel numbers (every row with
 ``device_ms``, the profiler's device time per launch; rows #1-#3 with
@@ -267,13 +281,14 @@ Prints one JSON line of per-kernel numbers (every row with
 ``served_shapes``, phase 9's and [14c]'s rows; #1's launches include
 [10]'s, [11]'s, [12]'s and [14]'s A^3-off decode steps, #7's [10b]'s,
 [11d]'s, [12b]'s, [13]'s ([13a]'s train_loop steps and [13c]'s card
-steps) and [15b]'s sharded steps),
+steps), [15b]'s sharded steps and [16b]'s real steps),
 then, last,
 ``{"ok": true, "device": {...}}``. Exits non-zero, with no result line,
 when CUDA is unavailable or the port's sources are not beside the script.
 """
 from __future__ import annotations
 
+import atexit
 import copy
 import dataclasses
 import gc
@@ -2910,18 +2925,11 @@ def mlstm_inputs(seed, dev, s=None, state=False):
 
 
 def mlstm_need(b, h, s, chunk, dk, dv, state):
-    """(bytes, operations) of one chunk-kernel call: bf16 q/k/v and f32
-    gates read once, f32 h written once (and the state read and written);
-    per chunk 2 Dk + 2 Dv operations for each causal (t, u) pair, and per
-    row q.C, q.n, the k^T V and n updates."""
-    L = min(chunk, s)
-    pairs = sum(n * (n + 1) // 2 for n in
-                [L] * (s // L) + ([s % L] if s % L else []))
-    flops = b * h * (pairs * (2 * dk + 2 * dv) + s * (4 * dk * dv + 4 * dk))
-    nbytes = b * h * (s * (2 * dk + dv) * 2 + s * 2 * 4 + s * dv * 4)
-    if state:
-        nbytes += 2 * b * h * (dk * dv + dk + 1) * 4
-    return nbytes, flops
+    """(bytes, operations) of one chunk-kernel call at bf16 q/k/v: the
+    package's formula (``kernels.mlstm_chunk.kernel.need``), which the
+    dry run counts #7 by."""
+    from repro_torch.kernels.mlstm_chunk.kernel import need
+    return need(b, h, s, chunk, dk, dv, state)
 
 
 def phase_mlstm_kernel(dev):
@@ -4628,6 +4636,238 @@ def phase_mesh(dev):
 
 
 # ---------------------------------------------------------------------------
+# [16] the training dry run (launch/dryrun) against the card
+# ---------------------------------------------------------------------------
+
+# the cells the dry run traces in child processes: [16a] and [16b] at
+# [13]'s shapes on one device, [16c] internlm2-1.8b train_4k on one
+# device and on the production meshes
+DRY_CELLS = {
+    "16a": dict(arch="internlm2-1.8b", batch=TRAIN_LM["batch"],
+                seq=TRAIN_LM["seq"], mesh=[]),
+    "16b": dict(arch="xlstm-350m", batch=TRAIN_XL["batch"],
+                seq=TRAIN_XL["seq"], mesh=[]),
+    "16c-1": dict(arch="internlm2-1.8b", shape="train_4k", mesh=[]),
+    "16c-16x16": dict(arch="internlm2-1.8b", shape="train_4k",
+                      mesh=[16, 16]),
+    "16c-2x16x16": dict(arch="internlm2-1.8b", shape="train_4k",
+                        mesh=[2, 16, 16]),
+}
+
+
+def dryrun_cell_main(argv):
+    """``chip_smoke.py --dryrun-cell SPEC OUT``: one dry-run cell (a
+    ``DRY_CELLS`` entry as JSON) traced with fake cuda tensors in a fake
+    world of its own; its record written to OUT as JSON."""
+    spec, out = json.loads(argv[0]), argv[1]
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.config import SHAPE_SUITE, ShapeConfig, ShapeKind
+    from repro_torch.launch.dryrun import run_cell
+    shape = SHAPE_SUITE[spec["shape"]] if "shape" in spec else ShapeConfig(
+        "train", ShapeKind.TRAIN, spec["seq"], spec["batch"])
+    rec = run_cell(spec["arch"], shape, mesh_shape=spec["mesh"],
+                   device="cuda", verbose=False)
+    Path(out).write_text(json.dumps(rec))
+    return 0
+
+
+def start_dryrun_cells(names=tuple(DRY_CELLS)):
+    """Start one child per cell of ``names``, writing into a fresh
+    temporary directory -> {cell: (process, out)}. main starts [16b]'s
+    before [14] (the xlstm-350m trace, ~310k ops of its sLSTM token loop,
+    takes about two minutes of one CPU core) and the others before
+    [15]."""
+    import os
+    import tempfile
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    directory = tempfile.mkdtemp(prefix="dryrun_")
+    out = {}
+    for name in names:
+        spec = DRY_CELLS[name]
+        path = Path(directory) / f"{name}.json"
+        out[name] = (subprocess.Popen(
+            [sys.executable, str(ROOT / "chip_smoke.py"), "--dryrun-cell",
+             json.dumps(spec), str(path)], env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True), path)
+    # a phase that fails before [16] leaves none of them running
+    atexit.register(lambda: [p.kill() for p, _ in out.values()
+                             if p.poll() is None])
+    return out
+
+
+def finish_dryrun_cells(children, timeout=600):
+    """Wait for the children (killing any still running at the timeout)
+    -> {cell: record}."""
+    logs = {}
+    try:
+        for name, (p, _) in children.items():
+            logs[name] = p.communicate(timeout=timeout)[0]
+    finally:
+        for p, _ in children.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    import shutil
+    bad = [n for n, (p, path) in children.items()
+           if p.returncode != 0 or not path.exists()]
+    recs = {n: json.loads(path.read_text())
+            for n, (_, path) in children.items() if n not in bad}
+    for directory in {path.parent for _, path in children.values()}:
+        shutil.rmtree(directory)
+    check(not bad, "[16] dry-run cells failed:\n" + "\n".join(
+        f"{n}: {logs.get(n, '')[-3000:]}" for n in bad))
+    return recs
+
+
+def real_steps(arch, shape, dev):
+    """[16a]/[16b] on the card: 3 steps of ``arch`` at full width (bf16,
+    remat full) from seed 0: the first a warm-up (its #7 launches), the
+    second timed by CUDA events, the third under ``FlopCounterMode`` ->
+    (step ms, FLOPs of the step, #7 FLOPs of it, #7 launches of a step,
+    peak bytes of the three, #7 launches of the three)."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.config import get_arch
+    from repro_torch.kernels.mlstm_chunk import kernel as mk
+    from repro_torch.train.step import init_train_state, make_train_step
+
+    cfg = get_arch(arch)
+    run = train_run(cfg, shape["seq"], shape["batch"], "full", None)
+    gc.collect()
+    torch.cuda.empty_cache()
+    state = init_train_state(run, torch.Generator(device=dev).manual_seed(0),
+                             dev)
+    step = make_train_step(run)
+    batches = [train_batch(run, i, dev) for i in range(3)]
+    sync(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    mk.reset_launch_counts()
+    state, _ = step(state, batches[0])
+    sync(dev)
+    launches = mk.launches()
+    t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    t0.record()
+    state, _ = step(state, batches[1])
+    t1.record()
+    sync(dev)
+    with FlopCounterMode(display=False) as fc:
+        state, metrics = step(state, batches[2])
+    sync(dev)
+    check(math.isfinite(float(metrics["loss"])),
+          f"[16] {arch}: the real step's loss is not finite")
+    counts = fc.get_flop_counts().get("Global", {})
+    k_flops = sum(v for op, v in counts.items()
+                  if "mlstm_chunk" in str(op))
+    peak = torch.cuda.max_memory_allocated(dev)
+    total = mk.launches()
+    del state, step, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    return (t0.elapsed_time(t1), float(fc.get_total_flops()), k_flops,
+            launches, peak, total)
+
+
+def dry_vs_real(tag, rec, real, model_flops):
+    """Hold one dry-run record against the card's real step: FLOPs equal
+    within 1e-6 relative, the peak within 10%, the step at or above the
+    roofline's largest term; print the MFU line."""
+    ms, flops, _, _, peak, _ = real
+    rel = abs(rec["flops_per_device"] - flops) / flops
+    check(rel <= 1e-6, f"[{tag}] dry-run FLOPs {rec['flops_per_device']:.6g}"
+                       f" differ from the real step's {flops:.6g} "
+                       f"({rel:.2e} relative)")
+    dry_peak = rec["memory"]["peak_device_bytes"]
+    gap = abs(dry_peak - peak) / peak
+    check(gap <= 0.10, f"[{tag}] dry-run peak {dry_peak / 2**30:.3f} GiB vs "
+                       f"the card's max_memory_allocated "
+                       f"{peak / 2**30:.3f} GiB ({gap:.1%} apart)")
+    bound_s = max(rec["compute_s"], rec["memory_s"], rec["collective_s"])
+    check(ms / 1e3 >= bound_s, f"[{tag}] step {ms:.1f} ms under the "
+                               f"roofline's largest term {bound_s:.4f} s")
+    log(f"  [{tag}] {rec['arch']}: FLOPs dry {rec['flops_per_device']:.6g} "
+        f"= real {flops:.6g} ({rel:.1e} relative); peak dry "
+        f"{dry_peak / 2**30:.3f} GiB vs card {peak / 2**30:.3f} GiB "
+        f"({gap:.1%}); step {ms:.1f} ms (CUDA events) >= roofline "
+        f"{bound_s * 1e3:.1f} ms (compute {rec['compute_s'] * 1e3:.1f}, "
+        f"memory {rec['memory_s'] * 1e3:.1f}; {rec['bottleneck']}); dry "
+        f"trace {rec['lower_s']:.1f} s, {rec['ops']} ops [{CARD}]")
+    log(f"  [{tag}] {rec['arch']} mfu = model FLOPs {model_flops:.4g} / "
+        f"({ms / 1e3:.4f} s x 989e12) = {model_flops / (ms / 1e3 * 989e12):.4f}"
+        f" [{CARD}]")
+
+
+def phase_dryrun(dev, children=None):
+    """[16] (``children``: the dry-run cells' processes, started here
+    when not given) -> #7 launches of [16b]'s three real xlstm-350m
+    steps."""
+    from repro_torch.config import BlockKind, ShapeConfig, ShapeKind, \
+        get_arch
+    from repro_torch.kernels.mlstm_chunk import kernel as mk
+    from repro_torch.launch.dryrun import model_flops_for
+
+    children = children or start_dryrun_cells()
+    try:
+        t = time.perf_counter()
+        lm = real_steps("internlm2-1.8b", TRAIN_LM, dev)
+        xl = real_steps("xlstm-350m", TRAIN_XL, dev)
+        log(f"  [16] real steps on the card: {time.perf_counter() - t:.1f} s")
+    finally:
+        t = time.perf_counter()
+        recs = finish_dryrun_cells(children)
+        log(f"  [16] waited {time.perf_counter() - t:.1f} s for the dry-run "
+            f"children")
+    for tag, arch, shp, real in (("16a", "internlm2-1.8b", TRAIN_LM, lm),
+                                 ("16b", "xlstm-350m", TRAIN_XL, xl)):
+        shape = ShapeConfig("train", ShapeKind.TRAIN, shp["seq"],
+                            shp["batch"])
+        dry_vs_real(tag, recs[tag], real,
+                    model_flops_for(get_arch(arch), shape))
+    # [16b]: #7 in the trace against its launches on the card
+    cfg = get_arch("xlstm-350m")
+    n_mlstm = sum(cfg.block_kind(i) == BlockKind.MLSTM
+                  for i in range(cfg.num_layers))
+    rec, launches = recs["16b"], xl[3]
+    ops = rec["op_counts"].get("repro_torch.mlstm_chunk", 0)
+    per = mk.need(TRAIN_XL["batch"], cfg.num_heads, TRAIN_XL["seq"],
+                  min(256, TRAIN_XL["seq"]), cfg.resolved_head_dim,
+                  cfg.resolved_head_dim, True)[1]
+    k_dry = rec["kernel_flops"].get("repro_torch.mlstm_chunk", 0.0)
+    check(ops == launches == 2 * n_mlstm,
+          f"[16b] the trace counts {ops} #7 ops, the card launched "
+          f"{launches}, expected 2 x {n_mlstm}")
+    check(k_dry == per * launches == xl[2],
+          f"[16b] #7 FLOPs: trace {k_dry}, formula x launches "
+          f"{per * launches}, the real step's count {xl[2]}")
+    log(f"  [16b] #7: {ops} ops in the trace = {launches} launches on the "
+        f"card = 2 x {n_mlstm}; FLOPs {k_dry:.6g} = {launches} x {per} "
+        f"(the formula) = the real step's count")
+    # [16c]: internlm2-1.8b train_4k per rank on the production meshes
+    one = recs["16c-1"]
+    for tag in ("16c-16x16", "16c-2x16x16"):
+        r = recs[tag]
+        total = r["flops_per_device"] * r["chips"]
+        extra = total - one["flops_per_device"]
+        log(f"  [{tag}] internlm2-1.8b train_4k on {r['mesh']} "
+            f"({r['chips']} fake ranks): per rank {r['flops_per_device']:.6g}"
+            f" FLOPs, {r['bytes_per_device']:.6g} HBM bytes, "
+            f"{r['collective_bytes']:.6g} collective bytes "
+            f"({r['wire_bytes']:.6g} on the wire), peak "
+            f"{r['memory']['peak_device_bytes'] / 2**30:.2f} GiB; compute "
+            f"{r['compute_s'] * 1e3:.1f} ms, memory {r['memory_s'] * 1e3:.1f}"
+            f" ms, collective {r['collective_s'] * 1e3:.1f} ms -> "
+            f"{r['bottleneck']}; trace {r['lower_s']:.1f} s "
+            f"[H100 SXM datasheet constants]")
+        log(f"  [{tag}] per-rank FLOPs x {r['chips']} = {total:.6g} against "
+            f"the one-device count {one['flops_per_device']:.6g}: "
+            f"{extra:.6g} replicated ({extra / one['flops_per_device']:.2e} "
+            f"of it)")
+        check(abs(extra) <= 1e-6 * one["flops_per_device"],
+              f"[{tag}] {extra:.6g} FLOPs of internlm2-1.8b train_4k stay "
+              f"replicated over the ranks")
+    return xl[5]
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     global CARD
@@ -4741,6 +4981,8 @@ def main() -> int:
         "their rings, musicgen training, smoke variants card vs CPU, the "
         "quickstart and serve_lm examples")
     t14 = time.perf_counter()
+    # [16]'s slowest trace runs on the CPU from here on
+    dry_children = start_dryrun_cells(["16b"])
     fe_launches, fe_served = phase_frontend(dev)
     main_launches += fe_launches
     served += fe_served
@@ -4749,8 +4991,16 @@ def main() -> int:
         "one-rank NCCL mesh vs unsharded, the mesh primitives on CUDA "
         "tensors, TINY on four gloo CPU ranks vs the card")
     t15 = time.perf_counter()
+    dry_children.update(start_dryrun_cells([n for n in DRY_CELLS
+                                            if n != "16b"]))
     xl_launches += phase_mesh(dev)
     log(f"  phase [15] took {time.perf_counter() - t15:.1f} s")
+    log("[16] the training dry run: internlm2-1.8b and xlstm-350m traced "
+        "at [13]'s shapes against one real step each on the card, "
+        "internlm2-1.8b train_4k on fake (16, 16) and (2, 16, 16) worlds")
+    t16 = time.perf_counter()
+    xl_launches += phase_dryrun(dev, dry_children)
+    log(f"  phase [16] took {time.perf_counter() - t16:.1f} s")
 
     src = "src/repro_torch/csrc/decode_attention.cu"
     jax_kernel = "src/repro/kernels/decode_attention/kernel.py"
@@ -4807,4 +5057,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--mesh-rank"]:
         sys.exit(mesh_rank_main(sys.argv[2:]))
+    if sys.argv[1:2] == ["--dryrun-cell"]:
+        sys.exit(dryrun_cell_main(sys.argv[2:]))
     sys.exit(main())

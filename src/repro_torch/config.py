@@ -162,6 +162,18 @@ class ModelConfig:
             total += self.vocab_size * d
         return total
 
+    def active_param_count(self) -> int:
+        """Params touched per token (MoE: shared + top_k experts only;
+        the reference's formula)."""
+        if self.moe is None:
+            return self.param_count()
+        de = self.moe.d_expert or self.d_ff
+        n_exp = self.moe.num_experts + self.moe.num_shared
+        n_act = self.moe.top_k + self.moe.num_shared
+        moe_layers = self.num_layers - self.moe.num_dense_layers
+        dead = 3 * self.d_model * de * (n_exp - n_act) * moe_layers
+        return self.param_count() - dead
+
 
 SHED_POLICIES = ("reject-new", "evict-oldest-queued")
 KV_QUANTS = ("none", "int8")

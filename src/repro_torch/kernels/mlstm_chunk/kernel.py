@@ -32,6 +32,7 @@ import ctypes
 from typing import Optional, Tuple
 
 import torch
+import torch.utils.flop_counter
 
 from repro_torch.kernels import build
 
@@ -164,6 +165,91 @@ def mlstm_chunk_plain(q, k, v, log_i, log_f, *, chunk: int = 256,
     return (out, (C, n, m)) if return_state else out
 
 
+def need(b: int, h: int, s: int, chunk: int, dk: int, dv: int,
+         state: bool, itemsize: int = 2) -> Tuple[int, int]:
+    """(bytes, operations) of one call: q/k/v (``itemsize`` bytes each)
+    and the float32 gates read once, the float32 h written once (and the
+    state read and written); per chunk 2 Dk + 2 Dv operations for each
+    causal (t, u) pair, and per row q.C, q.n, the k^T V and n updates."""
+    L = min(chunk, s)
+    pairs = sum(n * (n + 1) // 2 for n in
+                [L] * (s // L) + ([s % L] if s % L else []))
+    flops = b * h * (pairs * (2 * dk + 2 * dv) + s * (4 * dk * dv + 4 * dk))
+    nbytes = b * h * (s * (2 * dk + dv) * itemsize + s * 2 * 4 + s * dv * 4)
+    if state:
+        nbytes += 2 * b * h * (dk * dv + dk + 1) * 4
+    return nbytes, flops
+
+
+# The launch is a custom op, so that ``FakeTensorMode`` runs its shape
+# function and ``FlopCounterMode`` counts it by :func:`need` (a ctypes
+# launch is invisible to both): the dry run traces it at the card's route.
+
+@torch.library.custom_op("repro_torch::mlstm_chunk", mutates_args=())
+def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            log_i: torch.Tensor, log_f: torch.Tensor,
+            C: Optional[torch.Tensor], n: Optional[torch.Tensor],
+            m: Optional[torch.Tensor], chunk: int, scale: float,
+            return_state: bool
+            ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                       torch.Tensor]:
+    """One launch of kernel #7 -> (h, C, n, m); the state outputs are
+    empty unless ``return_state``."""
+    b, h, s, dk = q.shape
+    dv, L = v.shape[3], min(chunk, s)
+    dev = q.device
+    out = torch.empty((b, h, s, dv), dtype=torch.float32, device=dev)
+    final = ((torch.empty((b, h, dk, dv), device=dev),
+              torch.empty((b, h, dk), device=dev),
+              torch.empty((b, h), device=dev)) if return_state else
+             tuple(torch.empty(0, device=dev) for _ in range(3)))
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    st_out = final if return_state else (None, None, None)
+    name = kernel_route(q.dtype, dk, dv, L, all(t.data_ptr() % 16 == 0
+                                               for t in (q, k, v)))
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), log_i.data_ptr(),
+            log_f.data_ptr(), ptr(C), ptr(n), ptr(m), out.data_ptr(),
+            *map(ptr, st_out))
+    fn = build.entry(SOURCE, *_ARGTYPES[name])
+    if name == "mlstm_chunk_wgmma":
+        err = fn(*ptrs, b * h, s, dk, dv, L, scale, t_split(b * h, dv),
+                 build.stream(dev))
+    else:
+        err = fn(*ptrs, int(q.dtype == torch.bfloat16), b * h, s, dk, dv, L,
+                 scale, build.stream(dev))
+    build.raise_on(err, name)
+    LAUNCHES[name] += 1
+    return (out, *final)
+
+
+@_launch.register_fake
+def _(q, k, v, log_i, log_f, C, n, m, chunk, scale, return_state):
+    b, h, s, dk = q.shape
+    dv = v.shape[3]
+    shapes = ((b, h, dk, dv), (b, h, dk), (b, h)) if return_state \
+        else ((0,),) * 3
+    return (q.new_empty((b, h, s, dv), dtype=torch.float32),
+            *(q.new_empty(sh, dtype=torch.float32) for sh in shapes))
+
+
+def call_need(q, k, v, log_i, log_f, C, n, m, chunk, scale, return_state,
+              **_) -> Tuple[int, int]:
+    """:func:`need` of one call of the op, from its arguments."""
+    b, h, s, dk = q.shape
+    return need(b, h, s, chunk, dk, v.shape[3], C is not None,
+                q.element_size())
+
+
+def _flops(q, k, v, log_i, log_f, C, n, m, chunk, scale, return_state,
+           out_val=None, **_) -> int:
+    return call_need(q, k, v, log_i, log_f, C, n, m, chunk, scale,
+                     return_state)[1]
+
+
+torch.utils.flop_counter.register_flop_formula(
+    torch.ops.repro_torch.mlstm_chunk, get_raw=True)(_flops)
+
+
 def mlstm_chunk_kernel(q, k, v, log_i, log_f, *, chunk: int = 256,
                        scale: float = 1.0, state: Optional[State] = None,
                        return_state: bool = False):
@@ -182,27 +268,9 @@ def mlstm_chunk_kernel(q, k, v, log_i, log_f, *, chunk: int = 256,
         raise ValueError("mlstm_chunk gates and state must be float32")
     if L > MAX_CHUNK:
         raise ValueError(f"chunk {L} exceeds {MAX_CHUNK}")
-    dev = q.device
-    out = torch.empty((b, h, s, dv), dtype=torch.float32, device=dev)
-    if return_state:
-        final = (torch.empty((b, h, dk, dv), device=dev),
-                 torch.empty((b, h, dk), device=dev),
-                 torch.empty((b, h), device=dev))
-    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
-    st_in = state if state is not None else (None, None, None)
-    st_out = final if return_state else (None, None, None)
-    name = kernel_route(q.dtype, dk, dv, L, all(t.data_ptr() % 16 == 0
-                                               for t in (q, k, v)))
-    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), log_i.data_ptr(),
-            log_f.data_ptr(), *map(ptr, st_in), out.data_ptr(),
-            *map(ptr, st_out))
-    fn = build.entry(SOURCE, *_ARGTYPES[name])
-    if name == "mlstm_chunk_wgmma":
-        err = fn(*ptrs, b * h, s, dk, dv, L, scale, t_split(b * h, dv),
-                 build.stream(dev))
-    else:
-        err = fn(*ptrs, int(q.dtype == torch.bfloat16), b * h, s, dk, dv, L,
-                 scale, build.stream(dev))
-    build.raise_on(err, name)
-    LAUNCHES[name] += 1
-    return (out, final) if return_state else out
+    with torch.no_grad():       # no backward: MLSTMChunk recomputes
+        out, *final = torch.ops.repro_torch.mlstm_chunk(
+            q, k, v, log_i, log_f, *(state if state is not None
+                                     else (None, None, None)),
+            chunk, float(scale), return_state)
+    return (out, tuple(final)) if return_state else out

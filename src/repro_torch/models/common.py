@@ -23,39 +23,209 @@ NEG_INF = -1e30
 
 
 # ---------------------------------------------------------------------------
-# the batch a layer sees on a mesh
+# activation shardings: what a rank of a sharded train step computes
 #
-# The reference's train step runs one GSPMD program over the global batch
-# (``activation_shardings`` / ``shard_act`` pin where its activations
-# live). The port's sharded step runs each rank on its own rows instead,
-# which is the same computation for every layer that treats rows apart,
-# but not for the MoE: its capacity, its expert ranks and its
-# load-balance loss are statistics of the whole batch. ``batch_rows``
-# carries the step's plan of the rows to the layers; under it
-# ``moe_apply`` routes the rows of every rank that shares its batch
-# (``rows.gather``) and keeps its own rows of the output (``rows.own``).
-# The step enters it inside each layer's computation (a remat recompute
-# may run on autograd's device thread, which sees no context set around
-# the step).
+# The reference's train step runs one GSPMD program over the global batch:
+# ``activation_shardings`` installs ``act_specs`` and ``shard_act`` pins
+# the activations there, and the partitioner splits every product to
+# match. The port's sharded step runs each rank on its own rows and its
+# own share of the model axis instead, Megatron style, and
+# :class:`ActShardings` is the plan that reaches the layers:
+#
+# * ``rows``: the batch rows of the ranks that share this rank's batch.
+#   The MoE's capacity, expert ranks and load-balance loss are statistics
+#   of the whole batch, so ``moe_apply`` routes every row of them
+#   (``rows.gather``) and keeps its own (``rows.own``);
+# * the model axis (``size`` ranks, this one the ``index``-th): a module
+#   in ``split`` holds this rank's share of its weights (its heads, its
+#   ``d_ff`` columns, its experts or its slice of each, its vocab rows)
+#   and computes only that share. Its input enters through
+#   :meth:`ActShardings.enter` (the backward sums the shares' input
+#   gradients) and its partial output leaves through
+#   :meth:`ActShardings.leave` (a sum over the axis), so between modules
+#   the hidden state and its gradient are the same on every rank of the
+#   axis. Where ``act_specs`` puts the q rows on the model axis (heads
+#   that the axis does not divide), the attention cuts the sequence
+#   instead (``shard_act(x, "q")``).
+#
+# The step enters the context inside each layer's computation (a remat
+# recompute may run on autograd's device thread, which sees no context
+# set around the step).
 # ---------------------------------------------------------------------------
 
-_BATCH_ROWS = contextvars.ContextVar("repro_torch_batch_rows", default=None)
+_ACT = contextvars.ContextVar("repro_torch_act_shardings", default=None)
+
+
+def _c10d():
+    return torch.ops._c10d_functional
+
+
+def _wait(t: torch.Tensor) -> torch.Tensor:
+    return _c10d().wait_tensor(t)
+
+
+def _all_reduce(x: torch.Tensor, op: str, group: str) -> torch.Tensor:
+    return _wait(_c10d().all_reduce(x.contiguous(), op, group))
+
+
+def _all_gather(x: torch.Tensor, dim: int, size: int, group: str
+                ) -> torch.Tensor:
+    """The ranks' ``x`` concatenated along ``dim`` in rank order."""
+    y = _wait(_c10d().all_gather_into_tensor(
+        x.movedim(dim, 0).contiguous(), size, group))
+    return y.movedim(0, dim)
+
+
+def _reduce_scatter(x: torch.Tensor, dim: int, size: int, group: str
+                    ) -> torch.Tensor:
+    """The sum over the ranks of ``x``, this rank's block of ``dim``."""
+    y = _wait(_c10d().reduce_scatter_tensor(
+        x.movedim(dim, 0).contiguous(), "sum", size, group))
+    return y.movedim(0, dim)
+
+
+def _block(x: torch.Tensor, dim: int, size: int, index: int
+           ) -> torch.Tensor:
+    n = x.shape[dim] // size
+    return x.narrow(dim, index * n, n)
+
+
+class _Enter(torch.autograd.Function):
+    """Identity; the backward sums the gradient over the axis."""
+
+    @staticmethod
+    def forward(ctx, x, sh):
+        ctx.sh = sh
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g, "sum", ctx.sh.group), None
+
+
+class _Leave(torch.autograd.Function):
+    """Sum over the axis; the gradient passes as it is (it is the same on
+    every rank of the axis)."""
+
+    @staticmethod
+    def forward(ctx, x, sh):
+        return _all_reduce(x, "sum", sh.group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _Gather(torch.autograd.Function):
+    """All-gather along ``dim``. ``same``: the consumers of the result are
+    the same on every rank, so the backward keeps this rank's block of
+    the gradient; else they differ and the backward sums the blocks over
+    the axis (a reduce-scatter)."""
+
+    @staticmethod
+    def forward(ctx, x, sh, dim, same):
+        ctx.sh, ctx.dim, ctx.same = sh, dim, same
+        return _all_gather(x, dim, sh.size, sh.group)
+
+    @staticmethod
+    def backward(ctx, g):
+        sh, dim = ctx.sh, ctx.dim
+        if ctx.same:
+            return _block(g, dim, sh.size, sh.index).contiguous(), \
+                None, None, None
+        return _reduce_scatter(g, dim, sh.size, sh.group), None, None, None
+
+
+class _Cut(torch.autograd.Function):
+    """This rank's block of ``dim``; the backward gathers the blocks'
+    gradients (the input is the same on every rank of the axis)."""
+
+    @staticmethod
+    def forward(ctx, x, sh, dim):
+        ctx.sh, ctx.dim = sh, dim
+        return _block(x, dim, sh.size, sh.index).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_gather(g, ctx.dim, ctx.sh.size, ctx.sh.group), \
+            None, None
+
+
+class ActShardings:
+    """The plan of one rank of a sharded train step (see above):
+    ``specs`` (``sharding.rules.act_specs``), ``rows`` (the batch plan, or
+    None), and the model axis ``axis`` of ``size`` ranks over the process
+    group named ``group``, this rank its ``index``-th; ``split`` holds the
+    modules that keep their model-axis share of the weights."""
+
+    def __init__(self, specs=None, rows=None, *, axis: str = "model",
+                 size: int = 1, index: int = 0, group: Optional[str] = None,
+                 split=()):
+        self.specs = dict(specs or {})
+        self.rows = rows
+        self.axis, self.size, self.index, self.group = axis, size, index, \
+            group
+        self._split = frozenset(id(m) for m in split)
+
+    def is_split(self, module) -> bool:
+        """Whether ``module`` holds (and computes) this rank's share."""
+        return self.size > 1 and id(module) in self._split
+
+    def seq_split(self, kind: str = "q") -> bool:
+        """Whether ``act_specs[kind]`` [B, H, S, D] puts the sequence on
+        the model axis (heads that the axis does not divide)."""
+        spec = self.specs.get(kind)
+        return (self.size > 1 and spec is not None and len(spec) > 2
+                and spec[1] is None and spec[2] == self.axis)
+
+    def share(self, n: int) -> Tuple[int, int]:
+        """This rank's block [lo, hi) of ``n`` items split evenly."""
+        k = n // self.size
+        return self.index * k, (self.index + 1) * k
+
+    def enter(self, x: torch.Tensor) -> torch.Tensor:
+        return _Enter.apply(x, self)
+
+    def leave(self, x: torch.Tensor) -> torch.Tensor:
+        return _Leave.apply(x, self)
+
+    def gather(self, x: torch.Tensor, dim: int, same: bool = False
+               ) -> torch.Tensor:
+        return _Gather.apply(x, self, dim % x.dim(), same)
+
+    def cut(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        return _Cut.apply(x, self, dim % x.dim())
+
+    def max(self, x: torch.Tensor) -> torch.Tensor:
+        """The elementwise max over the axis, without a gradient."""
+        return _all_reduce(x.detach(), "max", self.group)
 
 
 @contextlib.contextmanager
-def batch_rows(rows):
-    """Layers inside see ``rows`` (see above; None: the whole batch is
-    this rank's)."""
-    token = _BATCH_ROWS.set(rows)
+def activation_shardings(shardings: Optional[ActShardings]):
+    """Layers inside compute what ``shardings`` gives this rank (None:
+    everything, on one device)."""
+    token = _ACT.set(shardings)
     try:
         yield
     finally:
-        _BATCH_ROWS.reset(token)
+        _ACT.reset(token)
 
 
-def current_batch_rows():
-    """The plan :func:`batch_rows` installed, or None."""
-    return _BATCH_ROWS.get()
+def current_shardings() -> Optional[ActShardings]:
+    """The plan :func:`activation_shardings` installed, or None."""
+    return _ACT.get()
+
+
+def shard_act(x: torch.Tensor, kind: str, dim: int = 1) -> torch.Tensor:
+    """``x`` as this rank computes it at the reference's constraint point
+    ``kind``: its block of the sequence (``dim``) where ``act_specs``
+    puts that kind's rows on the model axis, else ``x`` itself (the heads
+    split is carried by the weights)."""
+    sh = current_shardings()
+    if sh is None or not sh.seq_split(kind):
+        return x
+    return sh.cut(x, dim)
 
 
 # ---------------------------------------------------------------------------
@@ -269,13 +439,21 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
 
 def ffn_apply(ffn: FFN, x: torch.Tensor) -> torch.Tensor:
     """SwiGLU with the gate in float32, or GELU in float32 when the FFN
-    has no gate (reference ``ffn_apply``)."""
+    has no gate (reference ``ffn_apply``). Split on a mesh, this rank
+    computes its ``d_ff`` columns and the outputs are summed over the
+    model axis."""
+    sh = current_shardings()
+    split = sh is not None and sh.is_split(ffn)
+    if split:
+        x = sh.enter(x)
     if ffn.w_gate is None:
         h = gelu(F.linear(x, ffn.w_up.weight).float())
-        return F.linear(h.to(x.dtype), ffn.w_down.weight)
-    g = F.silu(F.linear(x, ffn.w_gate.weight).float())
-    u = F.linear(x, ffn.w_up.weight).float()
-    return F.linear((g * u).to(x.dtype), ffn.w_down.weight)
+        y = F.linear(h.to(x.dtype), ffn.w_down.weight)
+    else:
+        g = F.silu(F.linear(x, ffn.w_gate.weight).float())
+        u = F.linear(x, ffn.w_up.weight).float()
+        y = F.linear((g * u).to(x.dtype), ffn.w_down.weight)
+    return sh.leave(y) if split else y
 
 
 def softcap(logits: torch.Tensor, cap: float) -> torch.Tensor:

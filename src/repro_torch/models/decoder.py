@@ -35,8 +35,9 @@ import torch.nn.functional as F
 from repro_torch import resolve_device
 from repro_torch.config import A3Config, A3Mode, BlockKind, ModelConfig
 from repro_torch.core.candidate_selection import sort_key_columns
-from repro_torch.models.common import NEG_INF, FFN, Attention, RMSNorm, \
-    attention_init_, embed_init_, dense_init_, ffn_apply, ffn_init_, \
+from repro_torch.models.common import NEG_INF, FFN, ActShardings, \
+    Attention, RMSNorm, activation_shardings, attention_init_, \
+    current_shardings, embed_init_, dense_init_, ffn_apply, ffn_init_, \
     rmsnorm, round_to, softcap
 from repro_torch.models import sampling
 from repro_torch.models import xlstm as xl
@@ -156,13 +157,34 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     return model
 
 
+def init_params_shape(cfg: ModelConfig, device="cuda") -> Decoder:
+    """A :class:`Decoder` of ``cfg``'s shapes and dtypes on ``device``
+    whose parameters are fake tensors (``FakeTensorMode``): nothing is
+    allocated, as the reference's ``ShapeDtypeStruct`` tree. Trace it
+    under its parameters' ``fake_mode``."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    dev = resolve_device(device)
+    with FakeTensorMode():
+        return Decoder(cfg, device=dev)
+
+
 # ---------------------------------------------------------------------------
 # embed / unembed / FFN half
 # ---------------------------------------------------------------------------
 
 def embed_tokens(model: Decoder, cfg: ModelConfig,
                  tokens: torch.Tensor) -> torch.Tensor:
-    h = model.embed[tokens.long()]
+    sh = current_shardings()
+    if sh is not None and sh.is_split(model):
+        # this rank's vocab rows of the table: rows it does not hold
+        # read as zeros, and the sum over the model axis has them all
+        n = model.embed.shape[0]
+        ids = tokens.long() - sh.index * n
+        inside = (ids >= 0) & (ids < n)
+        h = sh.leave(model.embed[ids.clamp(0, n - 1)]
+                     * inside[..., None].to(model.embed.dtype))
+    else:
+        h = model.embed[tokens.long()]
     # the sqrt(d) factor rounds to the model dtype first, as in the
     # reference (a dtype-typed scalar, multiplied in the dtype)
     return h * round_to(math.sqrt(cfg.d_model), h.dtype)
@@ -170,12 +192,20 @@ def embed_tokens(model: Decoder, cfg: ModelConfig,
 
 def unembed(model: Decoder, cfg: ModelConfig, h: torch.Tensor
             ) -> torch.Tensor:
+    """Logits [..., Vp]; split on a mesh, this rank's vocab columns
+    [..., Vp / model axis] (:func:`chunked_nll` takes their log-sum-exp
+    over the axis)."""
     h = rmsnorm(model.final_norm, h, cfg.norm_eps)
     w = model.embed if cfg.tie_embeddings else model.lm_head.weight
+    sh = current_shardings()
+    lo = 0
+    if sh is not None and sh.is_split(model):
+        h, lo = sh.enter(h), sh.index * w.shape[0]
     logits = softcap(F.linear(h, w), cfg.logit_softcap)
     vp = logits.shape[-1]
-    if vp != cfg.vocab_size:       # mask the vocab-padding columns
-        pad = torch.arange(vp, device=logits.device) >= cfg.vocab_size
+    if lo + vp > cfg.vocab_size:     # mask the vocab-padding columns
+        pad = torch.arange(lo, lo + vp,
+                           device=logits.device) >= cfg.vocab_size
         logits = torch.where(pad, NEG_INF, logits)
     return logits
 
@@ -345,14 +375,28 @@ def forward(model: Decoder, cfg: ModelConfig,
 
 
 def _chunk_nll(model: Decoder, cfg: ModelConfig, hc: torch.Tensor,
-               lc: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(summed NLL, count of labels != -1) of one sequence chunk."""
-    lf = unembed(model, cfg, hc).float()                  # [B, c, Vp]
-    m = lf.amax(-1, keepdim=True)
-    lse = torch.log(torch.exp(lf - m).sum(-1)) + m[..., 0]
+               lc: torch.Tensor, sh: Optional[ActShardings] = None
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(summed NLL, count of labels != -1) of one sequence chunk; split
+    on a mesh (``sh``), a vocab-parallel log-sum-exp over this rank's
+    columns, its max, sum and gold logit taken over the model axis."""
+    with activation_shardings(sh):
+        lf = unembed(model, cfg, hc).float()              # [B, c, Vp]
     safe = torch.clamp(lc, min=0).long()
-    gold = torch.gather(lf, -1, safe[..., None])[..., 0]
     valid = (lc != -1).float()
+    if sh is None or not sh.is_split(model):
+        m = lf.amax(-1, keepdim=True)
+        lse = torch.log(torch.exp(lf - m).sum(-1)) + m[..., 0]
+        gold = torch.gather(lf, -1, safe[..., None])[..., 0]
+        return ((lse - gold) * valid).sum(), valid.sum()
+    n = lf.shape[-1]
+    m = sh.max(lf.amax(-1, keepdim=True))
+    lse = torch.log(sh.leave(torch.exp(lf - m).sum(-1))) + m[..., 0]
+    ids = safe - sh.index * n
+    inside = (ids >= 0) & (ids < n)
+    gold = sh.leave(torch.where(
+        inside, torch.gather(lf, -1, ids.clamp(0, n - 1)[..., None])[..., 0],
+        0.0))
     return ((lse - gold) * valid).sum(), valid.sum()
 
 
@@ -378,10 +422,11 @@ def chunked_nll(model: Decoder, cfg: ModelConfig, h: torch.Tensor,
     if s % c != 0:
         c = s                                # fallback: single chunk
     labels = labels.to(h.device)
-    nll = cnt = 0.0
+    sh = current_shardings()      # passed on: the recompute may run on
+    nll = cnt = 0.0               # autograd's thread
     for lo in range(0, s, c):
         n_c, k_c = checkpoint(_chunk_nll, model, cfg, h[:, lo:lo + c],
-                              labels[:, lo:lo + c], use_reentrant=False)
+                              labels[:, lo:lo + c], sh, use_reentrant=False)
         nll, cnt = nll + n_c, cnt + k_c
     return nll, cnt
 

@@ -46,6 +46,7 @@ import dataclasses
 from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.config import A3Config, A3Mode, AttentionKind, BlockKind, \
     ModelConfig
@@ -58,8 +59,9 @@ from repro_torch.kernels.decode_attention.ops import a3_decode_attention, \
 from repro_torch.models import xlstm as xl
 from repro_torch.models.rglru import CONV_WIDTH, rglru_apply_scan, \
     rglru_chunk_step, rglru_decode_step
-from repro_torch.models.common import NEG_INF, attention_out, \
-    attention_qkv, attention_xla_flash
+from repro_torch.models.common import NEG_INF, apply_rope, \
+    attention_out, attention_qkv, attention_xla_flash, current_shardings, \
+    shard_act
 
 FULL_WINDOW = 1 << 30
 
@@ -189,12 +191,93 @@ def _window_arg(seg: SegmentSpec):
 def _attn_forward(layer, hn: torch.Tensor, *, cfg: ModelConfig,
                   seg: SegmentSpec, positions: torch.Tensor,
                   attn_chunk: int, **_) -> torch.Tensor:
+    sh = current_shardings()
+    if sh is not None and sh.is_split(layer.attn):
+        return _attn_forward_heads(layer.attn, hn, sh, cfg=cfg, seg=seg,
+                                   positions=positions,
+                                   attn_chunk=attn_chunk)
+    if sh is not None and sh.seq_split("q"):
+        return _attn_forward_rows(layer.attn, hn, sh, cfg=cfg, seg=seg,
+                                  positions=positions, attn_chunk=attn_chunk)
     q, k, v = attention_qkv(layer.attn, hn, positions, cfg.num_heads,
                             cfg.num_kv_heads, cfg.resolved_head_dim,
                             cfg.rope_theta)
     o = attention_xla_flash(q, k, v, causal=True, window=_window_arg(seg),
                             chunk=attn_chunk)
     return attention_out(layer.attn, o)
+
+
+def _kv_of_heads(t: torch.Tensor, q0: int, nq: int, group: int,
+                 kv0: int) -> torch.Tensor:
+    """The kv heads [B, S, Hkv', D] that q heads ``q0 .. q0 + nq`` read,
+    ``t`` holding kv heads from ``kv0`` on: a slice when those q heads
+    are whole groups, else one kv head per q head (GQA group 1)."""
+    if q0 % group == 0 and nq % group == 0:
+        return t[:, :, q0 // group - kv0:(q0 + nq) // group - kv0]
+    idx = torch.arange(q0, q0 + nq, device=t.device) // group - kv0
+    return t[:, :, idx]
+
+
+def _attn_forward_heads(attn, hn: torch.Tensor, sh, *, cfg: ModelConfig,
+                        seg: SegmentSpec, positions: torch.Tensor,
+                        attn_chunk: int) -> torch.Tensor:
+    """Training attention on a mesh where the model axis divides the q
+    heads (``act_specs["q"]``): this rank's q heads, the k/v heads they
+    read (its own kv heads, or its columns of k and v gathered over the
+    axis when the axis does not divide the kv heads), its rows of ``wo``,
+    and the partial outputs summed over the axis."""
+    b, s, _ = hn.shape
+    hd, hkv = cfg.resolved_head_dim, cfg.num_kv_heads
+    group = cfg.num_heads // hkv
+    x = sh.enter(hn)
+    nq = attn.wq.weight.shape[0] // hd
+    q0 = sh.index * nq
+    q = F.linear(x, attn.wq.weight).reshape(b, s, nq, hd)
+    kv = []
+    for w in (attn.wk.weight, attn.wv.weight):
+        if w.shape[0] == hkv * hd:        # whole: its gradient is partial
+            t, kv0 = F.linear(x, sh.enter(w)), 0
+        elif hkv % sh.size == 0:          # this rank's kv heads
+            t, kv0 = F.linear(x, w), sh.index * (hkv // sh.size)
+        else:                             # its columns, gathered
+            t, kv0 = sh.gather(F.linear(x, w), -1), 0
+        kv.append(_kv_of_heads(t.reshape(b, s, -1, hd), q0, nq, group, kv0))
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(kv[0], positions, cfg.rope_theta)
+    o = attention_xla_flash(q.transpose(1, 2), k.transpose(1, 2),
+                            kv[1].transpose(1, 2), causal=True,
+                            window=_window_arg(seg), chunk=attn_chunk)
+    return sh.leave(attention_out(attn, o))
+
+
+def _attn_forward_rows(attn, hn: torch.Tensor, sh, *, cfg: ModelConfig,
+                       seg: SegmentSpec, positions: torch.Tensor,
+                       attn_chunk: int) -> torch.Tensor:
+    """Training attention on a mesh where the model axis does not divide
+    the q heads: ``act_specs["q"]`` puts the q rows on the axis. This
+    rank projects its block of the sequence with the whole weights
+    (their gradients summed over the axis), gathers k and v over the
+    axis, attends from its rows to every key, and the output rows are
+    gathered back."""
+    b, s, _ = hn.shape
+    hd, theta = cfg.resolved_head_dim, cfg.rope_theta
+    lo, hi = sh.share(s)
+    x, pos = shard_act(hn, "q"), positions[:, lo:hi]
+    w = {n: sh.enter(getattr(attn, n).weight)
+         for n in ("wq", "wk", "wv", "wo")}
+
+    def heads(name, n):
+        return F.linear(x, w[name]).reshape(b, hi - lo, n, hd)
+
+    q = apply_rope(heads("wq", cfg.num_heads), pos, theta)
+    k = sh.gather(apply_rope(heads("wk", cfg.num_kv_heads), pos, theta), 1)
+    v = sh.gather(heads("wv", cfg.num_kv_heads), 1)
+    o = attention_xla_flash(q.transpose(1, 2), k.transpose(1, 2),
+                            v.transpose(1, 2), causal=True,
+                            window=_window_arg(seg), chunk=attn_chunk,
+                            q_offset=lo)
+    o = F.linear(o.transpose(1, 2).reshape(b, hi - lo, -1), w["wo"])
+    return sh.gather(o, 1, same=True)
 
 
 def _attn_prefill_full(layer, hn: torch.Tensor, *, cfg: ModelConfig,

@@ -25,7 +25,7 @@ expert stacks ``w_gate``/``w_up`` [E, d, d_e] and ``w_down`` [E, d_e, d]
 from __future__ import annotations
 
 import math
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -33,8 +33,8 @@ import torch.nn.functional as F
 
 from repro_torch.config import MoEConfig
 from repro_torch.core.candidate_selection import top_k
-from repro_torch.models.common import FFN, current_batch_rows, \
-    ffn_apply, ffn_init_
+from repro_torch.models.common import FFN, current_shardings, ffn_apply, \
+    ffn_init_
 
 CAPACITY_FACTOR = 1.25
 
@@ -77,16 +77,24 @@ def _counts(flat_e: torch.Tensor, e: int) -> torch.Tensor:
                        ).scatter_add_(0, flat_e, torch.ones_like(flat_e))
 
 
+def router_probs(p: MoE, xt: torch.Tensor) -> torch.Tensor:
+    """The router's float32 softmax [T, E] of tokens xt [T, d]."""
+    return torch.softmax(xt.float() @ p.router, -1)
+
+
 def moe_route(p: MoE, xt: torch.Tensor, moe: MoEConfig,
-              capacity_factor: float = CAPACITY_FACTOR
+              capacity_factor: float = CAPACITY_FACTOR,
+              probs: Optional[torch.Tensor] = None
               ) -> Dict[str, torch.Tensor]:
-    """Routing and dispatch plan of tokens xt [T, d]: ``probs`` [T, E],
-    ``top_p``/``top_e`` [T, k], and over the T*k choices in expert order
-    ``sort_idx``, ``keep`` (rank < cap) and ``slot`` (expert * cap + rank,
-    E * cap = the overflow bin); plus ``cap``."""
+    """Routing and dispatch plan of tokens xt [T, d]: ``probs`` [T, E]
+    (given, or :func:`router_probs`), ``top_p``/``top_e`` [T, k], and over
+    the T*k choices in expert order ``sort_idx``, ``keep`` (rank < cap)
+    and ``slot`` (expert * cap + rank, E * cap = the overflow bin); plus
+    ``cap``."""
     t = xt.shape[0]
     e, k = moe.num_experts, moe.top_k
-    probs = torch.softmax(xt.float() @ p.router, -1)
+    if probs is None:
+        probs = router_probs(p, xt)
     top_p, top_e = top_k(probs, k)
     top_p = top_p / torch.clamp(top_p.sum(-1, keepdim=True), min=1e-9)
     cap = max(int(math.ceil(t * k / e * capacity_factor)), 4)
@@ -103,34 +111,58 @@ def moe_route(p: MoE, xt: torch.Tensor, moe: MoEConfig,
                 keep=keep, slot=slot, cap=cap)
 
 
+def _experts(p: MoE, expert_in: torch.Tensor, moe: MoEConfig, sh
+             ) -> torch.Tensor:
+    """The routed experts' SwiGLUs over [E, cap, d] (``torch.bmm``). On a
+    mesh the weights say what this rank holds: its experts (EP; their
+    outputs gathered over the model axis) or its slice of every expert
+    (TP; the partial outputs summed)."""
+    dtype = expert_in.dtype
+    ep = p.w_gate.shape[0] < moe.num_experts
+    split = ep or p.w_gate.shape[2] < moe.d_expert
+    if split:
+        expert_in = sh.enter(expert_in)
+    if ep:
+        lo = sh.index * p.w_gate.shape[0]
+        expert_in = expert_in[lo:lo + p.w_gate.shape[0]]
+    g = F.silu(torch.bmm(expert_in, p.w_gate).float())
+    u = torch.bmm(expert_in, p.w_up).float()
+    out = torch.bmm((g * u).to(dtype), p.w_down)              # [E, cap, d]
+    if ep:
+        return sh.gather(out, 0, same=True)
+    return sh.leave(out) if split else out
+
+
 def moe_apply(p: MoE, x: torch.Tensor, moe: MoEConfig, *,
               capacity_factor: float = CAPACITY_FACTOR
               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """x [B, S, d] -> (out [B, S, d], {"moe_aux_loss",
-    "moe_drop_fraction"}). Under ``common.batch_rows`` (a sharded train
-    step) the routing runs over the rows of every rank that shares the
-    batch, as the single-device step routes the whole batch; ``out`` is
-    this rank's rows."""
-    rows = current_batch_rows()
+    "moe_drop_fraction"}). In a sharded train step
+    (``common.activation_shardings``) the routing runs over the rows of
+    every rank that shares the batch, as the single-device step routes
+    the whole batch (each rank scores its own rows); ``out`` is this
+    rank's rows."""
+    sh = current_shardings()
+    rows = sh.rows if sh is not None else None
+    mine = x
+    probs = None
     if rows is not None:
+        probs = rows.gather(router_probs(p, x.reshape(-1, x.shape[-1]))
+                            .reshape(*x.shape[:2], -1))
+        probs = probs.reshape(-1, probs.shape[-1])
         x = rows.gather(x)
     b, s, d = x.shape
     t = b * s
     e, k = moe.num_experts, moe.top_k
     xt = x.reshape(t, d)
-    r = moe_route(p, xt, moe, capacity_factor)
+    r = moe_route(p, xt, moe, capacity_factor, probs)
     cap, sort_idx, keep, slot = r["cap"], r["sort_idx"], r["keep"], r["slot"]
     token_of = sort_idx // k
 
     # gather tokens into [E * cap (+ overflow), d]
     buf = x.new_zeros((e * cap + 1, d))
     buf[slot] = xt[token_of]
-    expert_in = buf[:e * cap].reshape(e, cap, d)
-
-    # the routed experts, batched over the expert axis
-    g = F.silu(torch.bmm(expert_in, p.w_gate).float())
-    u = torch.bmm(expert_in, p.w_up).float()
-    expert_out = torch.bmm((g * u).to(x.dtype), p.w_down)     # [E, cap, d]
+    expert_out = _experts(p, buf[:e * cap].reshape(e, cap, d), moe, sh)
 
     # combine: un-sort the weighted choices to [T, k], sum over k in order
     flat_out = torch.cat([expert_out.reshape(e * cap, d),
@@ -142,9 +174,11 @@ def moe_apply(p: MoE, x: torch.Tensor, moe: MoEConfig, *,
     combined = contrib[:, 0]
     for j in range(1, k):
         combined = combined + contrib[:, j]
-    out = combined.to(x.dtype)
-    if p.shared is not None:
-        out = out + ffn_apply(p.shared, xt)
+    out = combined.to(x.dtype).reshape(b, s, d)
+    if rows is not None:
+        out = rows.own(out)
+    if p.shared is not None:       # per token: on this rank's rows only
+        out = out + ffn_apply(p.shared, mine)
 
     # Switch load-balance loss, and the share of choices dropped
     frac_tokens = _counts(r["top_e"].reshape(-1), e).float() / (t * k)
@@ -152,7 +186,4 @@ def moe_apply(p: MoE, x: torch.Tensor, moe: MoEConfig, *,
     aux_loss = e * torch.sum(frac_tokens * frac_probs) \
         * moe.load_balance_coef
     dropped = 1.0 - keep.float().mean()
-    out = out.reshape(b, s, d)
-    if rows is not None:
-        out = rows.own(out)
     return out, {"moe_aux_loss": aux_loss, "moe_drop_fraction": dropped}

@@ -130,7 +130,8 @@ import os
 import shutil
 import time
 import zlib
-from typing import Any, Deque, Dict, List, NamedTuple, Optional, Tuple
+from typing import Any, Callable, Deque, Dict, List, NamedTuple, Optional, \
+    Tuple
 
 import numpy as np
 import torch
@@ -209,6 +210,48 @@ def decode_block_step(model, cfg: ModelConfig, cache, token, first_tok,
         resort_plan=resort_plan, temperature=temperature, key=key,
         sample_ids=ctrl[:, CTRL_D_IDS], probe=probe)
     return (torch.cat([token[:, None], ring], 1), carry, cache, *pr)
+
+
+def make_serve_step(cfg: ModelConfig, a3: A3Config = A3Config()
+                    ) -> Callable:
+    """-> step(model, cache, token [B], pos scalar or [B]) -> (logits
+    [B, Vp], cache): one ``decoder.decode_step`` (the reference's
+    ``make_serve_step``; the cache is updated in place, and the tensors'
+    device picks the kernel route, so there is no ``use_kernel``)."""
+
+    def step(model, cache, token, pos):
+        return decoder.decode_step(model, cfg, cache, token, pos, a3=a3)
+
+    return step
+
+
+def make_decode_block_step(cfg: ModelConfig, a3: A3Config = A3Config(), *,
+                           steps: int = 1, resort_every: int = 0,
+                           temperature: float = 0.0, probe: bool = False
+                           ) -> Callable:
+    """-> the blocked-decode dispatch (the reference's
+    ``make_decode_block_step``): step(model, cache, token [B], first_tok
+    [B], ctrl [B, CTRL_COLS][, key]) -> (harvest [B, 1+steps], carry [B],
+    cache), or with ``probe`` (harvest, probe [B, 3], carry, cache). It
+    wraps :func:`decode_block_step`; the ``key`` argument exists only
+    when ``temperature > 0``."""
+
+    def _run(model, cache, token, first_tok, ctrl, key=None):
+        harvest, carry, cache, *pr = decode_block_step(
+            model, cfg, cache, token, first_tok, ctrl, steps=steps, a3=a3,
+            resort_every=resort_every, temperature=temperature, key=key,
+            probe=probe)
+        return (harvest, pr[0], carry, cache) if probe else \
+            (harvest, carry, cache)
+
+    if temperature > 0.0:
+        def step(model, cache, token, first_tok, ctrl, key):
+            return _run(model, cache, token, first_tok, ctrl, key)
+    else:
+        def step(model, cache, token, first_tok, ctrl):
+            return _run(model, cache, token, first_tok, ctrl)
+
+    return step
 
 
 class Request(NamedTuple):

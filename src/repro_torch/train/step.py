@@ -14,13 +14,24 @@ computes over the same global batch, ZeRO-3 style:
 * each rank takes its rows of the global batch by ``batch_spec`` (every
   rank is handed the same global batch); a rank that shares its rows
   with others along the model axis computes them as they do;
-* each layer's weights are gathered just in time, inside the layer and
-  so again in its remat recompute, and dropped after use; the gather's
-  backward reduce-scatters the gradients into the shard layout;
-* each rank's loss term is weighted so that the sum over ranks is the
-  global loss, so the summed gradients are the global gradient; the MoE
-  routes every row of the batch (``models.common.batch_rows``) as the
-  single-device step does;
+* each layer's weights are gathered just in time over the FSDP dims,
+  inside the layer and so again in its remat recompute, and dropped
+  after use; the gather's backward reduce-scatters the gradients into
+  the shard layout;
+* over the model axis each rank computes its share where
+  ``act_specs`` puts it, Megatron style (``models.common.ActShardings``:
+  the weights it keeps are its model-axis shard, its input enters with a
+  backward sum and its partial output leaves through a sum): attention
+  its q heads where the axis divides them (its kv heads, or its k / v
+  columns gathered), else its block of the q rows; the dense FFN its
+  ``d_ff`` columns; the MoE its experts (EP) or its slice of each (TP);
+  the LM head its vocab rows, with a vocab-parallel log-sum-exp. The
+  recurrent blocks (RG-LRU channels, mLSTM / sLSTM heads) still compute
+  in full on every rank of the axis;
+* the ranks of one row block compute the same loss; each weighs its
+  term as the block's share, so the gradients summed over the ranks of
+  different rows are the global gradient; the MoE routes every row of
+  the batch (``ActShardings.rows``) as the single-device step does;
 * the global-norm clip takes one all-reduce and counts every element
   once;
 * with ``grad_compression`` on a mesh with a ``pod`` axis, gradients
@@ -28,9 +39,10 @@ computes over the same global batch, ZeRO-3 style:
   ``sharding.compression.psum_compressed`` with error feedback, and the
   loss is averaged over pods (the reference's per-pod ``shard_map``).
 
-Not done yet: the model-axis compute split (which heads a rank computes
-where ``act_specs`` shards them); ranks along the model axis compute the
-same rows in full, and only the storage is split.
+Where GSPMD differs: the reference's program also computes the expert
+weights' gradients in their FSDP layout (split over the data axis); the
+port's ranks of a data row each run their experts over the whole
+batch's tokens, forward and backward.
 """
 from __future__ import annotations
 
@@ -46,7 +58,7 @@ import torch.distributed as dist
 from repro_torch import resolve_device
 from repro_torch.config import RunConfig
 from repro_torch.models import decoder
-from repro_torch.models.common import batch_rows
+from repro_torch.models.common import ActShardings, activation_shardings
 from repro_torch.optim.adamw import OptState, adamw_init, adamw_update
 
 
@@ -92,6 +104,17 @@ def empty_train_state(run: RunConfig, device="cuda", mesh=None
     return make_train_state(decoder.Decoder(run.model,
                                             device=resolve_device(device)),
                             run, mesh)
+
+
+def init_train_state_shape(run: RunConfig, device="cuda", mesh=None
+                           ) -> TrainState:
+    """The train state of ``run`` on ``device`` (and laid out on
+    ``mesh``) as fake tensors: nothing is allocated (the reference's
+    ``ShapeDtypeStruct`` state, for the dry run). Its fake mode is the
+    parameters' ``fake_mode``."""
+    model = decoder.init_params_shape(run.model, device)
+    with model.embed.fake_mode:
+        return make_train_state(model, run, mesh)
 
 
 def _as_tensor(x, device) -> torch.Tensor:
@@ -223,7 +246,8 @@ def _sharded_step(run: RunConfig, mesh):
     from torch.nn.utils.stateless import _reparametrize_module
     from repro_torch.models.convert import reference_leaf
     from repro_torch.sharding.compression import psum_compressed
-    from repro_torch.sharding.rules import batch_spec, mesh_sizes
+    from repro_torch.sharding.rules import act_specs, batch_spec, \
+        mesh_sizes
 
     cfg, sh = run.model, run.sharding
     names = tuple(mesh.mesh_dim_names)
@@ -258,19 +282,58 @@ def _sharded_step(run: RunConfig, mesh):
     rows = (_Rows(mesh[row_dims], row_index, n_row_blocks)
             if n_row_blocks > 1 else None)
 
-    full_pl = (Replicate(),) * len(names)
-    grad_pl = tuple(Partial() if n in group_dims else Replicate()
-                    for n in names)
+    # the model axis: a module that the rules cut over it keeps its share
+    # of the weights and computes only that share
+    tp = sh.tp_axis if (sh.tensor_parallel
+                        and sizes.get(sh.tp_axis, 1) > 1) else None
+    tp_dim = names.index(tp) if tp else None
+    specs = act_specs(cfg, run.shape, mesh, sh)
+    heads_split = tp is not None and specs.get("q", (None,) * 4)[1] == tp
+    model_group = mesh.get_group(tp).group_name if tp else None
 
-    def gather(p):
-        """The full tensor of a sharded parameter, its gradient summed
-        over ``group_dims`` and cut to ``p``'s layout in the backward."""
-        return p.redistribute(mesh, full_pl).to_local(grad_placements=grad_pl)
+    def keeps(name: str, p) -> bool:
+        """Whether parameter ``name`` stays cut over the model axis: its
+        layout cuts it there and its module computes a share (attention
+        only where the axis divides the q heads; the recurrent blocks
+        compute in full)."""
+        if tp is None or not p.placements[tp_dim].is_shard():
+            return False
+        if any(f".{k}." in name for k in ("rnn", "mlstm", "slstm")):
+            return False
+        return heads_split or ".attn." not in name
+
+    def gather(name: str, p):
+        """The tensor this rank computes with: ``p`` gathered over every
+        mesh dim, but the model axis where it keeps its share. Its
+        gradient is summed over the ranks of other rows (the rest compute
+        the same gradient) and cut to ``p``'s layout in the backward."""
+        keep = keeps(name, p)
+        pl = tuple(p.placements[k] if (k == tp_dim and keep) else Replicate()
+                   for k in range(len(names)))
+        grad_pl = tuple(Partial() if n in row_dims else pl[k]
+                        for k, n in enumerate(names))
+        return p.redistribute(mesh, pl).to_local(grad_placements=grad_pl)
+
+    def plan(split) -> ActShardings:
+        return ActShardings(specs, rows, axis=tp or "model",
+                            size=sizes[tp] if tp else 1,
+                            index=coord[tp] if tp else 0,
+                            group=model_group, split=split)
+
+    def layer_plan(blk, prefix: str) -> ActShardings:
+        """The plan of layer ``blk`` (parameter names from ``prefix``):
+        its modules that hold a parameter keeping its share."""
+        return plan([m for n, m in blk.named_modules()
+                     if any(keeps(f"{prefix}{n}.{k}" if n else prefix + k, p)
+                            for k, p in m.named_parameters())])
+
+    layer_plans: Dict[int, Tuple[str, ActShardings]] = {}
 
     @contextlib.contextmanager
     def layer_context(blk):
-        full = {n: gather(p) for n, p in blk.named_parameters()}
-        with _reparametrize_module(blk, full), batch_rows(rows):
+        prefix, act = layer_plans[id(blk)]
+        full = {n: gather(prefix + n, p) for n, p in blk.named_parameters()}
+        with _reparametrize_module(blk, full), activation_shardings(act):
             yield
 
     remat = sh.remat
@@ -280,7 +343,9 @@ def _sharded_step(run: RunConfig, mesh):
 
     def grads_of(model, batch) -> Tuple[torch.Tensor, Dict]:
         """(this rank's loss term, name -> local gradient shard) of one
-        global (micro)batch."""
+        global (micro)batch. The ranks of a row block compute the same
+        loss, and each weighs its term as the block's share of the
+        group's."""
         b = batch["labels"].shape[0]
         if b % n_blocks:
             raise ValueError(f"batch {b} does not split into {n_blocks} "
@@ -290,17 +355,24 @@ def _sharded_step(run: RunConfig, mesh):
         cnt = sum((batch["labels"][g * per:(g + 1) * per] != -1).float().sum()
                   for g in group_blocks)
         params = dict(model.named_parameters())
-        top = {n: gather(p) for n, p in params.items()
+        for si, seg in enumerate(model.segs):
+            for li, blk in enumerate(seg.layers):
+                if id(blk) not in layer_plans:
+                    pre = f"segs.{si}.layers.{li}."
+                    layer_plans[id(blk)] = (pre, layer_plan(blk, pre))
+        top = {n: gather(n, p) for n, p in params.items()
                if not n.startswith("segs.")}
-        with _reparametrize_module(model, top):
+        # the vocab rows of embed (and lm_head)
+        act = plan([model] if keeps("embed", params["embed"]) else [])
+        with _reparametrize_module(model, top), activation_shardings(act):
             h, aux = decoder.forward_hidden(
                 model, cfg, mine.get("tokens"), mine.get("embeds"),
                 remat=remat, attn_chunk=attn_chunk,
                 layer_context=layer_context)
             nll, _ = decoder.chunked_nll(model, cfg, h, mine["labels"],
                                          ce_chunk)
-            term = nll / (torch.clamp(cnt, min=1.0) * rep) \
-                + aux["moe_aux_loss"] / group_size
+            term = nll / torch.clamp(cnt, min=1.0) \
+                + aux["moe_aux_loss"] / n_row_blocks
             grads = torch.autograd.grad(term, list(params.values()),
                                         allow_unused=True,
                                         materialize_grads=True)
@@ -349,7 +421,7 @@ def _sharded_step(run: RunConfig, mesh):
                     err[n].copy_(e)
             loss = term.clone()
             dist.all_reduce(loss)
-            loss = loss / n_pods
+            loss = loss / (n_pods * rep)
             local = {n: p.to_local() for n, p in params.items()}
             m = {n: t.to_local() for n, t in state.opt.m.items()}
             v = {n: t.to_local() for n, t in state.opt.v.items()}

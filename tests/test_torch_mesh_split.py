@@ -1,0 +1,199 @@
+"""The model-axis compute split of the port's sharded train step, on gloo
+CPU ranks, against the JAX package's single-device step and against the
+per-device matmul FLOPs of the reference's GSPMD program.
+
+One spawn of 4 ranks and one of 8 (``test_torch_mesh_worker.py``,
+``SPLIT_CELLS``), at batch 8 x 64 with remat full, from the JAX init:
+
+* TINY on (data 2, model 2) and (2, 4): the axis divides the q heads
+  (and on (2, 4) not the 2 kv heads: each rank projects its k / v
+  columns and gathers them); TINY with 6 heads on (2, 4): the axis does
+  not divide the heads, so each rank takes its block of the q rows; the
+  smoke MoE with its experts over the model axis (EP) on both meshes,
+  and with a slice of every expert (TP) on (2, 2);
+* 2 sharded steps equal 2 JAX single-device steps: losses within 2e-5
+  relative, parameters within 1e-4 of the largest (the tolerances of
+  ``test_torch_mesh_train.py``);
+* every rank's ``FlopCounterMode`` count of a step equals the reference's
+  per-device ``HloModule.dot_flops()`` of ``lower_train`` on the same
+  mesh within 1e-6 relative (104,857,600, 52,428,800 and 60,817,408),
+  which is the single-device count over the ranks: no product is left
+  whole on any rank. The MoE splits its experts over the model axis
+  only (every rank of a data row routes and runs the whole batch's
+  tokens, as GSPMD runs the forward): its count is held to that
+  accounting, beside the reference's.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from repro import config as jcfg  # noqa: E402
+from repro.data.synthetic import make_lm_batch  # noqa: E402
+from repro.train.step import init_train_state, make_train_step  # noqa: E402
+from repro_torch.models.convert import params_from_numpy  # noqa: E402
+
+from helpers import check, run_with_devices  # noqa: E402
+from test_torch_helpers import TINY, port_cfg  # noqa: E402
+from test_torch_mesh_worker import BATCH, SPLIT_CELLS, SPLIT_SEQ, result, \
+    run_ranks, save_tree  # noqa: E402
+
+MOE = dataclasses.replace(jcfg.smoke_variant(jcfg.get_arch("deepseek-moe-16b")),
+                          dtype="float32")
+CONFIGS = {"tiny": TINY, "tiny-6h": dataclasses.replace(TINY, name="tiny-6h",
+                                                        num_heads=6),
+           "moe": MOE}
+STEPS = 2
+
+# the reference's per-device dot FLOPs of one step of these cells, as
+# ``HloModule.dot_flops()`` counts ``lower_train`` on an 8-device mesh
+_JAX_FLOPS = """
+import dataclasses, numpy as np, jax
+from jax.sharding import Mesh
+from repro import config as C
+from repro.launch.dryrun import lower_train
+from repro.launch.hlo_analysis import HloModule
+TINY = C.ModelConfig("tiny", "dense", num_layers=2, d_model=64, num_heads=4,
+                     num_kv_heads=2, d_ff=128, vocab_size=256, head_dim=16,
+                     dtype="float32")
+CF = {"tiny": TINY, "tiny-6h": dataclasses.replace(TINY, name="tiny-6h",
+                                                   num_heads=6),
+      "moe": dataclasses.replace(C.smoke_variant(C.get_arch(
+          "deepseek-moe-16b")), dtype="float32")}
+shape = C.ShapeConfig("t", C.ShapeKind.TRAIN, %(seq)d, %(batch)d)
+for case, (name, ms, ep) in %(cells)r.items():
+    mesh = Mesh(np.array(jax.devices()[:ms[0] * ms[1]]).reshape(ms),
+                ("data", "model"))
+    with mesh:
+        txt = lower_train(CF[name], shape, mesh, C.ShardingConfig(
+            remat="full", expert_parallel=ep)).compile().as_text()
+    print("FLOPS", case, HloModule(txt).dot_flops())
+"""
+
+
+def _run(cfg):
+    return jcfg.RunConfig(
+        model=cfg, shape=jcfg.ShapeConfig("t", jcfg.ShapeKind.TRAIN,
+                                          SPLIT_SEQ, BATCH),
+        optimizer=jcfg.OptimizerConfig(lr=1e-3, warmup_steps=1,
+                                       total_steps=10),
+        sharding=jcfg.ShardingConfig(remat="full"))
+
+
+@pytest.fixture(scope="module")
+def split_runs(tmp_path_factory):
+    d = tmp_path_factory.mktemp("mesh_split")
+    ref = {}
+    for name, cfg in CONFIGS.items():
+        run = _run(cfg)
+        state = init_train_state(jax.random.PRNGKey(0), run)
+        save_tree(d / f"init_{name}.npz",
+                  jax.tree_util.tree_map(np.asarray, state.params))
+        step = make_train_step(run, None, donate=False)
+        losses = []
+        for i in range(STEPS):
+            batch = {k: jnp.asarray(v) for k, v in make_lm_batch(
+                i, BATCH, SPLIT_SEQ, cfg.vocab_size, 0).items()}
+            state, metrics = step(state, batch)
+            losses.append(float(metrics["loss"]))
+        ref[name] = (np.array(losses),
+                     jax.tree_util.tree_map(np.asarray, state.params))
+    by_world = {}
+    for case, (_, shape, _) in SPLIT_CELLS.items():
+        by_world.setdefault(shape[0] * shape[1], []).append(case)
+    for world, cases in sorted(by_world.items()):
+        run_ranks(world, cases, d)
+    out = check(run_with_devices(_JAX_FLOPS % dict(
+        seq=SPLIT_SEQ, batch=BATCH, cells=SPLIT_CELLS), devices=8,
+        timeout=600))
+    flops = {ln.split()[1]: float(ln.split()[2])
+             for ln in out.splitlines() if ln.startswith("FLOPS ")}
+    return d, ref, flops
+
+
+@pytest.mark.parametrize("case", sorted(SPLIT_CELLS))
+def test_split_step_matches_single_device_reference(split_runs, case):
+    d, ref, _ = split_runs
+    name = SPLIT_CELLS[case][0]
+    got = result(d, case)
+    want_losses, want_tree = ref[name]
+    np.testing.assert_allclose(got["losses"], want_losses, rtol=2e-5)
+    want = {n: p.numpy() for n, p in params_from_numpy(
+        want_tree, port_cfg(CONFIGS[name]), device="cpu").named_parameters()}
+    scale = max(float(np.abs(w).max()) for w in want.values())
+    for n, w in want.items():
+        np.testing.assert_allclose(got[f"p/{n}"], w, rtol=0,
+                                   atol=1e-4 * scale, err_msg=n)
+
+
+@pytest.mark.parametrize("case", ["split_tiny_2x2", "split_tiny_2x4",
+                                  "split_tiny-6h_2x4"])
+def test_each_rank_does_the_reference_per_device_flops(split_runs, case):
+    d, _, jax_flops = split_runs
+    got = result(d, case)["flops"]
+    want = {"split_tiny_2x2": 104_857_600, "split_tiny_2x4": 52_428_800,
+            "split_tiny-6h_2x4": 60_817_408}[case]
+    assert jax_flops[case] == want
+    assert want * shape_ranks(case) == _single_device_flops(
+        SPLIT_CELLS[case][0])
+    np.testing.assert_allclose(got, np.full_like(got, want), rtol=1e-6)
+
+
+def _single_device_flops(name: str) -> float:
+    """``FlopCounterMode``'s count of one port step on one device."""
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch import config as tc
+    from repro_torch.data.synthetic import make_lm_batch as port_batch
+    from repro_torch.train.step import init_train_state as port_init, \
+        make_train_step as port_step
+    cfg = port_cfg(CONFIGS[name])
+    run = tc.RunConfig(model=cfg, shape=tc.ShapeConfig(
+        "t", tc.ShapeKind.TRAIN, SPLIT_SEQ, BATCH),
+        sharding=tc.ShardingConfig(remat="full"))
+    state = port_init(run, torch.Generator().manual_seed(0), "cpu")
+    with FlopCounterMode(display=False) as fc:
+        port_step(run)(state, port_batch(0, BATCH, SPLIT_SEQ,
+                                         cfg.vocab_size, 0))
+    return float(fc.get_total_flops())
+
+
+def shape_ranks(case: str) -> int:
+    shape = SPLIT_CELLS[case][1]
+    return shape[0] * shape[1]
+
+
+def _moe_flops(expert_ways: int, ranks: int) -> float:
+    """The port's per-rank FLOPs of the smoke MoE's step: the single
+    device's count over the ranks, but for the routed experts (split over
+    the model axis only: every rank of a data row runs the row group's
+    tokens) and the router (over the data axis only)."""
+    cfg = port_cfg(MOE)
+    t = BATCH * SPLIT_SEQ
+    d, e = cfg.d_model, cfg.moe.num_experts
+    cap = -(-int(np.ceil(t * cfg.moe.top_k / e * 1.25)) // 64) * 64
+    experts = 4 * 3 * 2 * e * cap * d * cfg.moe.d_expert     # fwd, remat, bwd
+    router = 4 * 2 * t * d * e
+    single = _single_device_flops("moe")
+    data = ranks // expert_ways
+    return (single - experts - router) / ranks + experts / expert_ways \
+        + router / data
+
+
+@pytest.mark.parametrize("case", ["split_moe_2x2", "split_moe_2x4",
+                                  "split_moe-tp_2x2"])
+def test_moe_rank_flops_follow_the_expert_split(split_runs, case):
+    d, _, jax_flops = split_runs
+    _, shape, _ = SPLIT_CELLS[case]
+    got = result(d, case)["flops"]
+    want = _moe_flops(shape[1], shape[0] * shape[1])
+    np.testing.assert_allclose(got, np.full_like(got, want), rtol=1e-6)
+    # the reference's GSPMD program also splits the expert weights'
+    # FSDP dim over the data axis: it does less per device
+    assert jax_flops[case] < got.min()

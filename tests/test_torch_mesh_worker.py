@@ -1,5 +1,6 @@
 """Rank-side code of the port's gloo-rank tests (``test_torch_sharding.py``,
-``test_torch_mesh_train.py``); no tests of its own.
+``test_torch_mesh_train.py``, ``test_torch_mesh_split.py``); no tests of
+its own.
 
 :func:`run_ranks` starts ``world`` CPU processes of this file, each a
 rank of one gloo process group (a file store in the case directory).
@@ -150,7 +151,8 @@ def configs():
                             dtype="float32")
     moe = dataclasses.replace(C.smoke_variant(C.get_arch("deepseek-moe-16b")),
                               dtype="float32")
-    return {"tiny": tiny, "moe": moe, "tiny-xl": tiny_xl}
+    six = dataclasses.replace(tiny, name="tiny-6h", num_heads=6)
+    return {"tiny": tiny, "moe": moe, "tiny-xl": tiny_xl, "tiny-6h": six}
 
 
 BATCH, SEQ = 8, 16
@@ -222,6 +224,64 @@ for _cfg in ("tiny", "moe", "tiny-xl"):
             lambda ctx, c=_cfg, s=_shape: sharded_steps(ctx, c, s))
 CASES[name_of("moe", (2, 2), 2)] = (
     lambda ctx: sharded_steps(ctx, "moe", (2, 2), microbatches=2))
+
+
+# the model-axis compute split (test_torch_mesh_split.py): batch 8 x 64,
+# remat full, the shape of the reference's per-device FLOP counts
+SPLIT_SEQ = 64
+SPLIT_CELLS = {          # case -> (config, mesh shape, expert_parallel)
+    "split_tiny_2x2": ("tiny", (2, 2), True),
+    "split_tiny_2x4": ("tiny", (2, 4), True),
+    "split_tiny-6h_2x4": ("tiny-6h", (2, 4), True),
+    "split_moe_2x2": ("moe", (2, 2), True),
+    "split_moe_2x4": ("moe", (2, 4), True),
+    "split_moe-tp_2x2": ("moe", (2, 2), False),
+}
+
+
+def split_run(cfg, expert_parallel=True):
+    from repro_torch import config as C
+    return C.RunConfig(
+        model=cfg, shape=C.ShapeConfig("t", C.ShapeKind.TRAIN, SPLIT_SEQ,
+                                       BATCH),
+        optimizer=C.OptimizerConfig(lr=1e-3, warmup_steps=1, total_steps=10),
+        sharding=C.ShardingConfig(remat="full",
+                                  expert_parallel=expert_parallel))
+
+
+def split_steps(ctx, case_name):
+    """2 sharded steps of a split cell from the JAX init -> losses, final
+    parameters and every rank's matmul FLOPs of the first step
+    (``FlopCounterMode`` around the whole step)."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.data.synthetic import make_lm_batch
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.convert import train_state_from_numpy
+    from repro_torch.train.step import make_train_step
+
+    name, shape, ep = SPLIT_CELLS[case_name]
+    mesh = make_mesh(shape, ("data", "model"), "cpu")
+    cfg = configs()[name]
+    run = split_run(cfg, ep)
+    state = train_state_from_numpy(load_tree(ctx.dir / f"init_{name}.npz"),
+                                   run, "cpu", mesh)
+    step = make_train_step(run, mesh)
+    losses, flops = [], []
+    for i in range(2):
+        with FlopCounterMode(display=False) as fc:
+            state, metrics = step(state, make_lm_batch(
+                i, BATCH, SPLIT_SEQ, cfg.vocab_size, 0))
+        losses.append(float(metrics["loss"]))
+        flops.append(fc.get_total_flops())
+    params = {f"p/{n}": full(p) for n, p in state.model.named_parameters()}
+    ctx.save(case_name, losses=np.array(losses),
+             flops=ctx.gather(torch.tensor(flops[0], dtype=torch.float64)),
+             **params)
+
+
+for _case in SPLIT_CELLS:
+    CASES[_case] = lambda ctx, c=_case: split_steps(ctx, c)
 
 
 @case
