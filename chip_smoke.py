@@ -274,14 +274,42 @@ first phase that does not hold:
    (2, 16, 16) worlds: per-rank FLOPs, HBM and collective bytes, peak,
    roofline terms and bottleneck, and per-rank FLOPs x ranks against
    the one-device trace of the cell (no product left replicated).
+17. the serving dispatches on a mesh (after [16]): (a) the KV ring cut
+   into 2, 4 and 16 slices (8 for a ring of 1064) on one card, at row
+   1's shape (S 512 and 4096) and the served rings of [9] / [14]: #1 on
+   each slice with its log-sum-exp, combined
+   (``ops.combine_partials``), and #2 on each slice, the max over them,
+   #3 against it with its row sum, combined, each within the bf16
+   tolerance of the whole-ring launch and of the plain version; a NaN
+   key in one slice gives the whole ring's NaN (or, under a threshold,
+   zero) rows; #1's device time with and without the partial output at
+   S 512 and 4096; (b) phi4-mini-3.8b at [3]'s serving shape (4 lanes,
+   max_len 512, 8 x 64-token prompts in two rounds, one 64-token chunk
+   each, 2 blocks of 8 decode steps) through ``prefill_chunk`` and
+   ``make_decode_block_step(mesh=...)`` on a one-rank NCCL ("data",
+   "model") mesh against the same dispatches unsharded, A^3 off and
+   conservative: tokens equal, prefill logits within the bf16 tolerance,
+   #1 (with its log-sum-exp) 32 a decode step; (c) serving dry-run cells
+   (``SERVING_DRY``: phi4-mini-3.8b and internlm2-1.8b prefill_32k and
+   decode_32k, A^3 off and conservative with select_shards 16, gemma3-4b
+   long_500k with 256, phi4-mini's decode block 8, prefill chunk 256 and
+   warm-admission gather from 4096 pages) traced in children (started at
+   [15]) on fake (16, 16) worlds, and on (2, 16, 16) for phi4-mini's
+   conservative decode, each beside its one-device trace: per-rank
+   FLOPs, HBM and collective bytes, peak, roofline terms and bottleneck,
+   and FLOPs x ranks against one device (the replicated remainder).
 
 Prints one JSON line of per-kernel numbers (every row with
 ``device_ms``, the profiler's device time per launch; rows #1-#3 with
 ``s4096``, the long ring's ms, device ms and bound; row #1 with
-``served_shapes``, phase 9's and [14c]'s rows; #1's launches include
-[10]'s, [11]'s, [12]'s and [14]'s A^3-off decode steps, #7's [10b]'s,
-[11d]'s, [12b]'s, [13]'s ([13a]'s train_loop steps and [13c]'s card
-steps), [15b]'s sharded steps and [16b]'s real steps),
+``served_shapes``, phase 9's and [14c]'s rows, and rows #1 and #3 with
+[17a]'s split-ring error (``split_ring_max_abs_err``) and #1 with its
+device time with and without the partial output, each beside its bound
+on the same inputs (``partial_device_ms``); #1's
+launches include [10]'s, [11]'s, [12]'s, [14]'s and [17b]'s A^3-off
+decode steps, #7's [10b]'s, [11d]'s, [12b]'s, [13]'s ([13a]'s
+train_loop steps and [13c]'s card steps), [15b]'s sharded steps and
+[16b]'s real steps),
 then, last,
 ``{"ok": true, "device": {...}}``. Exits non-zero, with no result line,
 when CUDA is unavailable or the port's sources are not beside the script.
@@ -4655,18 +4683,80 @@ DRY_CELLS = {
 }
 
 
-def dryrun_cell_main(argv):
-    """``chip_smoke.py --dryrun-cell SPEC OUT``: one dry-run cell (a
-    ``DRY_CELLS`` entry as JSON) traced with fake cuda tensors in a fake
-    world of its own; its record written to OUT as JSON."""
-    spec, out = json.loads(argv[0]), argv[1]
-    sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch.config import SHAPE_SUITE, ShapeConfig, ShapeKind
+# [17c]: the serving cells, each on (16, 16) and on one rank (phi4-mini's
+# conservative decode also on (2, 16, 16)), a few cells a child
+SERVING_DRY = {
+    "17c-phi4-prefill": dict(arch="phi4-mini-3.8b", shape="prefill_32k"),
+    "17c-phi4-decode": dict(arch="phi4-mini-3.8b", shape="decode_32k"),
+    "17c-phi4-decode-a3": dict(arch="phi4-mini-3.8b", shape="decode_32k",
+                               a3="conservative", select_shards=16),
+    "17c-internlm2-prefill": dict(arch="internlm2-1.8b",
+                                  shape="prefill_32k"),
+    "17c-internlm2-decode": dict(arch="internlm2-1.8b", shape="decode_32k"),
+    "17c-internlm2-decode-a3": dict(arch="internlm2-1.8b",
+                                    shape="decode_32k", a3="conservative",
+                                    select_shards=16),
+    "17c-gemma3-long-a3": dict(arch="gemma3-4b", shape="long_500k",
+                               a3="conservative", select_shards=256),
+    "17c-phi4-block8": dict(arch="phi4-mini-3.8b", shape="decode_32k",
+                            decode_block=8),
+    "17c-phi4-chunk256": dict(arch="phi4-mini-3.8b", shape="prefill_32k",
+                              prefill_chunk=256),
+    "17c-phi4-gather4096": dict(arch="phi4-mini-3.8b", shape="prefill_32k",
+                                gather_pages=4096),
+}
+SERVING_GROUPS = (
+    ("17c-phi4-prefill", "17c-phi4-gather4096"),
+    ("17c-phi4-chunk256", "17c-phi4-decode", "17c-phi4-decode-a3"),
+    ("17c-internlm2-prefill", "17c-internlm2-decode",
+     "17c-internlm2-decode-a3"),
+    ("17c-phi4-block8", "17c-gemma3-long-a3"),
+)
+for _i, _group in enumerate(SERVING_GROUPS):
+    _cells = {}
+    for _name in _group:
+        for _mesh in ([16, 16], []):
+            _cells[f"{_name}-{'x'.join(map(str, _mesh)) or '1'}"] = dict(
+                SERVING_DRY[_name], mesh=_mesh)
+    if "17c-phi4-decode-a3" in _group:
+        _cells["17c-phi4-decode-a3-2x16x16"] = dict(
+            SERVING_DRY["17c-phi4-decode-a3"], mesh=[2, 16, 16])
+    DRY_CELLS[f"17c-{_i}"] = {"cells": _cells}
+
+
+def dry_cell(spec):
+    """One ``DRY_CELLS`` cell traced with fake cuda tensors -> its record."""
+    import dataclasses as dc
+    from repro_torch.config import SHAPE_SUITE, A3Config, ShapeConfig, \
+        ShapeKind
     from repro_torch.launch.dryrun import run_cell
     shape = SHAPE_SUITE[spec["shape"]] if "shape" in spec else ShapeConfig(
         "train", ShapeKind.TRAIN, spec["seq"], spec["batch"])
-    rec = run_cell(spec["arch"], shape, mesh_shape=spec["mesh"],
-                   device="cuda", verbose=False)
+    a3 = A3Config()
+    if spec.get("a3", "off") != "off":
+        a3 = dc.replace(getattr(A3Config, spec["a3"])(),
+                        select_shards=spec["select_shards"])
+    return run_cell(spec["arch"], shape, mesh_shape=spec["mesh"],
+                    device="cuda", verbose=False, a3=a3,
+                    prefill_chunk=spec.get("prefill_chunk"),
+                    decode_block=spec.get("decode_block"),
+                    gather_pages=spec.get("gather_pages"))
+
+
+def dryrun_cell_main(argv):
+    """``chip_smoke.py --dryrun-cell SPEC OUT``: one dry-run cell (a
+    ``DRY_CELLS`` entry as JSON; with ``cells``, several in turn, each in
+    a fake world of its size) traced with fake cuda tensors; its record
+    (or {name: record}) written to OUT as JSON."""
+    spec, out = json.loads(argv[0]), argv[1]
+    sys.path.insert(0, str(ROOT / "src"))
+    if "cells" in spec:
+        rec = {}
+        for name, cell in spec["cells"].items():
+            rec[name] = dry_cell(cell)
+            gc.collect()
+    else:
+        rec = dry_cell(spec)
     Path(out).write_text(json.dumps(rec))
     return 0
 
@@ -4868,6 +4958,310 @@ def phase_dryrun(dev, children=None):
 
 
 # ---------------------------------------------------------------------------
+# [17] the serving dispatches on a mesh
+# ---------------------------------------------------------------------------
+
+# [17a]: row 1's shape and the served rings of [9] / [14]: (label, B, Hq,
+# Hkv, D, S, the slice counts the ring is cut into)
+SPLIT_RINGS = (
+    ("row 1", 4, 24, 8, 128, 512, (2, 4, 16)),
+    ("row 1", 4, 24, 8, 128, 4096, (2, 4, 16)),
+    ("recurrentgemma-2b", 4, 10, 1, 256, 2048, (2, 4, 16)),
+    ("h2o-danube-1.8b", 4, 32, 8, 80, 2048, (2, 4, 16)),
+    ("internvl2-2b", 4, 16, 8, 128, 544, (2, 4, 16)),
+    ("musicgen-medium", 4, 24, 24, 64, 1064, (2, 4, 8)),
+)
+SPLIT_THR = 3.0             # the two-pass pair at the conservative threshold
+MESH_SERVE = dict(slots=4, max_len=512, prompt=64, prompts=8, steps=8,
+                  blocks=2)  # [17b]: [3]'s serving shape
+
+
+def ring_inputs(seed, dev, b, hq, hkv, d, s):
+    import torch
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn((b, hq, d), generator=g, device=dev).bfloat16()
+    k = torch.randn((b, hkv, s, d), generator=g, device=dev).bfloat16()
+    v = torch.randn((b, hkv, s, d), generator=g, device=dev).bfloat16()
+    mask = torch.rand((b, hq, s), generator=g, device=dev) < 0.6
+    mask[0, hq - 1] = False                   # rows with nothing kept
+    return q, k, v, mask
+
+
+def ring_slices(t, n, dim=2):
+    return [c.contiguous() for c in t.chunk(n, dim)]
+
+
+def split_fused(q, k, v, mask, n):
+    """#1 on each of ``n`` slices of the ring with its log-sum-exp, the
+    partials combined -> the output in q's dtype."""
+    from repro_torch.kernels.decode_attention import kernel as tk
+    from repro_torch.kernels.decode_attention.ops import combine_partials
+    parts = [tk.fused(q, ks, vs, ms, partial=True) for ks, vs, ms in
+             zip(ring_slices(k, n), ring_slices(v, n),
+                 ring_slices(mask, n, 2))]
+    return combine_partials([o for o, _ in parts],
+                            [lse for _, lse in parts]).to(q.dtype)
+
+
+def split_two_pass(q, k, v, mask, n, thr):
+    """#2 on each slice, the max over the slices (NaN kept), #3 on each
+    slice against it with its row sum, the partials combined."""
+    import torch
+    from repro_torch.kernels.decode_attention import kernel as tk
+    from repro_torch.kernels.decode_attention.ops import combine_partials
+    sl = list(zip(ring_slices(k, n), ring_slices(v, n),
+                  ring_slices(mask, n, 2)))
+    rm = torch.stack([tk.rowmax(q, ks, ms) for ks, _, ms in sl]).amax(0)
+    parts = [tk.attend(q, ks, vs, ms, rm, threshold=thr, partial=True)
+             for ks, vs, ms in sl]
+    return combine_partials([o for o, _ in parts], [l for _, l in parts],
+                            stat="sum").to(q.dtype)
+
+
+def phase_split_ring(dev):
+    """[17a] The KV ring cut into slices on one card: #1 with its
+    log-sum-exp and #2 / #3 against the max over the slices, each
+    combined (``combine_partials``) and held against the whole-ring
+    launch and the plain version; a NaN key in one slice; #1's device
+    time with and without the partial output, each beside its bound ->
+    {"fused": max err, "attend": max err, "fused_ms": {S: {"ms",
+    "bound_ms", "partial_ms", "partial_bound_ms"}}}."""
+    from repro_torch.kernels.decode_attention import kernel as tk
+    worst = {"fused": 0.0, "attend": 0.0}
+    for label, b, hq, hkv, d, s, cuts in SPLIT_RINGS:
+        q, k, v, mask = ring_inputs(17, dev, b, hq, hkv, d, s)
+        whole = tk.fused(q, k, v, mask)
+        plain = tk.fused_plain(q, k, v, mask)
+        rm = tk.rowmax(q, k, mask)
+        whole2 = tk.attend(q, k, v, mask, rm, threshold=SPLIT_THR)
+        plain2 = tk.attend_plain(q, k, v, mask, tk.rowmax_plain(q, k, mask),
+                                 threshold=SPLIT_THR)
+        errs = []
+        for n in cuts:
+            got = split_fused(q, k, v, mask, n)
+            e1, ok1 = max_err(got, whole)
+            e2, ok2 = max_err(got, plain)
+            check(ok1 and ok2, f"[17a] {label} S={s}: #1 on {n} slices, "
+                               f"combined, vs the whole ring {e1:.3g} / "
+                               f"the plain version {e2:.3g}")
+            got2 = split_two_pass(q, k, v, mask, n, SPLIT_THR)
+            e3, ok3 = max_err(got2, whole2)
+            e4, ok4 = max_err(got2, plain2)
+            check(ok3 and ok4, f"[17a] {label} S={s}: #2/#3 on {n} slices "
+                               f"vs the whole ring {e3:.3g} / the plain "
+                               f"version {e4:.3g}")
+            worst["fused"] = max(worst["fused"], e1, e2)
+            worst["attend"] = max(worst["attend"], e3, e4)
+            errs.append(f"{n}: #1 {max(e1, e2):.3g}, #2/#3 "
+                        f"{max(e3, e4):.3g}")
+        log(f"  [17a] {label} (B={b}, Hq={hq}, Hkv={hkv}, D={d}, S={s}, "
+            f"bf16) ring cut into slices -> max abs err vs the whole ring "
+            f"and the plain version: " + "; ".join(errs)
+            + " (row 1's whole-ring #1 vs plain: 6.1e-05, PERF.md) "
+              f"[{CARD}]")
+    # a NaN key in one slice: the combined rows are the whole ring's
+    q, k, v, mask = make_inputs(3, dev)
+    k, v, mask = nan_lanes(k, v, mask)
+    for n in (2, 4, 16):
+        nan_rows_check(split_fused(q, k, v, mask, n), tk.fused(q, k, v, mask),
+                       f"[17a] #1 on {n} slices, a NaN key")
+        for thr in (None, SPLIT_THR):
+            rm = tk.rowmax(q, k, mask)
+            nan_rows_check(split_two_pass(q, k, v, mask, n, thr),
+                           tk.attend(q, k, v, mask, rm, threshold=thr),
+                           f"[17a] #2/#3 on {n} slices, a NaN key "
+                           f"(thr={thr})")
+    log("  [17a] a NaN key in one slice: the combined #1 and #2/#3 rows are "
+        "NaN (or zero under the threshold) where the whole ring's are")
+    times = {}
+    for s in (SHAPE["s"], LONG_S):
+        sets = [make_inputs(i, dev, s) for i in range(N_SETS)]
+        dflt = device_ms(lambda *x: tk.fused(*x), sets, 200, True)
+        part = device_ms(lambda *x: tk.fused(*x, partial=True), sets, 200,
+                         True)
+        # row 1's bound on the same inputs (the K/V rows some query
+        # attends); the partial output writes float32 and its statistic
+        b, hq, d = sets[0][0].shape
+        b_dflt = mean_bound([needed_bytes_flops(q, k, v, m, m, b * hq * d * 2)
+                             for q, k, v, m in sets])
+        b_part = mean_bound([needed_bytes_flops(q, k, v, m, m,
+                                                b * hq * (d + 1) * 4)
+                             for q, k, v, m in sets])
+        times[s] = {"ms": dflt, "bound_ms": b_dflt[0], "partial_ms": part,
+                    "partial_bound_ms": b_part[0]}
+        log(f"  [17a] #1 device time per launch at S={s} (B=4, Hq=24, "
+            f"Hkv=8, D=128, bf16): default {fmt_ms(dflt)} (bound "
+            f"{b_dflt[0]:.5f} ms, {b_dflt[1]}), with the log-sum-exp "
+            f"output {fmt_ms(part)} (bound {b_part[0]:.5f} ms, "
+            f"{b_part[1]}); row 1's default at S=512: 0.0147-0.0151 ms "
+            f"(PERF.md) [{CARD}]")
+    worst["fused_ms"] = times
+    return worst
+
+
+def mesh_serve_run(model, cfg, prompts, a3, mesh, dev):
+    """[17b]: ``prompts`` through prefill_chunk (one 64-token chunk a
+    lane) and ``blocks`` blocks of ``make_decode_block_step``, in rounds
+    of ``slots`` lanes, unsharded (``mesh`` None) or on the one-rank mesh
+    -> (prefill logits, tokens, #1 launches of the decode blocks)."""
+    import numpy as np
+    import torch
+    from repro_torch.config import A3Mode, ShardingConfig
+    from repro_torch.kernels.decode_attention import kernel as tk
+    from repro_torch.models import decoder
+    from repro_torch.serve import engine as E
+    from repro_torch.sharding.plan import serving_plan
+
+    sm = MESH_SERVE
+    shd = ShardingConfig(remat="none")
+    use_a3 = a3.mode != A3Mode.OFF
+    step = E.make_decode_block_step(cfg, a3, steps=sm["steps"],
+                                    resort_every=64, mesh=mesh,
+                                    sharding_cfg=shd, max_len=sm["max_len"])
+    logits_all, tokens_all, launches = [], [], 0
+    for r in range(0, len(prompts), sm["slots"]):
+        toks = torch.tensor(np.stack(prompts[r:r + sm["slots"]]),
+                            dtype=torch.int32, device=dev)
+        b = toks.shape[0]
+        pos = torch.zeros(b, dtype=torch.int32, device=dev)
+        length = torch.full((b,), sm["prompt"], dtype=torch.int32,
+                            device=dev)
+        if mesh is None:
+            cache = decoder.init_cache(cfg, b, sm["max_len"], a3=use_a3,
+                                       device=dev)
+            logits, cache = decoder.prefill_chunk(model, cfg, cache, toks,
+                                                  pos, length, a3=use_a3,
+                                                  sort_any=use_a3)
+        else:
+            plan = serving_plan(cfg, mesh, shd, batch=b,
+                                max_len=sm["max_len"], dispatch="chunk",
+                                select_shards=a3.select_shards
+                                if use_a3 else 0)
+            cache = step.plan(b).init_cache(b, sm["max_len"], a3=use_a3,
+                                             device=dev)
+            with plan.dispatch_context(model):
+                logits, cache = decoder.prefill_chunk(
+                    model, cfg, cache, toks, pos, length, a3=use_a3,
+                    sort_any=use_a3)
+        token = logits.argmax(-1).to(torch.int32)
+        ctrl = torch.zeros((b, E.CTRL_COLS), dtype=torch.int32, device=dev)
+        out = []
+        tk.reset_launch_counts()
+        for blk in range(sm["blocks"]):
+            ctrl[:, E.CTRL_D_POS] = sm["prompt"] + sm["steps"] * blk
+            ctrl[:, E.CTRL_D_STEPS] = sm["steps"]
+            harvest, token, cache = step(model, cache, token, token, ctrl)
+            out.append(harvest[:, 1:])
+        sync(dev)
+        launches += tk.LAUNCHES["decode_attention_fused"]
+        logits_all.append(logits.float())
+        tokens_all.append(torch.cat(out, 1))
+        del cache
+    return torch.cat(logits_all), torch.cat(tokens_all), launches
+
+
+def phase_mesh_serve(dev):
+    """[17b] phi4-mini-3.8b at [3]'s serving shape on a one-rank NCCL
+    ("data", "model") mesh (the serving plan, its collectives, #1's
+    partial softmax and its combine) against the unsharded dispatches, A^3
+    off and conservative: tokens equal, prefill logits within the bf16
+    bar -> #1 launches of the mesh decode blocks."""
+    import socket
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.config import A3Config, ShardingConfig, get_arch
+    from repro_torch.launch.mesh import init_distributed, make_mesh
+    from repro_torch.models import decoder
+    from repro_torch.sharding.rules import distribute_parameters
+
+    cfg = get_arch("phi4-mini-3.8b")
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, size=MESH_SERVE["prompt"])
+               for _ in range(MESH_SERVE["prompts"])]
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    init_distributed("cuda", rank=0, world_size=1,
+                     init_method=f"tcp://127.0.0.1:{port}")
+    launches = 0
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"), "cuda")
+        modes = (("off", A3Config()),
+                 ("conservative", A3Config.conservative()))
+        model = decoder.init_params(cfg, torch.Generator(
+            device=dev).manual_seed(0), dev)
+        want = {m: mesh_serve_run(model, cfg, prompts, a3, None, dev)
+                for m, a3 in modes}
+        distribute_parameters(model, ShardingConfig(remat="none"), mesh)
+        for m, a3 in modes:
+            t = time.perf_counter()
+            logits, tokens, n1 = mesh_serve_run(model, cfg, prompts, a3,
+                                                mesh, dev)
+            w_logits, w_tokens, _ = want[m]
+            e, ok = max_err(logits, w_logits)
+            same = torch.equal(tokens, w_tokens)
+            check(same, f"[17b] a3={m}: the one-rank mesh's tokens differ "
+                        f"from the unsharded run's")
+            check(ok, f"[17b] a3={m}: prefill logits {e:.3g} from the "
+                      f"unsharded run's (bf16 tolerance)")
+            if m == "off":
+                n_steps = MESH_SERVE["steps"] * MESH_SERVE["blocks"] * (
+                    MESH_SERVE["prompts"] // MESH_SERVE["slots"])
+                check(n1 == cfg.num_layers * n_steps or dev.type != "cuda",
+                      f"[17b] #1 launched {n1} times on the mesh, expected "
+                      f"{cfg.num_layers} layers x {n_steps} steps")
+                launches += n1
+            log(f"  [17b] phi4-mini-3.8b a3={m} on the one-rank mesh: "
+                f"{tokens.numel()} tokens equal to the unsharded run's, "
+                f"prefill logits within {e:.3g}; #1 (with its log-sum-exp) "
+                f"{n1} launches in the decode blocks; "
+                f"{time.perf_counter() - t:.1f} s [{CARD}]")
+        del model
+    finally:
+        dist.destroy_process_group()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def serving_cell_line(tag, r, one):
+    total = r["flops_per_device"] * r["chips"]
+    extra = total - one["flops_per_device"]
+    # a warm-admission copy does no product at all
+    share = extra / one["flops_per_device"] if one["flops_per_device"] \
+        else 0.0
+    log(f"  [{tag}] {r['arch']} {r['shape']} a3={r['a3_mode']} on "
+        f"{r['mesh']} ({r['chips']} fake ranks): per rank "
+        f"{r['flops_per_device']:.6g} FLOPs, {r['bytes_per_device']:.6g} HBM "
+        f"bytes, {r['collective_bytes']:.6g} collective bytes, peak "
+        f"{r['memory']['peak_device_bytes'] / 2**30:.2f} GiB; compute "
+        f"{r['compute_s'] * 1e3:.3f} ms, memory {r['memory_s'] * 1e3:.3f} ms,"
+        f" collective {r['collective_s'] * 1e3:.3f} ms -> {r['bottleneck']}; "
+        f"x {r['chips']} = {total:.6g} vs one rank "
+        f"{one['flops_per_device']:.6g}: {extra:.6g} replicated "
+        f"({share:.2e}); "
+        f"trace {r['lower_s']:.1f} s [H100 SXM datasheet constants]")
+    return extra
+
+
+def phase_serving_dryrun(children):
+    """[17c] the serving cells' dry-run records (children started at
+    [15], a few cells each): each on its mesh against its one-rank count;
+    no rank may do less than its share."""
+    recs = {}
+    for group in finish_dryrun_cells(children).values():
+        recs.update(group)
+    for tag in sorted(recs):
+        if tag.endswith("-1"):
+            continue
+        one = recs[tag.rsplit("-", 1)[0] + "-1"]
+        extra = serving_cell_line(tag, recs[tag], one)
+        check(extra >= -1e-6 * one["flops_per_device"],
+              f"[{tag}] the ranks' FLOPs {extra:.6g} short of one rank's")
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     global CARD
@@ -4991,8 +5385,10 @@ def main() -> int:
         "one-rank NCCL mesh vs unsharded, the mesh primitives on CUDA "
         "tensors, TINY on four gloo CPU ranks vs the card")
     t15 = time.perf_counter()
-    dry_children.update(start_dryrun_cells([n for n in DRY_CELLS
-                                            if n != "16b"]))
+    dry_children.update(start_dryrun_cells([
+        n for n in DRY_CELLS if n.startswith("16") and n != "16b"]))
+    serve_children = start_dryrun_cells([n for n in DRY_CELLS
+                                         if n.startswith("17c")])
     xl_launches += phase_mesh(dev)
     log(f"  phase [15] took {time.perf_counter() - t15:.1f} s")
     log("[16] the training dry run: internlm2-1.8b and xlstm-350m traced "
@@ -5001,6 +5397,20 @@ def main() -> int:
     t16 = time.perf_counter()
     xl_launches += phase_dryrun(dev, dry_children)
     log(f"  phase [16] took {time.perf_counter() - t16:.1f} s")
+    log("[17] the serving dispatches on a mesh: the KV ring cut into "
+        "slices with #1's log-sum-exp and #2/#3's row sums combined, "
+        "phi4-mini-3.8b on a one-rank NCCL mesh vs unsharded, the serving "
+        "dry-run cells on fake (16, 16) / (2, 16, 16) worlds")
+    t17 = time.perf_counter()
+    log("[17a] the split ring on one card")
+    split_errs = phase_split_ring(dev)
+    log("[17b] phi4-mini-3.8b serving on a one-rank NCCL mesh")
+    main_launches += phase_mesh_serve(dev)
+    log("[17c] the serving dry-run cells (per rank, against one rank)")
+    t = time.perf_counter()
+    phase_serving_dryrun(serve_children)
+    log(f"  [17c] waited {time.perf_counter() - t:.1f} s for the children")
+    log(f"  phase [17] took {time.perf_counter() - t17:.1f} s")
 
     src = "src/repro_torch/csrc/decode_attention.cu"
     jax_kernel = "src/repro/kernels/decode_attention/kernel.py"
@@ -5020,6 +5430,11 @@ def main() -> int:
         rows[-1]["s4096"] = r["s4096"]
         if name == "fused":
             rows[-1]["served_shapes"] = served
+            rows[-1]["split_ring_max_abs_err"] = split_errs["fused"]
+            rows[-1]["partial_device_ms"] = {
+                str(k): v for k, v in split_errs["fused_ms"].items()}
+        if name == "attend":
+            rows[-1]["split_ring_max_abs_err"] = split_errs["attend"]
     for name, key, src, jax_kernel, line, counted in (
             ("flash_attention", "flash", "flash_attention.cu",
              "flash_attention/kernel.py", 23, "flash_attention_wgmma"),

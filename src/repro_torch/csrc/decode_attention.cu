@@ -67,12 +67,20 @@
 // call score_chunk with the route the host decided from K alone (16-byte
 // aligned rows: vector scoring), its sums pinned with fmaf and the scale
 // with __fmul_rn, so no contraction can differ between the two kernels.
+//
+// Partial softmax (a KV ring split over the ranks of a mesh): #1 and #3
+// can write, in place of the normalised output in the input dtype, a
+// float32 output with its statistic, #1 the log-sum-exp m + log l
+// (-1e30 where l == 0; m is the running max the cluster already shares)
+// and #3 the row sum l against the given row max, so that the slices'
+// outputs combine exactly (kernels/decode_attention/ops.combine_partials).
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "attention_tile.cuh"
 #include "hopper.cuh"
 
 namespace {
@@ -113,23 +121,13 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-// The larger of a and b, NaN when either is NaN (jnp.maximum and
-// torch.maximum; fmaxf drops the NaN). #1's running max and #2's row max
-// take it, so a NaN score poisons its query row's max as in the Pallas
-// kernels: #1's row comes out NaN with or without a threshold, and #3
-// then keeps nothing of it under a threshold (l = 0, a zero row) and NaN
-// without one.
-__device__ __forceinline__ float max_nan(float a, float b) {
-  float d;  // one instruction (sm_80+), as attention_tile.cuh's
-  asm("max.NaN.f32 %0, %1, %2;" : "=f"(d) : "f"(a), "f"(b));
-  return d;
-}
-
-__device__ __forceinline__ float warp_max_nan(float x) {
-  for (int o = 16; o > 0; o >>= 1)
-    x = max_nan(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
+// #1's running max and #2's row max take attention_tile.cuh's max_nan
+// (NaN when either is NaN, as jnp.maximum), so a NaN score poisons its
+// query row's max as in the Pallas kernels: #1's row comes out NaN with
+// or without a threshold, and #3 then keeps nothing of it under a
+// threshold (l = 0, a zero row) and NaN without one.
+using tile::max_nan;
+using tile::warp_max_nan;
 
 // Split cluster barrier: every thread arrives once the CTA has started
 // (relaxed: it orders nothing) and waits before its first access to
@@ -551,13 +549,19 @@ __device__ __forceinline__ void pv_chunk(const T* vs, int rows, int r0,
 // Each CTA's acc (summed over its thread groups) and l into rank 0's
 // shared memory red_s [C, G, Dv + 1]; after one cluster.sync() rank 0
 // sums the cluster's partials and writes l == 0 ? 0 : acc / l for the G
-// query rows. Every CTA must have passed a cluster barrier since the
-// cluster started.
+// query rows: into out in T, or, for a partial softmax another launch
+// will be combined with, into pout in float32 with its statistic: the
+// log-sum-exp m + log l (-1e30 where l == 0) when m_s (the rows' final
+// running max) is given, else the row sum l. Every CTA must have passed
+// a cluster barrier since the cluster started.
 template <typename T>
 __device__ __forceinline__ void cluster_emit(const float* acc_s,
                                              const float* l_s, float* red_s,
-                                             T* __restrict__ out, int G,
-                                             int Dv, int ngroups) {
+                                             T* __restrict__ out,
+                                             float* __restrict__ pout,
+                                             float* __restrict__ stat,
+                                             const float* m_s, int G, int Dv,
+                                             int ngroups) {
   cg::cluster_group cluster = cg::this_cluster();
   const int C = (int)cluster.dim_blocks().x;
   const int rank = (int)cluster.block_rank();
@@ -580,7 +584,18 @@ __device__ __forceinline__ void cluster_emit(const float* acc_s,
       a += part[i];
       l += part[G * Dv + g];
     }
-    out[i] = from_f32<T>(l == 0.f ? 0.f : a / l);
+    const float o = l == 0.f ? 0.f : a / l;
+    if (pout != nullptr)
+      pout[i] = o;
+    else
+      out[i] = from_f32<T>(o);
+  }
+  if (stat == nullptr) return;
+  for (int g = threadIdx.x; g < G; g += kThreads) {
+    float l = 0.f;
+    for (int r = 0; r < C; ++r)
+      l += red_s[(size_t)r * G * (Dv + 1) + G * Dv + g];
+    stat[g] = m_s == nullptr ? l : (l == 0.f ? kNegInf : m_s[g] + logf(l));
   }
 }
 
@@ -599,7 +614,8 @@ template <typename T>
 __global__ void __launch_bounds__(kThreads)
 fused_cluster_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, const uint8_t* __restrict__ mask,
-                     T* __restrict__ out, int Hq, int Hkv, int S, int D,
+                     T* __restrict__ out, float* __restrict__ pout,
+                     float* __restrict__ lse, int Hq, int Hkv, int S, int D,
                      int Dv, int bk, float scale, int has_thr, float thr,
                      int vec, const __grid_constant__ RingLayout f) {
   cg::cluster_group cluster = cg::this_cluster();
@@ -699,7 +715,9 @@ fused_cluster_kernel(const T* __restrict__ q, const T* __restrict__ k,
       ring.release(seg);
     }
   }
-  cluster_emit(acc_s, l_s, red_s, out + row0 * Dv, G, Dv, f.ngroups);
+  cluster_emit(acc_s, l_s, red_s, out + row0 * Dv,
+               pout == nullptr ? nullptr : pout + row0 * Dv,
+               lse == nullptr ? nullptr : lse + row0, m_s, G, Dv, f.ngroups);
 }
 
 // ---------------------------------------------------------------------------
@@ -793,6 +811,7 @@ attend_cluster_kernel(const T* __restrict__ q, const T* __restrict__ k,
                       const T* __restrict__ v,
                       const uint8_t* __restrict__ mask,
                       const float* __restrict__ rowmax, T* __restrict__ out,
+                      float* __restrict__ pout, float* __restrict__ lsum,
                       int Hq, int Hkv, int S, int D, int Dv, float scale,
                       int has_thr, float thr, int kvec, int bulk,
                       const __grid_constant__ RingLayout f) {
@@ -868,7 +887,10 @@ attend_cluster_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
   }
   cluster_wait();
-  cluster_emit(acc_s, l_s, red_s, out + row0 * Dv, G, Dv, f.ngroups);
+  cluster_emit(acc_s, l_s, red_s, out + row0 * Dv,
+               pout == nullptr ? nullptr : pout + row0 * Dv,
+               lsum == nullptr ? nullptr : lsum + row0,
+               static_cast<const float*>(nullptr), G, Dv, f.ngroups);
 }
 
 // ---------------------------------------------------------------------------
@@ -918,7 +940,8 @@ int launch_cluster(Kernel kernel, int blocks, int cluster, size_t smem,
 
 template <typename T>
 int launch_fused(const void* q, const void* k, const void* v,
-                 const void* mask, void* out, int B, int Hq, int Hkv, int S,
+                 const void* mask, void* out, void* pout, void* lse, int B,
+                 int Hq, int Hkv, int S,
                  int D, int Dv, int bk, int cluster, float scale, int has_thr,
                  float thr, cudaStream_t stream) {
   const int G = Hq / Hkv;
@@ -934,8 +957,9 @@ int launch_fused(const void* q, const void* k, const void* v,
       fused_cluster_kernel<T>, B * Hkv * cluster, cluster, f.total, stream,
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const uint8_t*>(mask),
-      static_cast<T*>(out), Hq, Hkv, S, D, Dv, bk, scale, has_thr, thr, vec,
-      f);
+      static_cast<T*>(out), static_cast<float*>(pout),
+      static_cast<float*>(lse), Hq, Hkv, S, D, Dv, bk, scale, has_thr, thr,
+      vec, f);
 }
 
 // Checks shared by the two-pass launches: the cluster splits the ring,
@@ -967,7 +991,8 @@ int launch_rowmax(const void* q, const void* k, const void* mask,
 
 template <typename T>
 int launch_attend(const void* q, const void* k, const void* v,
-                  const void* mask, const void* rowmax, void* out, int B,
+                  const void* mask, const void* rowmax, void* out,
+                  void* pout, void* lsum, int B,
                   int Hq, int Hkv, int S, int D, int Dv, int bk, int cluster,
                   int kvec, float scale, int has_thr, float thr,
                   cudaStream_t stream) {
@@ -982,8 +1007,9 @@ int launch_attend(const void* q, const void* k, const void* v,
       attend_cluster_kernel<T>, B * Hkv * cluster, cluster, f.total, stream,
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const uint8_t*>(mask),
-      static_cast<const float*>(rowmax), static_cast<T*>(out), Hq, Hkv, S,
-      D, Dv, scale, has_thr, thr, kvec, bulk, f);
+      static_cast<const float*>(rowmax), static_cast<T*>(out),
+      static_cast<float*>(pout), static_cast<float*>(lsum), Hq, Hkv, S, D,
+      Dv, scale, has_thr, thr, kvec, bulk, f);
 }
 
 }  // namespace
@@ -991,23 +1017,27 @@ int launch_attend(const void* q, const void* k, const void* v,
 // C entry points: pointers and the stream as void*, shapes as int; each
 // returns the cudaError_t of the launch (0 = success). is_bf16 selects
 // __nv_bfloat16 inputs and output, else float32; mask is uint8 [B, Hq, S],
-// rowmax float32 [B, Hq]; cluster is the CTAs per (batch, kv head); kvec
+// rowmax float32 [B, Hq]; pout (float32 [B, Hq, Dv]) with lse (#1) or
+// lsum (#3), float32 [B, Hq], take the place of out when pout is not
+// null (a partial softmax for a combine over ring slices); cluster is the
+// CTAs per (batch, kv head); kvec
 // (the two-pass pair's scoring route, 1 = 16-byte vector loads) must be
 // the same for both passes and needs 16-byte aligned K rows.
 extern "C" {
 
 int decode_attention_fused(const void* q, const void* k, const void* v,
-                           const void* mask, void* out, int is_bf16, int B,
+                           const void* mask, void* out, void* pout,
+                           void* lse, int is_bf16, int B,
                            int Hq, int Hkv, int S, int D, int Dv, int bk,
                            int cluster, float scale, int has_thr, float thr,
                            void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (is_bf16)
-    return launch_fused<__nv_bfloat16>(q, k, v, mask, out, B, Hq, Hkv, S, D,
-                                       Dv, bk, cluster, scale, has_thr, thr,
-                                       st);
-  return launch_fused<float>(q, k, v, mask, out, B, Hq, Hkv, S, D, Dv, bk,
-                             cluster, scale, has_thr, thr, st);
+    return launch_fused<__nv_bfloat16>(q, k, v, mask, out, pout, lse, B, Hq,
+                                       Hkv, S, D, Dv, bk, cluster, scale,
+                                       has_thr, thr, st);
+  return launch_fused<float>(q, k, v, mask, out, pout, lse, B, Hq, Hkv, S, D,
+                             Dv, bk, cluster, scale, has_thr, thr, st);
 }
 
 int decode_attention_rowmax(const void* q, const void* k, const void* mask,
@@ -1024,17 +1054,20 @@ int decode_attention_rowmax(const void* q, const void* k, const void* mask,
 
 int decode_attention_attend(const void* q, const void* k, const void* v,
                             const void* mask, const void* rowmax, void* out,
-                            int is_bf16, int B, int Hq, int Hkv, int S,
+                            void* pout, void* lsum, int is_bf16, int B,
+                            int Hq, int Hkv, int S,
                             int D, int Dv, int bk, int cluster, int kvec,
                             float scale, int has_thr, float thr,
                             void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (is_bf16)
-    return launch_attend<__nv_bfloat16>(q, k, v, mask, rowmax, out, B, Hq,
-                                        Hkv, S, D, Dv, bk, cluster, kvec,
-                                        scale, has_thr, thr, st);
-  return launch_attend<float>(q, k, v, mask, rowmax, out, B, Hq, Hkv, S, D,
-                              Dv, bk, cluster, kvec, scale, has_thr, thr, st);
+    return launch_attend<__nv_bfloat16>(q, k, v, mask, rowmax, out, pout,
+                                        lsum, B, Hq, Hkv, S, D, Dv, bk,
+                                        cluster, kvec, scale, has_thr, thr,
+                                        st);
+  return launch_attend<float>(q, k, v, mask, rowmax, out, pout, lsum, B, Hq,
+                              Hkv, S, D, Dv, bk, cluster, kvec, scale,
+                              has_thr, thr, st);
 }
 
 }  // extern "C"

@@ -18,6 +18,12 @@ per ``block_k`` tile, masked scores at -1e30; a ring that ``block_k``
 does not divide is one tile). There is no fallback from the kernel to
 the plain version.
 
+With ``partial=True`` #1 and #3 hand out a partial softmax that another
+rank's slice of the ring can be combined with (``ops.combine_partials``):
+a float32 output and its log-sum-exp (#1) or row sum (#3). Each launch
+is a custom op (``torch.ops.repro_torch.decode_attention_*``), so fake
+tensors and ``FlopCounterMode`` see it; :func:`need` is its accounting.
+
 ``LAUNCHES`` counts kernel launches per kernel (plain calls do not
 count), so a run can show that it went through the kernels.
 """
@@ -27,6 +33,7 @@ import ctypes
 from typing import Optional, Tuple
 
 import torch
+import torch.utils.flop_counter
 
 from repro_torch.kernels import build
 
@@ -48,9 +55,9 @@ def reset_launch_counts() -> None:
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = {
-    "decode_attention_fused": [_P] * 5 + [_I] * 9 + [_F, _I, _F, _P],
+    "decode_attention_fused": [_P] * 7 + [_I] * 9 + [_F, _I, _F, _P],
     "decode_attention_rowmax": [_P] * 4 + [_I] * 9 + [_F, _P],
-    "decode_attention_attend": [_P] * 6 + [_I] * 10 + [_F, _I, _F, _P],
+    "decode_attention_attend": [_P] * 8 + [_I] * 10 + [_F, _I, _F, _P],
 }
 
 
@@ -141,14 +148,17 @@ def _tiles(q, k, mask, scale, bk):
         yield t0, sc, mk[..., t0:t0 + bk]
 
 
-def _emit(acc, l, q):
+def _emit(acc, l, q, partial=False):
     b, hq = q.shape[:2]
     out = torch.where(l == 0.0, 0.0, acc / torch.where(l == 0.0, 1.0, l))
-    return out.reshape(b, hq, acc.shape[-1]).to(q.dtype)
+    out = out.reshape(b, hq, acc.shape[-1])
+    return out if partial else out.to(q.dtype)
 
 
-def fused_plain(q, k, v, mask, *, threshold=None, scale=None, block_k=512):
-    """Plain version of the fused kernel (#1)."""
+def fused_plain(q, k, v, mask, *, threshold=None, scale=None, block_k=512,
+                partial=False):
+    """Plain version of the fused kernel (#1). ``partial``: (float32
+    output, its log-sum-exp m + log l [B, Hq], NEG_INF where l == 0)."""
     b, hq, hkv, s, d, dv, bk = _check(q, k, v, mask, block_k)
     scale = d ** -0.5 if scale is None else scale
     g = hq // hkv
@@ -167,7 +177,11 @@ def fused_plain(q, k, v, mask, *, threshold=None, scale=None, block_k=512):
         acc = acc * alpha + torch.einsum(
             "bhgk,bhkd->bhgd", p, v[:, :, t0:t0 + bk].float())
         m = m_cur
-    return _emit(acc, l, q)
+    out = _emit(acc, l, q, partial)
+    if not partial:
+        return out
+    lse = torch.where(l == 0.0, NEG_INF, m + torch.log(l))
+    return out, lse.reshape(b, hq)
 
 
 def rowmax_plain(q, k, mask, *, scale=None, block_k=512):
@@ -181,8 +195,9 @@ def rowmax_plain(q, k, mask, *, scale=None, block_k=512):
 
 
 def attend_plain(q, k, v, mask, rowmax, *, threshold=None, scale=None,
-                 block_k=512):
-    """Plain version of the attend kernel (#3) given pass 1's row max."""
+                 block_k=512, partial=False):
+    """Plain version of the attend kernel (#3) given pass 1's row max.
+    ``partial``: (float32 output, its row sum l [B, Hq])."""
     b, hq, hkv, s, d, dv, bk = _check(q, k, v, mask, block_k)
     scale = d ** -0.5 if scale is None else scale
     g = hq // hkv
@@ -197,7 +212,8 @@ def attend_plain(q, k, v, mask, rowmax, *, threshold=None, scale=None,
         l = l + p.sum(-1, keepdim=True)
         acc = acc + torch.einsum("bhgk,bhkd->bhgd", p,
                                  v[:, :, t0:t0 + bk].float())
-    return _emit(acc, l, q)
+    out = _emit(acc, l, q, partial)
+    return (out, l.reshape(b, hq)) if partial else out
 
 
 def decode_attention_plain(q, k, v, mask, *, threshold=None, scale=None,
@@ -211,43 +227,110 @@ def decode_attention_plain(q, k, v, mask, *, threshold=None, scale=None,
 
 
 # ---------------------------------------------------------------------------
-# kernel wrappers
+# what a launch needs: the dry run's accounting and the card's bound
 # ---------------------------------------------------------------------------
 
-def _thr(threshold) -> Tuple[int, float]:
-    return (0, 0.0) if threshold is None else (1, float(threshold))
+def need(b: int, hq: int, hkv: int, s: int, d: int, dv: int, *,
+         pv: bool, itemsize: int = 2, out_itemsize: Optional[int] = None,
+         stats_in: int = 0, stats_out: int = 0) -> Tuple[int, int]:
+    """(bytes, operations) of one launch over every ring row: q, K (and V
+    with ``pv``) and the uint8 mask read once, the output written once
+    (``out_itemsize`` bytes an element, the inputs' by default; none
+    without ``pv``), plus ``stats_in`` / ``stats_out`` float32 [B, Hq]
+    vectors (a row max read, a log-sum-exp or row sum written); 2 D
+    operations per (query row, key) score and 2 Dv per weighted V row
+    (``pv``). The operations are what ``FlopCounterMode`` counts on the
+    plain route of the same shapes."""
+    out_itemsize = itemsize if out_itemsize is None else out_itemsize
+    nbytes = (b * hq * d + b * hkv * s * (d + (dv if pv else 0))) \
+        * itemsize + b * hq * s + (b * hq * dv * out_itemsize if pv else 0) \
+        + 4 * b * hq * (stats_in + stats_out)
+    flops = 2 * b * hq * s * (d + (dv if pv else 0))
+    return nbytes, flops
 
 
-def fused(q, k, v, mask, *, threshold=None, scale=None, block_k=512):
-    """Kernel #1 on CUDA tensors, its plain version on CPU tensors."""
-    if build.route(q) == "plain":
-        return fused_plain(q, k, v, mask, threshold=threshold, scale=scale,
-                           block_k=block_k)
+def _shape_need(q, k, v, *, pv, partial=False, stats_in=0):
+    b, hq, d = q.shape
+    _, hkv, s, _ = k.shape
+    return need(b, hq, hkv, s, d, v.shape[3] if v is not None else d,
+                pv=pv, itemsize=q.element_size(),
+                out_itemsize=4 if partial else None, stats_in=stats_in,
+                stats_out=int(partial or not pv))
+
+
+def call_need_fused(q, k, v, mask, scale, block_k, has_thr, thr, partial,
+                    **_) -> Tuple[int, int]:
+    """:func:`need` of one call of the #1 op, from its arguments."""
+    return _shape_need(q, k, v, pv=True, partial=partial)
+
+
+def call_need_rowmax(q, k, mask, scale, block_k, **_) -> Tuple[int, int]:
+    """:func:`need` of one call of the #2 op (writes the row max)."""
+    return _shape_need(q, k, None, pv=False)
+
+
+def call_need_attend(q, k, v, mask, rm, scale, block_k, has_thr, thr,
+                     partial, **_) -> Tuple[int, int]:
+    """:func:`need` of one call of the #3 op (reads the row max)."""
+    return _shape_need(q, k, v, pv=True, partial=partial, stats_in=1)
+
+
+# ---------------------------------------------------------------------------
+# the launches, as custom ops: ``FakeTensorMode`` runs their shape
+# functions and ``FlopCounterMode`` counts them by :func:`need` (a ctypes
+# launch is invisible to both), so the dry run traces the card's route
+# ---------------------------------------------------------------------------
+
+def _ptr(t: torch.Tensor) -> Optional[int]:
+    return t.data_ptr() if t.numel() else None
+
+
+def _outputs(q, dv, partial):
+    """(out, partial out, statistic): the normalised output in q's dtype,
+    or a float32 output and a float32 [B, Hq] statistic; the unused ones
+    empty."""
+    b, hq = q.shape[:2]
+    if partial:
+        return (q.new_empty(0), q.new_empty((b, hq, dv), dtype=torch.float32),
+                q.new_empty((b, hq), dtype=torch.float32))
+    return q.new_empty((b, hq, dv)), q.new_empty(0, dtype=torch.float32), \
+        q.new_empty(0, dtype=torch.float32)
+
+
+@torch.library.custom_op("repro_torch::decode_attention_fused",
+                         mutates_args=())
+def _fused_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              mask: torch.Tensor, scale: float, block_k: int, has_thr: bool,
+              thr: float, partial: bool
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One launch of #1 -> (output, log-sum-exp): the output in q's dtype
+    and an empty second tensor, or with ``partial`` float32 and its
+    log-sum-exp."""
     b, hq, hkv, s, d, dv, bk = _check(q, k, v, mask, block_k)
-    build.check_launch("decode_attention", (q, k, v), (mask,), (d, dv),
-                       MAX_HEAD_DIM)
-    scale = d ** -0.5 if scale is None else scale
-    out = torch.empty((b, hq, dv), dtype=q.dtype, device=q.device)
-    has_thr, thr = _thr(threshold)
+    out, pout, lse = _outputs(q, dv, partial)
     err = _entry("decode_attention_fused")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
-        out.data_ptr(), int(q.dtype == torch.bfloat16), b, hq, hkv, s, d,
-        dv, bk, cluster_size(s, bk), scale, has_thr, thr,
+        _ptr(out), _ptr(pout), _ptr(lse), int(q.dtype == torch.bfloat16), b,
+        hq, hkv, s, d, dv, bk, cluster_size(s, bk), scale, int(has_thr), thr,
         build.stream(q.device))
     build.raise_on(err, "decode_attention_fused")
     LAUNCHES["decode_attention_fused"] += 1
-    return out
+    return (pout, lse) if partial else (out, lse)
 
 
-def rowmax(q, k, mask, *, scale=None, block_k=512):
-    """Kernel #2 on CUDA tensors, its plain version on CPU tensors."""
-    if build.route(q) == "plain":
-        return rowmax_plain(q, k, mask, scale=scale, block_k=block_k)
+@_fused_op.register_fake
+def _(q, k, v, mask, scale, block_k, has_thr, thr, partial):
+    out, pout, lse = _outputs(q, v.shape[3], partial)
+    return (pout, lse) if partial else (out, lse)
+
+
+@torch.library.custom_op("repro_torch::decode_attention_rowmax",
+                         mutates_args=())
+def _rowmax_op(q: torch.Tensor, k: torch.Tensor, mask: torch.Tensor,
+               scale: float, block_k: int) -> torch.Tensor:
+    """One launch of #2 -> the row max, float32 [B, Hq]."""
     b, hq, hkv, s, d, _, bk = _check(q, k, None, mask, block_k)
-    build.check_launch("decode_attention", (q, k), (mask,), (d,),
-                       MAX_HEAD_DIM)
-    scale = d ** -0.5 if scale is None else scale
-    out = torch.empty((b, hq), dtype=torch.float32, device=q.device)
+    out = q.new_empty((b, hq), dtype=torch.float32)
     err = _entry("decode_attention_rowmax")(
         q.data_ptr(), k.data_ptr(), mask.data_ptr(), out.data_ptr(),
         int(q.dtype == torch.bfloat16), b, hq, hkv, s, d, bk,
@@ -258,28 +341,109 @@ def rowmax(q, k, mask, *, scale=None, block_k=512):
     return out
 
 
-def attend(q, k, v, mask, rm, *, threshold=None, scale=None, block_k=512):
-    """Kernel #3 on CUDA tensors, its plain version on CPU tensors."""
+@_rowmax_op.register_fake
+def _(q, k, mask, scale, block_k):
+    return q.new_empty(q.shape[:2], dtype=torch.float32)
+
+
+@torch.library.custom_op("repro_torch::decode_attention_attend",
+                         mutates_args=())
+def _attend_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               mask: torch.Tensor, rm: torch.Tensor, scale: float,
+               block_k: int, has_thr: bool, thr: float, partial: bool
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One launch of #3 -> (output, row sum), as :func:`_fused_op`."""
+    b, hq, hkv, s, d, dv, bk = _check(q, k, v, mask, block_k)
+    out, pout, lsum = _outputs(q, dv, partial)
+    err = _entry("decode_attention_attend")(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
+        rm.data_ptr(), _ptr(out), _ptr(pout), _ptr(lsum),
+        int(q.dtype == torch.bfloat16), b, hq, hkv, s, d, dv, bk,
+        two_pass_cluster_size(s), int(score_route(k) == "vec"), scale,
+        int(has_thr), thr, build.stream(q.device))
+    build.raise_on(err, "decode_attention_attend")
+    LAUNCHES["decode_attention_attend"] += 1
+    return (pout, lsum) if partial else (out, lsum)
+
+
+@_attend_op.register_fake
+def _(q, k, v, mask, rm, scale, block_k, has_thr, thr, partial):
+    out, pout, lsum = _outputs(q, v.shape[3], partial)
+    return (pout, lsum) if partial else (out, lsum)
+
+
+def _flops_of(call_need):
+    def formula(*args, out_val=None, **kwargs) -> int:
+        return call_need(*args, **kwargs)[1]
+    return formula
+
+
+for _op, _need in ((torch.ops.repro_torch.decode_attention_fused,
+                    call_need_fused),
+                   (torch.ops.repro_torch.decode_attention_rowmax,
+                    call_need_rowmax),
+                   (torch.ops.repro_torch.decode_attention_attend,
+                    call_need_attend)):
+    torch.utils.flop_counter.register_flop_formula(_op, get_raw=True)(
+        _flops_of(_need))
+
+
+# ---------------------------------------------------------------------------
+# kernel wrappers
+# ---------------------------------------------------------------------------
+
+def _thr(threshold) -> Tuple[bool, float]:
+    return (False, 0.0) if threshold is None else (True, float(threshold))
+
+
+def fused(q, k, v, mask, *, threshold=None, scale=None, block_k=512,
+          partial=False):
+    """Kernel #1 on CUDA tensors, its plain version on CPU tensors ->
+    the output in q's dtype, or with ``partial`` (float32 output, its
+    log-sum-exp [B, Hq]) for :func:`ops.combine_partials`."""
+    if build.route(q) == "plain":
+        return fused_plain(q, k, v, mask, threshold=threshold, scale=scale,
+                           block_k=block_k, partial=partial)
+    _, _, _, _, d, dv, _ = _check(q, k, v, mask, block_k)
+    build.check_launch("decode_attention", (q, k, v), (mask,), (d, dv),
+                       MAX_HEAD_DIM)
+    scale = d ** -0.5 if scale is None else scale
+    out, lse = torch.ops.repro_torch.decode_attention_fused(
+        q, k, v, mask, float(scale), int(block_k), *_thr(threshold),
+        bool(partial))
+    return (out, lse) if partial else out
+
+
+def rowmax(q, k, mask, *, scale=None, block_k=512):
+    """Kernel #2 on CUDA tensors, its plain version on CPU tensors."""
+    if build.route(q) == "plain":
+        return rowmax_plain(q, k, mask, scale=scale, block_k=block_k)
+    _, _, _, _, d, _, _ = _check(q, k, None, mask, block_k)
+    build.check_launch("decode_attention", (q, k), (mask,), (d,),
+                       MAX_HEAD_DIM)
+    scale = d ** -0.5 if scale is None else scale
+    return torch.ops.repro_torch.decode_attention_rowmax(
+        q, k, mask, float(scale), int(block_k))
+
+
+def attend(q, k, v, mask, rm, *, threshold=None, scale=None, block_k=512,
+           partial=False):
+    """Kernel #3 on CUDA tensors, its plain version on CPU tensors ->
+    the output in q's dtype, or with ``partial`` (float32 output, its row
+    sum [B, Hq])."""
     if build.route(q) == "plain":
         return attend_plain(q, k, v, mask, rm, threshold=threshold,
-                            scale=scale, block_k=block_k)
-    b, hq, hkv, s, d, dv, bk = _check(q, k, v, mask, block_k)
+                            scale=scale, block_k=block_k, partial=partial)
+    b, hq, _, _, d, dv, _ = _check(q, k, v, mask, block_k)
     build.check_launch("decode_attention", (q, k, v), (mask, rm), (d, dv),
                        MAX_HEAD_DIM)
     if rm.dtype != torch.float32 or tuple(rm.shape) != (b, hq):
         raise ValueError("rowmax must be float32 [B, Hq]")
     scale = d ** -0.5 if scale is None else scale
-    out = torch.empty((b, hq, dv), dtype=q.dtype, device=q.device)
-    has_thr, thr = _thr(threshold)
-    err = _entry("decode_attention_attend")(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
-        rm.data_ptr(), out.data_ptr(), int(q.dtype == torch.bfloat16), b,
-        hq, hkv, s, d, dv, bk, two_pass_cluster_size(s),
-        int(score_route(k) == "vec"), scale, has_thr, thr,
-        build.stream(q.device))
-    build.raise_on(err, "decode_attention_attend")
-    LAUNCHES["decode_attention_attend"] += 1
-    return out
+    out, lsum = torch.ops.repro_torch.decode_attention_attend(
+        q, k, v, mask, rm, float(scale), int(block_k), *_thr(threshold),
+        bool(partial))
+    return (out, lsum) if partial else out
 
 
 def decode_attention(

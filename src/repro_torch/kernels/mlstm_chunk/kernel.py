@@ -157,10 +157,13 @@ def mlstm_chunk_plain(q, k, v, log_i, log_f, *, chunk: int = 256,
         wr_log = f_tot[..., None] - f_cum + li
         m_new = torch.maximum(f_tot + m, wr_log.amax(-1))
         f_eff = torch.exp(f_tot + m - m_new)
-        kw = kc * torch.exp(wr_log - m_new[..., None])[..., None]
+        wr = torch.exp(wr_log - m_new[..., None])
+        kw = kc * wr[..., None]
         C = f_eff[..., None, None] * C + torch.einsum("bhuk,bhuv->bhkv", kw,
                                                       vc)
-        n = f_eff[..., None] * n + kw.sum(-2)
+        # a product over the chunk's rows, as the reference's einsum (its
+        # dot_flops count it; a sum of kw would not be)
+        n = f_eff[..., None] * n + torch.einsum("bhu,bhuk->bhk", wr, kc)
         m = m_new
     return (out, (C, n, m)) if return_state else out
 

@@ -10,7 +10,8 @@ counts per rank:
 
 * matmul FLOPs: ``FlopCounterMode``'s count (``mm``, ``bmm``,
   ``addmm``, convolutions, ...), kernel ops by their registered formula
-  (``kernels.mlstm_chunk.kernel.need`` for #7);
+  (``kernels.decode_attention.kernel.need`` for #1-#3,
+  ``kernels.mlstm_chunk.kernel.need`` for #7);
 * HBM bytes: every op's input plus output bytes (views move nothing);
   a kernel op by its formula;
 * collectives: operand bytes per kind and wire bytes with the
@@ -58,8 +59,12 @@ _SKIP = ("_c10d_functional.wait_tensor", "c10d.barrier")
 def _kernel_needs() -> Dict[str, Callable[..., Tuple[int, int]]]:
     """Kernel op -> its (bytes, FLOPs) from the op's arguments; the FLOPs
     are also registered with ``FlopCounterMode``."""
+    from repro_torch.kernels.decode_attention import kernel as dk
     from repro_torch.kernels.mlstm_chunk import kernel as mk
-    return {"repro_torch.mlstm_chunk": mk.call_need}
+    return {"repro_torch.mlstm_chunk": mk.call_need,
+            "repro_torch.decode_attention_fused": dk.call_need_fused,
+            "repro_torch.decode_attention_rowmax": dk.call_need_rowmax,
+            "repro_torch.decode_attention_attend": dk.call_need_attend}
 
 
 def _bytes(x) -> int:

@@ -13,7 +13,7 @@ from __future__ import annotations
 import contextlib
 import contextvars
 import math
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -151,21 +151,71 @@ class _Cut(torch.autograd.Function):
             None, None
 
 
+class Ring(NamedTuple):
+    """The ranks a KV ring is split over (``sharding.rules.cache_specs``):
+    a process group of ``size`` ranks named ``group``, this rank the
+    ``index``-th, holding ring rows [index w / size, (index + 1) w / size)
+    of a ring of ``w`` rows."""
+    group: str
+    size: int
+    index: int
+
+    def span(self, w: int) -> Tuple[int, int]:
+        n = w // self.size
+        return self.index * n, (self.index + 1) * n
+
+
+class PoolShare(NamedTuple):
+    """This rank's share of a prefix-cache page pool: pages [p0, p1) and
+    page rows [r0, r1); ``group`` spans every rank holding a share."""
+    group: str
+    p0: int
+    p1: int
+    r0: int
+    r1: int
+
+
 class ActShardings:
-    """The plan of one rank of a sharded train step (see above):
-    ``specs`` (``sharding.rules.act_specs``), ``rows`` (the batch plan, or
-    None), and the model axis ``axis`` of ``size`` ranks over the process
-    group named ``group``, this rank its ``index``-th; ``split`` holds the
-    modules that keep their model-axis share of the weights."""
+    """The plan of one rank of a sharded train step or serving dispatch
+    (see above; built by ``sharding.plan.MeshPlan``): ``specs``
+    (``sharding.rules.act_specs``), ``rows`` (the batch plan, or None),
+    and the model axis ``axis`` of ``size`` ranks over the process group
+    named ``group``, this rank its ``index``-th; ``split`` holds the
+    modules that keep their model-axis share of the weights.
+
+    Serving adds: ``lanes`` ([lo, hi) of the batch this rank holds: its
+    block over (pod, data); None for all), ``lane_group`` / ``lane_size``
+    (the ranks holding the other blocks), ``ring`` (the :class:`Ring` the
+    KV rings split over: ``model``, or (data, model) when the batch is
+    smaller than the data axis), ``select_shards`` (A^3 selection blocks,
+    a multiple of the ring's size), ``max_len`` (the rings are sized for
+    it) and ``layer_hook`` (blk -> the context a layer runs in: its
+    weights gathered, its own plan). A batch smaller than the data axis
+    adds, as ``act_specs`` lays it out: ``sp`` (prefill: the ranks the
+    sequence is split over, (data, model); each holds its block of the
+    rows) or ``kdim`` (decode: the data axis, over which the dense
+    weights keep their FSDP block of d_model, so each product takes its
+    block of the contraction and sums over it, :func:`klinear`). A
+    warm-admission copy adds ``pool`` (this rank's :class:`PoolShare`)."""
 
     def __init__(self, specs=None, rows=None, *, axis: str = "model",
                  size: int = 1, index: int = 0, group: Optional[str] = None,
-                 split=()):
+                 split=(), lanes: Optional[Tuple[int, int]] = None,
+                 lane_group: Optional[str] = None, lane_size: int = 1,
+                 ring: Optional[Ring] = None, select_shards: int = 1,
+                 max_len: int = 0, sp: Optional[Ring] = None,
+                 kdim: Optional[Ring] = None,
+                 pool: Optional[PoolShare] = None, layer_hook=None):
         self.specs = dict(specs or {})
         self.rows = rows
         self.axis, self.size, self.index, self.group = axis, size, index, \
             group
         self._split = frozenset(id(m) for m in split)
+        self.lanes, self.lane_group, self.lane_size = lanes, lane_group, \
+            lane_size
+        self.ring, self.select_shards = ring, select_shards
+        self.max_len, self.layer_hook = max_len, layer_hook
+        self.sp, self.kdim, self.pool = sp, kdim, pool
 
     def is_split(self, module) -> bool:
         """Whether ``module`` holds (and computes) this rank's share."""
@@ -182,6 +232,23 @@ class ActShardings:
         """This rank's block [lo, hi) of ``n`` items split evenly."""
         k = n // self.size
         return self.index * k, (self.index + 1) * k
+
+    def ring_of(self, w: int) -> Optional[Ring]:
+        """The ring a ``w``-row KV ring splits over, or None where the
+        ring stays whole on every rank (``cache_specs``: the ring's
+        ranks do not divide ``w``)."""
+        r = self.ring
+        return r if r is not None and w % r.size == 0 else None
+
+    def cut_lanes(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's lanes of a global [B, ...] input."""
+        return x if self.lanes is None else x[self.lanes[0]:self.lanes[1]]
+
+    def gather_lanes(self, x: torch.Tensor) -> torch.Tensor:
+        """Every rank's lanes of a [b, ...] output, in batch order."""
+        if self.lane_size <= 1:
+            return x
+        return _all_gather(x, 0, self.lane_size, self.lane_group)
 
     def enter(self, x: torch.Tensor) -> torch.Tensor:
         return _Enter.apply(x, self)
@@ -201,6 +268,59 @@ class ActShardings:
         return _all_reduce(x.detach(), "max", self.group)
 
 
+def nan_max(x: torch.Tensor, group: str) -> torch.Tensor:
+    """The elementwise max over the ranks of ``group``, NaN where any
+    rank's is NaN (as ``torch.maximum``; an all-reduce ``max`` does not
+    promise it): the max and a NaN flag go in one all-reduce."""
+    nan = torch.isnan(x)
+    packed = torch.stack([torch.where(nan, float("-inf"), x.float()),
+                          nan.float()])
+    packed = _all_reduce(packed, "max", group)
+    return torch.where(packed[1] > 0, float("nan"), packed[0]).to(x.dtype)
+
+
+def all_reduce_sum(x: torch.Tensor, group: str) -> torch.Tensor:
+    """The sum over the ranks of ``group`` (a NaN anywhere stays NaN)."""
+    return _all_reduce(x, "sum", group)
+
+
+def all_gather(x: torch.Tensor, dim: int, size: int, group: str
+               ) -> torch.Tensor:
+    """The ranks' ``x`` concatenated along ``dim`` in rank order."""
+    return _all_gather(x, dim % x.dim(), size, group)
+
+
+def klinear(x: torch.Tensor, w: torch.Tensor, sh=None) -> torch.Tensor:
+    """``F.linear(x, w)``; where ``w`` holds this rank's block of its input
+    dim over the plan's ``kdim`` ranks (a decode whose batch is smaller
+    than the data axis), x's block of it, the products summed over them."""
+    k = sh.kdim if sh is not None else None
+    if k is None or w.shape[1] == x.shape[-1]:
+        return F.linear(x, w)
+    n = w.shape[1]
+    return _all_reduce(F.linear(x[..., k.index * n:(k.index + 1) * n], w),
+                       "sum", k.group)
+
+
+def kfull(y: torch.Tensor, n: int, sh=None) -> torch.Tensor:
+    """``y`` with all ``n`` of its last dim: gathered over the plan's
+    ``kdim`` ranks where its weight kept a block of its output dim."""
+    k = sh.kdim if sh is not None else None
+    if k is None or y.shape[-1] == n:
+        return y
+    return _all_gather(y, y.dim() - 1, k.size, k.group)
+
+
+def layer_scope(blk):
+    """The context one layer of a serving dispatch runs in: the plan's
+    ``layer_hook`` (its weights gathered, its own plan) on a mesh, else
+    nothing."""
+    sh = current_shardings()
+    if sh is None or sh.layer_hook is None:
+        return contextlib.nullcontext()
+    return sh.layer_hook(blk)
+
+
 @contextlib.contextmanager
 def activation_shardings(shardings: Optional[ActShardings]):
     """Layers inside compute what ``shardings`` gives this rank (None:
@@ -215,6 +335,13 @@ def activation_shardings(shardings: Optional[ActShardings]):
 def current_shardings() -> Optional[ActShardings]:
     """The plan :func:`activation_shardings` installed, or None."""
     return _ACT.get()
+
+
+def split_plan(module) -> Optional[ActShardings]:
+    """The current plan when ``module`` computes this rank's share of the
+    model axis, else None."""
+    sh = current_shardings()
+    return sh if sh is not None and sh.is_split(module) else None
 
 
 def shard_act(x: torch.Tensor, kind: str, dim: int = 1) -> torch.Tensor:
@@ -447,13 +574,13 @@ def ffn_apply(ffn: FFN, x: torch.Tensor) -> torch.Tensor:
     if split:
         x = sh.enter(x)
     if ffn.w_gate is None:
-        h = gelu(F.linear(x, ffn.w_up.weight).float())
+        h = gelu(klinear(x, ffn.w_up.weight, sh).float())
         y = F.linear(h.to(x.dtype), ffn.w_down.weight)
     else:
-        g = F.silu(F.linear(x, ffn.w_gate.weight).float())
-        u = F.linear(x, ffn.w_up.weight).float()
+        g = F.silu(klinear(x, ffn.w_gate.weight, sh).float())
+        u = klinear(x, ffn.w_up.weight, sh).float()
         y = F.linear((g * u).to(x.dtype), ffn.w_down.weight)
-    return sh.leave(y) if split else y
+    return kfull(sh.leave(y) if split else y, x.shape[-1], sh)
 
 
 def softcap(logits: torch.Tensor, cap: float) -> torch.Tensor:

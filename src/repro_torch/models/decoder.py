@@ -14,6 +14,15 @@ which returns new arrays, ``prefill_chunk``, ``decode_step``,
 ``resort_sorted_keys`` and ``decode_block`` update the cache **in
 place** and return the same dict.
 
+On a mesh (a plan from ``sharding.plan.MeshPlan.dispatch_context``) the
+serving dispatches take the global inputs and return this rank's share:
+its lanes (its block of the batch over (pod, data)), logits over its
+vocab columns (``unembed`` is vocab-parallel), its share of the cache
+(its ring rows, its recurrent channels); ``decode_block`` samples from
+the whole logits row (gathered over the vocab axis) and returns its
+lanes' tokens. Each layer runs in the plan's ``layer_hook`` (its weights
+gathered just in time).
+
 Where the reference branches on a device value inside the graph
 (``lax.cond``), the port decides on the host: ``prefill_chunk`` takes
 ``sort_any`` and ``resort_sorted_keys`` takes ``any_due`` from the
@@ -30,18 +39,17 @@ from typing import Any, Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
-import torch.nn.functional as F
 
 from repro_torch import resolve_device
 from repro_torch.config import A3Config, A3Mode, BlockKind, ModelConfig
-from repro_torch.core.candidate_selection import sort_key_columns
 from repro_torch.models.common import NEG_INF, FFN, ActShardings, \
     Attention, RMSNorm, activation_shardings, attention_init_, \
-    current_shardings, embed_init_, dense_init_, ffn_apply, ffn_init_, \
-    rmsnorm, round_to, softcap
+    all_gather, current_shardings, embed_init_, dense_init_, ffn_apply, \
+    ffn_init_, kfull, klinear, layer_scope, rmsnorm, round_to, softcap
 from repro_torch.models import sampling
 from repro_torch.models import xlstm as xl
-from repro_torch.models.mixer import SegmentSpec, build_segments, mixer_for
+from repro_torch.models.mixer import SegmentSpec, build_segments, \
+    mixer_for, sort_ring
 from repro_torch.models.moe import MoE, moe_apply, moe_init_
 from repro_torch.models.rglru import RGLRU, rglru_init_
 
@@ -185,6 +193,7 @@ def embed_tokens(model: Decoder, cfg: ModelConfig,
                      * inside[..., None].to(model.embed.dtype))
     else:
         h = model.embed[tokens.long()]
+    h = kfull(h, cfg.d_model, sh)
     # the sqrt(d) factor rounds to the model dtype first, as in the
     # reference (a dtype-typed scalar, multiplied in the dtype)
     return h * round_to(math.sqrt(cfg.d_model), h.dtype)
@@ -201,7 +210,7 @@ def unembed(model: Decoder, cfg: ModelConfig, h: torch.Tensor
     lo = 0
     if sh is not None and sh.is_split(model):
         h, lo = sh.enter(h), sh.index * w.shape[0]
-    logits = softcap(F.linear(h, w), cfg.logit_softcap)
+    logits = softcap(klinear(h, w, sh), cfg.logit_softcap)
     vp = logits.shape[-1]
     if lo + vp > cfg.vocab_size:     # mask the vocab-padding columns
         pad = torch.arange(lo, lo + vp,
@@ -453,26 +462,45 @@ def prefill(model: Decoder, cfg: ModelConfig,
             ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """Process a prompt (``tokens`` [B, S] or ``inputs_embeds``
     [B, S, D]) -> (last-token logits [B, Vp], filled cache)."""
+    tokens, inputs_embeds = _lanes(tokens), _lanes(inputs_embeds)
     h = _embed_input(model, cfg, tokens, inputs_embeds)
     b, s = h.shape[:2]
     max_len = max_len or s
     positions = torch.arange(s, dtype=torch.int32,
                              device=h.device).expand(b, s)
+    sh = current_shardings()
+    sp = sh.sp if sh is not None else None
+    if sp is not None:            # this rank's block of the sequence
+        lo, hi = sp.span(s)
+        h, rows = h[:, lo:hi], positions[:, lo:hi]
     cache: Dict[str, Any] = {}
     for si, seg in enumerate(build_segments(cfg)):
         mixer = mixer_for(seg, cfg)
         states = []
         for blk in model.segs[si].layers:
-            hn = rmsnorm(blk.ln1, h, cfg.norm_eps)
-            o, st = mixer.prefill_full(
-                blk, hn, cfg=cfg, seg=seg, positions=positions,
-                attn_chunk=attn_chunk, max_len=max_len, a3=a3,
-                select_shards=select_shards)
-            h, _ = _ffn_block(blk, h + o, cfg)
+            with layer_scope(blk):
+                hn = rmsnorm(blk.ln1, h, cfg.norm_eps)
+                kw = dict(cfg=cfg, seg=seg, attn_chunk=attn_chunk,
+                          max_len=max_len, a3=a3,
+                          select_shards=select_shards)
+                if sp is None:
+                    o, st = mixer.prefill_full(blk, hn, positions=positions,
+                                               **kw)
+                elif seg.kind == BlockKind.ATTENTION:
+                    o, st = mixer.prefill_full(blk, hn, positions=rows, **kw)
+                else:             # a scan: every row, on every rank
+                    o, st = mixer.prefill_full(
+                        blk, all_gather(hn, 1, sp.size, sp.group),
+                        positions=positions, **kw)
+                    o = o[:, lo:hi]
+                h, _ = _ffn_block(blk, h + o, cfg)
             states.append(st)
         cache[f"seg{si}"] = {name: torch.stack([st[name] for st in states])
                              for name in states[0]}
-    return unembed(model, cfg, h[:, -1:])[:, 0], cache
+    last = h[:, -1:]
+    if sp is not None:            # the last row is the last rank's
+        last = all_gather(last, 1, sp.size, sp.group)[:, -1:]
+    return unembed(model, cfg, last)[:, 0], cache
 
 
 def prefill_chunk(
@@ -495,14 +523,16 @@ def prefill_chunk(
     ``sort_lanes`` (default: ``length > 0``) fold the ring into the
     sorted key columns; ``sort_any`` says on the host whether any lane
     does (read from the device when not given)."""
+    tokens = _lanes(tokens)
     b, c = tokens.shape
     h = embed_tokens(model, cfg, tokens)
     dev = h.device
-    pos = torch.as_tensor(pos, device=dev).to(torch.int32)
-    length = torch.as_tensor(length, device=dev).to(torch.int32)
+    pos = _lanes(torch.as_tensor(pos, device=dev).to(torch.int32))
+    length = _lanes(torch.as_tensor(length, device=dev).to(torch.int32))
     if sort_lanes is None:
-        sort_lanes = length > 0
-    sort_lanes = torch.as_tensor(sort_lanes, device=dev).bool()
+        sort_lanes = length > 0                     # this rank's lanes
+    else:
+        sort_lanes = _lanes(torch.as_tensor(sort_lanes, device=dev).bool())
     if sort_any is None:
         sort_any = bool(sort_lanes.any())
     offs = torch.arange(c, dtype=torch.int32, device=dev)
@@ -511,13 +541,14 @@ def prefill_chunk(
     for si, seg in enumerate(build_segments(cfg)):
         mixer = mixer_for(seg, cfg)
         for l, blk in enumerate(model.segs[si].layers):
-            hn = rmsnorm(blk.ln1, h, cfg.norm_eps)
-            o = mixer.prefill_chunk(
-                blk, _layer_state(cache[f"seg{si}"], l), hn, cfg=cfg,
-                seg=seg, positions=positions, valid_tok=valid_tok, pos=pos,
-                length=length, sort_lanes=sort_lanes, sort_any=sort_any,
-                a3=a3)
-            h, _ = _ffn_block(blk, h + o, cfg)
+            with layer_scope(blk):
+                hn = rmsnorm(blk.ln1, h, cfg.norm_eps)
+                o = mixer.prefill_chunk(
+                    blk, _layer_state(cache[f"seg{si}"], l), hn, cfg=cfg,
+                    seg=seg, positions=positions, valid_tok=valid_tok,
+                    pos=pos, length=length, sort_lanes=sort_lanes,
+                    sort_any=sort_any, a3=a3)
+                h, _ = _ffn_block(blk, h + o, cfg)
     last = torch.clamp(length - 1, 0, c - 1).long()
     hl = h[torch.arange(b, device=dev), last][:, None]
     return unembed(model, cfg, hl)[:, 0], cache
@@ -542,22 +573,39 @@ def decode_step(model: Decoder, cfg: ModelConfig, cache: Dict[str, Any],
     sort, summed over each segment's layers and then over segments, as
     the reference sums them. The logits and cache come from the
     identical ops either way."""
+    b = (token if token is not None else input_embed).shape[0]
+    pos = torch.as_tensor(pos, device=model.device).to(torch.int32).expand(b)
+    return _decode_step(model, cfg, cache, _lanes(token), _lanes(pos),
+                        input_embed=_lanes(input_embed), a3=a3, probe=probe)
+
+
+def _lanes(x):
+    """This rank's lanes of a global [B, ...] serving input (all of it
+    off a mesh)."""
+    sh = current_shardings()
+    return x if x is None or sh is None else sh.cut_lanes(x)
+
+
+def _decode_step(model: Decoder, cfg: ModelConfig, cache: Dict[str, Any],
+                 token: Optional[torch.Tensor], pos: torch.Tensor, *,
+                 input_embed: Optional[torch.Tensor] = None,
+                 a3: A3Config = A3Config(), probe: bool = False):
+    """:func:`decode_step` on this rank's lanes (``pos`` [b])."""
     h = _embed_input(model, cfg, None if token is None else token[:, None],
                      None if input_embed is None else input_embed[:, None])
-    pos = torch.as_tensor(pos, device=h.device).to(torch.int32).expand(
-        h.shape[0])
     probe_sum, probe_layers = None, 0
     for si, seg in enumerate(build_segments(cfg)):
         mixer = mixer_for(seg, cfg)
         seg_probe = []
         for l, blk in enumerate(model.segs[si].layers):
-            hn = rmsnorm(blk.ln1, h, cfg.norm_eps)
             state = _layer_state(cache[f"seg{si}"], l)
-            o = mixer.decode_step(blk, state, hn, cfg=cfg, seg=seg, pos=pos,
-                                  a3=a3, probe=probe)
+            with layer_scope(blk):
+                hn = rmsnorm(blk.ln1, h, cfg.norm_eps)
+                o = mixer.decode_step(blk, state, hn, cfg=cfg, seg=seg,
+                                      pos=pos, a3=a3, probe=probe)
+                h, _ = _ffn_block(blk, h + o, cfg)
             if "_probe" in state:
                 seg_probe.append(state["_probe"])
-            h, _ = _ffn_block(blk, h + o, cfg)
         if seg_probe:
             pr = torch.stack(seg_probe).sum(0)
             probe_sum = pr if probe_sum is None else probe_sum + pr
@@ -585,7 +633,7 @@ def resort_sorted_keys(cache: Dict[str, Any], pos: torch.Tensor,
         due = (pos >= 0) & (pos - sc["sorted_upto"][0] >= resort_every)
         if not (bool(due.any()) if any_due is None else any_due):
             continue
-        sk = sort_key_columns(sc["k"])
+        sk = sort_ring(sc["k"], current_shardings())
         d5 = due[None, :, None, None, None]
         sc["sk_vals"].copy_(torch.where(d5, sk.values, sc["sk_vals"]))
         sc["sk_rows"].copy_(torch.where(d5, sk.rows, sc["sk_rows"]))
@@ -646,6 +694,9 @@ def decode_block(
     ride along at ``pos = -1`` (ring entries -1, cache untouched). A lane
     whose logits go non-finite emits :data:`POISON` once and freezes.
 
+    On a mesh: this rank's lanes of every output, the sampling over the
+    whole logits row (gathered over the vocab axis).
+
     ``probe=True`` (A^3 telemetry) returns ``(ring, carry, cache, probe
     [B, 3])``: per lane, over the block's advanced steps only, (samples,
     sum of the step's mean candidate count, sum of its captured score
@@ -654,10 +705,14 @@ def decode_block(
     token and cache path runs the identical ops."""
     dev = token.device
     b = token.shape[0]
-    pos = torch.as_tensor(pos, device=dev).to(torch.int32).expand(b)
-    remaining = torch.as_tensor(steps_left, device=dev).to(
-        torch.int32).expand(b)
-    token = token.to(torch.int32)
+    pos = _lanes(torch.as_tensor(pos, device=dev).to(torch.int32).expand(b))
+    remaining = _lanes(torch.as_tensor(steps_left, device=dev).to(
+        torch.int32).expand(b))
+    token = _lanes(token.to(torch.int32))
+    sample_ids = _lanes(sample_ids)
+    b = token.shape[0]
+    sh = current_shardings()
+    vocab_split = sh is not None and sh.is_split(model)
     do_resort = resort_every > 0 and a3.mode != A3Mode.OFF
     ring = []
     acc = torch.zeros((b, 3), device=dev) if probe else None
@@ -669,11 +724,13 @@ def decode_block(
                                None if resort_plan is None
                                else resort_plan[t])
         if probe:
-            logits, cache, (psum, players) = decode_step(
+            logits, cache, (psum, players) = _decode_step(
                 model, cfg, cache, token, eff_pos, a3=a3, probe=True)
         else:
-            logits, cache = decode_step(model, cfg, cache, token, eff_pos,
-                                        a3=a3)
+            logits, cache = _decode_step(model, cfg, cache, token, eff_pos,
+                                         a3=a3)
+        if vocab_split:
+            logits = sh.gather(logits, -1)
         nxt = sample_logits(logits, temperature=temperature, key=key,
                             pos=eff_pos, ids=sample_ids)
         ok = torch.isfinite(logits).all(-1) & (token != POISON)

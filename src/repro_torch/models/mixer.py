@@ -54,13 +54,15 @@ from repro_torch.core.candidate_selection import SortedKeys, \
     slice_sorted_keys, sort_key_columns
 from repro_torch.core.quantization import dequantize_int8_block, \
     quantize_int8_block
+from repro_torch.kernels.decode_attention import kernel as dk
 from repro_torch.kernels.decode_attention.ops import a3_decode_attention, \
-    a3_decode_attention_compact
+    a3_decode_attention_compact, a3_decode_mask, combine_partials
 from repro_torch.models import xlstm as xl
 from repro_torch.models.rglru import CONV_WIDTH, rglru_apply_scan, \
     rglru_chunk_step, rglru_decode_step
-from repro_torch.models.common import NEG_INF, apply_rope, \
-    attention_out, attention_qkv, attention_xla_flash, current_shardings, \
+from repro_torch.models.common import NEG_INF, all_gather, \
+    all_reduce_sum, apply_rope, attention_out, attention_qkv, \
+    attention_xla_flash, current_shardings, kfull, klinear, nan_max, \
     shard_act
 
 FULL_WINDOW = 1 << 30
@@ -220,12 +222,13 @@ def _kv_of_heads(t: torch.Tensor, q0: int, nq: int, group: int,
 
 def _attn_forward_heads(attn, hn: torch.Tensor, sh, *, cfg: ModelConfig,
                         seg: SegmentSpec, positions: torch.Tensor,
-                        attn_chunk: int) -> torch.Tensor:
+                        attn_chunk: int, want_kv: bool = False):
     """Training attention on a mesh where the model axis divides the q
     heads (``act_specs["q"]``): this rank's q heads, the k/v heads they
     read (its own kv heads, or its columns of k and v gathered over the
     axis when the axis does not divide the kv heads), its rows of ``wo``,
-    and the partial outputs summed over the axis."""
+    and the partial outputs summed over the axis. ``want_kv`` (prefill):
+    also every kv head's k (roped) and v, [B, S, Hkv, D]."""
     b, s, _ = hn.shape
     hd, hkv = cfg.resolved_head_dim, cfg.num_kv_heads
     group = cfg.num_heads // hkv
@@ -233,32 +236,40 @@ def _attn_forward_heads(attn, hn: torch.Tensor, sh, *, cfg: ModelConfig,
     nq = attn.wq.weight.shape[0] // hd
     q0 = sh.index * nq
     q = F.linear(x, attn.wq.weight).reshape(b, s, nq, hd)
-    kv = []
+    kv, whole = [], []
     for w in (attn.wk.weight, attn.wv.weight):
         if w.shape[0] == hkv * hd:        # whole: its gradient is partial
             t, kv0 = F.linear(x, sh.enter(w)), 0
+            full = t
         elif hkv % sh.size == 0:          # this rank's kv heads
             t, kv0 = F.linear(x, w), sh.index * (hkv // sh.size)
+            full = sh.gather(t, -1) if want_kv else None
         else:                             # its columns, gathered
             t, kv0 = sh.gather(F.linear(x, w), -1), 0
+            full = t
         kv.append(_kv_of_heads(t.reshape(b, s, -1, hd), q0, nq, group, kv0))
+        whole.append(full)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(kv[0], positions, cfg.rope_theta)
     o = attention_xla_flash(q.transpose(1, 2), k.transpose(1, 2),
                             kv[1].transpose(1, 2), causal=True,
                             window=_window_arg(seg), chunk=attn_chunk)
-    return sh.leave(attention_out(attn, o))
+    out = sh.leave(attention_out(attn, o))
+    if not want_kv:
+        return out
+    return out, apply_rope(whole[0].reshape(b, s, hkv, hd), positions,
+                           cfg.rope_theta), whole[1].reshape(b, s, hkv, hd)
 
 
 def _attn_forward_rows(attn, hn: torch.Tensor, sh, *, cfg: ModelConfig,
                        seg: SegmentSpec, positions: torch.Tensor,
-                       attn_chunk: int) -> torch.Tensor:
+                       attn_chunk: int, want_kv: bool = False):
     """Training attention on a mesh where the model axis does not divide
     the q heads: ``act_specs["q"]`` puts the q rows on the axis. This
     rank projects its block of the sequence with the whole weights
     (their gradients summed over the axis), gathers k and v over the
     axis, attends from its rows to every key, and the output rows are
-    gathered back."""
+    gathered back. ``want_kv``: also k and v, [B, S, Hkv, D]."""
     b, s, _ = hn.shape
     hd, theta = cfg.resolved_head_dim, cfg.rope_theta
     lo, hi = sh.share(s)
@@ -277,7 +288,126 @@ def _attn_forward_rows(attn, hn: torch.Tensor, sh, *, cfg: ModelConfig,
                             window=_window_arg(seg), chunk=attn_chunk,
                             q_offset=lo)
     o = F.linear(o.transpose(1, 2).reshape(b, hi - lo, -1), w["wo"])
-    return sh.gather(o, 1, same=True)
+    out = sh.gather(o, 1, same=True)
+    return (out, k, v) if want_kv else out
+
+
+# ---------------------------------------------------------------------------
+# serving attention, on one device or on a mesh whose KV ring is split
+# ---------------------------------------------------------------------------
+
+def _serving_plan():
+    """The rank's plan where the serving dispatch runs on a mesh (the KV
+    rings laid out over ranks), else None: one device."""
+    sh = current_shardings()
+    return sh if sh is not None and sh.ring is not None else None
+
+
+def _ring_span(sh, seg: SegmentSpec, w: int):
+    """(ring, lo, hi, w): the :class:`~models.common.Ring` this segment's
+    ring splits over (None: whole here) and this rank's rows [lo, hi) of
+    it; ``w`` is the ring's rows on one device, the plan's ``max_len``
+    sizes it on a mesh."""
+    if sh is None:
+        return None, 0, w, w
+    w = cache_len_for(seg, sh.max_len)
+    ring = sh.ring_of(w)
+    lo, hi = ring.span(w) if ring is not None else (0, w)
+    return ring, lo, hi, w
+
+
+def _sort_blocks(k: torch.Tensor, blocks: int) -> SortedKeys:
+    """The per-column sort of each of ``blocks`` contiguous blocks of the
+    ring rows of k [..., w, D] (block-local rows)."""
+    w, d = k.shape[-2:]
+    sk = sort_key_columns(k.reshape(*k.shape[:-2], blocks, w // blocks, d))
+    return SortedKeys(sk.values.reshape(k.shape), sk.rows.reshape(k.shape))
+
+
+def sort_ring(k: torch.Tensor, sh=None) -> SortedKeys:
+    """The A^3 sort of global-attention rings k [..., w, D] that a chunked
+    prefill and a re-sort (``resort_sorted_keys``) fold the ring into:
+    the whole ring's columns, global row ids. On a mesh whose ring is
+    split the rings are gathered over its ranks (a layer at a time) and
+    this rank keeps its rows [lo, hi) of each sorted column, the slice
+    one device's sort has there: the compact decode reads each slice as
+    its selection blocks, as one device reads the whole sort."""
+    ring = sh.ring_of(sh.max_len) if sh is not None and sh.ring is not None \
+        else None
+    if ring is None:
+        return sort_key_columns(k)
+    lo, hi = ring.span(k.shape[-2] * ring.size)
+    if k.dim() > 4:                      # [L, ...]: one layer at a time
+        parts = [sort_ring(kl, sh) for kl in k]
+        return SortedKeys(torch.stack([p.values for p in parts]),
+                          torch.stack([p.rows for p in parts]))
+    sk = sort_key_columns(all_gather(k, k.dim() - 2, ring.size, ring.group))
+    return SortedKeys(sk.values[..., lo:hi, :].contiguous(),
+                      sk.rows[..., lo:hi, :].contiguous())
+
+
+def _prefill_sort_blocks(ns: int, ring, w: int) -> int:
+    """The selection blocks a whole-prompt prefill sorts in this rank's
+    ring rows: ``ns`` (the ``select_shards``) over the ring's ranks, which
+    must divide it (the compact decode reads the slice as whole blocks);
+    on a ring held whole, ``ns`` where it divides the ring, else 1."""
+    if ring is None:
+        return ns if ns > 0 and w % ns == 0 else 1
+    if ns <= 0 or ns % ring.size or w % ns:
+        raise ValueError(f"select_shards {ns} must be a multiple of the "
+                         f"{ring.size} ranks the ring of {w} rows is split "
+                         f"over, and divide the ring")
+    return ns // ring.size
+
+
+def _proj_cols(x: torch.Tensor, w: torch.Tensor, n: int, sh) -> torch.Tensor:
+    """``x @ w.T`` with all ``n`` output columns: a split attention holds
+    its columns of ``w``, and the products are gathered over the axis."""
+    y = klinear(x, w, sh)
+    return y if y.shape[-1] == n else sh.gather(y, -1)
+
+
+def _out_cols(attn, o: torch.Tensor, h0: int, sh, d: int) -> torch.Tensor:
+    """``wo`` on the attention output o [B, nh, S, D] of the q heads from
+    ``h0`` on: with all of ``wo``, or with this rank's rows of it (a
+    split attention: its columns of o, a partial output summed over the
+    axis), back to all ``d`` columns of the hidden state."""
+    b, nh, s, hd = o.shape
+    flat = o.transpose(1, 2).reshape(b, s, nh * hd)
+    wo = attn.wo.weight
+    if sh is None or not sh.is_split(attn):            # o holds every head
+        return kfull(F.linear(flat, wo), d, sh)
+    cols = wo.shape[1]
+    lo = sh.index * cols - h0 * hd
+    return kfull(sh.leave(F.linear(flat[..., lo:lo + cols], wo)), d, sh)
+
+
+def _serve_qkv(attn, hn: torch.Tensor, positions: torch.Tensor,
+               cfg: ModelConfig, sh):
+    """q [B, Hq, S, D], k/v [B, Hkv, S, D] of every head (on a mesh from
+    this rank's columns of the projections, gathered over the axis)."""
+    b, s, _ = hn.shape
+    hd, hq, hkv = cfg.resolved_head_dim, cfg.num_heads, cfg.num_kv_heads
+    q = _proj_cols(hn, attn.wq.weight, hq * hd, sh).reshape(b, s, hq, hd)
+    k = _proj_cols(hn, attn.wk.weight, hkv * hd, sh).reshape(b, s, hkv, hd)
+    v = _proj_cols(hn, attn.wv.weight, hkv * hd, sh).reshape(b, s, hkv, hd)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    return q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+
+
+def _ring_rows(s: int, w: int, lo: int, hi: int, device):
+    """(positions, slots): the last min(s, w) of ``s`` prompt positions
+    that land in ring slots [lo, hi) (slot p % w), and their slots less
+    ``lo``. They span at most w positions, so at most two runs, whose
+    bounds the shapes decide, not the data."""
+    start = s - min(s, w)
+    base = start - start % w
+    runs = [(max(start, b + lo), min(s, b + hi)) for b in (base, base + w)]
+    rows = torch.cat([torch.arange(a, e, device=device)
+                      for a, e in runs if a < e] or
+                     [torch.zeros(0, dtype=torch.long, device=device)])
+    return rows, torch.remainder(rows, w) - lo
 
 
 def _attn_prefill_full(layer, hn: torch.Tensor, *, cfg: ModelConfig,
@@ -286,65 +416,62 @@ def _attn_prefill_full(layer, hn: torch.Tensor, *, cfg: ModelConfig,
                        select_shards: int, **_
                        ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Whole-prompt prefill of one layer -> (output, this layer's
-    state: rings holding the last min(s, w) positions, A^3 sort)."""
-    b, s, _ = hn.shape
+    state: rings holding the last min(s, w) positions, A^3 sort of each
+    selection block). On a mesh the output splits as in training (this
+    rank's q heads where the axis divides them, else its q rows, or at a
+    batch smaller than the data axis its block of the sequence), and
+    each rank keeps its lanes' ring rows of every kv head (the heads
+    gathered over the axis, its rows cut) and sorts its blocks."""
+    sh = _serving_plan()
+    b = hn.shape[0]
     hd = cfg.resolved_head_dim
-    w = cache_len_for(seg, max_len)
-    q, k, v = attention_qkv(layer.attn, hn, positions, cfg.num_heads,
-                            cfg.num_kv_heads, hd, cfg.rope_theta)
-    o = attention_xla_flash(q, k, v, causal=True, window=_window_arg(seg),
-                            chunk=attn_chunk)
-    kc = torch.zeros((b, k.shape[1], w, hd), dtype=k.dtype, device=k.device)
+    kw = dict(cfg=cfg, seg=seg, positions=positions, attn_chunk=attn_chunk,
+              want_kv=True)
+    if sh is not None and sh.sp is not None:
+        # this rank's block of the rows, the whole weights; k and v
+        # gathered over the sequence's ranks
+        sp = sh.sp
+        q, k, v = attention_qkv(layer.attn, hn, positions, cfg.num_heads,
+                                cfg.num_kv_heads, hd, cfg.rope_theta)
+        k, v = (all_gather(t, 2, sp.size, sp.group) for t in (k, v))
+        o = attention_xla_flash(q, k, v, causal=True,
+                                window=_window_arg(seg), chunk=attn_chunk,
+                                q_offset=sp.index * hn.shape[1])
+        out = attention_out(layer.attn, o)
+        k, v = k.transpose(1, 2), v.transpose(1, 2)
+    elif sh is not None and sh.is_split(layer.attn):
+        out, k, v = _attn_forward_heads(layer.attn, hn, sh, **kw)
+    elif sh is not None and sh.seq_split("q"):
+        out, k, v = _attn_forward_rows(layer.attn, hn, sh, **kw)
+    else:
+        q, k, v = attention_qkv(layer.attn, hn, positions, cfg.num_heads,
+                                cfg.num_kv_heads, hd, cfg.rope_theta)
+        o = attention_xla_flash(q, k, v, causal=True,
+                                window=_window_arg(seg), chunk=attn_chunk)
+        out = attention_out(layer.attn, o)
+        k, v = k.transpose(1, 2), v.transpose(1, 2)        # [B, S, H, D]
+    s = k.shape[1]
+    ring, lo, hi, w = _ring_span(sh, seg, cache_len_for(seg, max_len))
+    rows, dst = _ring_rows(s, w, lo, hi, hn.device)
+    kc = torch.zeros((b, k.shape[2], hi - lo, hd), dtype=k.dtype,
+                     device=k.device)
     vc = torch.zeros_like(kc)
-    take = min(s, w)
-    slots = torch.remainder(torch.arange(s - take, s, device=k.device), w)
-    kc[:, :, slots] = k[:, :, s - take:]
-    vc[:, :, slots] = v[:, :, s - take:]
+    kc[:, :, dst] = k[:, rows].transpose(1, 2)
+    vc[:, :, dst] = v[:, rows].transpose(1, 2)
     state = {"k": kc, "v": vc}
     if seg.uses_a3(a3):
-        ns = select_shards if w % max(select_shards, 1) == 0 else 1
-        sk = sort_key_columns(kc.reshape(b, kc.shape[1], ns, w // ns, hd))
-        state["sk_vals"] = sk.values.reshape(kc.shape)
-        state["sk_rows"] = sk.rows.reshape(kc.shape)       # block-local
+        sk = _sort_blocks(kc, _prefill_sort_blocks(select_shards, ring, w))
+        state["sk_vals"], state["sk_rows"] = sk.values, sk.rows  # block-local
         state["sorted_upto"] = torch.full((b,), s, dtype=torch.int32,
-                                          device=k.device)
-    return attention_out(layer.attn, o), state
+                                          device=hn.device)
+    return out, state
 
 
-def _attn_prefill_chunk(layer, state: Dict[str, torch.Tensor],
-                        hn: torch.Tensor, *, cfg: ModelConfig,
-                        seg: SegmentSpec, positions: torch.Tensor,
-                        valid_tok: torch.Tensor, pos: torch.Tensor,
-                        length: torch.Tensor, sort_lanes: torch.Tensor,
-                        sort_any: bool, a3: bool, **_) -> torch.Tensor:
-    """One ragged prompt chunk through one layer; updates the layer's
-    state views in place and returns the mixer output."""
-    b, c, _ = hn.shape
-    hd = cfg.resolved_head_dim
-    hkv, group = cfg.num_kv_heads, cfg.num_heads // cfg.num_kv_heads
-    q, k, v = attention_qkv(layer.attn, hn, positions, cfg.num_heads, hkv,
-                            hd, cfg.rope_theta)                # [B, H, C, D]
-    # a lane starting a new prompt (pos 0) reads its ring as zeros: the
-    # slot may hold a finished request's rows
-    fresh = ((pos == 0) & (length > 0))[:, None, None, None]
-    ck = torch.where(fresh, 0, state["k"])
-    cv = torch.where(fresh, 0, state["v"])
-    w = ck.shape[2]
-    window = seg.window
-
-    # attention BEFORE the ring write: chunk queries see the ring as it
-    # stood before this chunk plus the in-chunk keys
-    scale = hd ** -0.5
-    qf = (q.float() * scale).reshape(b, hkv, group, c, hd)
-    offs = torch.arange(c, dtype=torch.int32, device=hn.device)
-    slots = torch.arange(w, dtype=torch.int32, device=hn.device)
-    last_prev = (pos - 1)[:, None]
-    slot_pos = last_prev - torch.remainder(last_prev - slots[None, :], w)
-    ring_mask = (slot_pos[:, None, :] >= 0) & \
-        (slot_pos[:, None, :] > positions[:, :, None] - window)   # [B,C,w]
-    chunk_mask = (offs[None, :, None] >= offs[None, None, :]) & \
-        (offs[None, :, None] - offs[None, None, :] < window) & \
-        valid_tok[:, None, :]                                      # [B,C,C]
+def _chunk_softmax(qf, ck, cv, k, v, ring_mask, chunk_mask):
+    """One softmax of the chunk's queries qf [B, Hkv, G, C, D] (scaled,
+    float32) over the ring ck/cv [B, Hkv, w, D] (before this chunk's
+    write) and the chunk's own keys k/v [B, Hkv, C, D], under ring_mask
+    [B, C, w] and chunk_mask [B, C, C] -> float32 [B, Hkv, G, C, D]."""
     mask = torch.cat([ring_mask, chunk_mask], -1)[:, None, None]
     s = torch.cat([torch.einsum("bhgqd,bhkd->bhgqk", qf, ck.float()),
                    torch.einsum("bhgqd,bhkd->bhgqk", qf, k.float())], -1)
@@ -354,34 +481,108 @@ def _attn_prefill_chunk(layer, state: Dict[str, torch.Tensor],
     l = p.sum(-1, keepdim=True)
     vcat = torch.cat([cv, v], 2).float()                       # [B,Hkv,w+C,D]
     acc = torch.einsum("bhgqk,bhkd->bhgqd", p, vcat)
-    o = torch.where(l == 0.0, 0.0, acc / torch.where(l == 0.0, 1.0, l))
-    o = o.reshape(b, cfg.num_heads, c, hd).to(hn.dtype)
+    return torch.where(l == 0.0, 0.0, acc / torch.where(l == 0.0, 1.0, l))
+
+
+def _chunk_partial(qf, keys, vals, mask):
+    """(output, log-sum-exp) of qf [B, Hkv, G, C, D] (scaled, float32)
+    against keys/vals [B, Hkv, K, D] under mask [B, 1, 1, C, K]."""
+    sc = torch.where(mask, torch.einsum("bhgqd,bhkd->bhgqk", qf,
+                                        keys.float()), NEG_INF)
+    m = sc.amax(-1)
+    p = torch.where(mask, torch.exp(sc - m[..., None]), 0.0)
+    lsum = p.sum(-1)
+    acc = torch.einsum("bhgqk,bhkd->bhgqd", p, vals.float())
+    o = torch.where(lsum[..., None] == 0.0, 0.0,
+                    acc / torch.where(lsum == 0.0, 1.0, lsum)[..., None])
+    return o, torch.where(lsum == 0.0, NEG_INF, m + torch.log(lsum))
+
+
+def _attn_prefill_chunk(layer, state: Dict[str, torch.Tensor],
+                        hn: torch.Tensor, *, cfg: ModelConfig,
+                        seg: SegmentSpec, positions: torch.Tensor,
+                        valid_tok: torch.Tensor, pos: torch.Tensor,
+                        length: torch.Tensor, sort_lanes: torch.Tensor,
+                        sort_any: bool, a3: bool, **_) -> torch.Tensor:
+    """One ragged prompt chunk through one layer; updates the layer's
+    state views in place and returns the mixer output. On a mesh each
+    rank scores every q head against its ring rows (a partial softmax,
+    combined over the ring's ranks) and its q heads against the chunk's
+    own keys (all heads where the axis does not divide them), merges the
+    two, and writes the ring rows it holds."""
+    sh = _serving_plan()
+    attn = layer.attn
+    b, c, _ = hn.shape
+    hd, hq, hkv = cfg.resolved_head_dim, cfg.num_heads, cfg.num_kv_heads
+    group = hq // hkv
+    q, k, v = _serve_qkv(attn, hn, positions, cfg, sh)        # [B, H, C, D]
+    # a lane starting a new prompt (pos 0) reads its ring as zeros: the
+    # slot may hold a finished request's rows
+    fresh = ((pos == 0) & (length > 0))[:, None, None, None]
+    ck = torch.where(fresh, 0, state["k"])
+    cv = torch.where(fresh, 0, state["v"])
+    ring, lo, hi, w = _ring_span(sh, seg, ck.shape[2])
+    window = seg.window
+
+    # attention BEFORE the ring write: chunk queries see the ring as it
+    # stood before this chunk plus the in-chunk keys
+    scale = hd ** -0.5
+    qf = (q.float() * scale).reshape(b, hkv, group, c, hd)
+    offs = torch.arange(c, dtype=torch.int32, device=hn.device)
+    slots = torch.arange(lo, hi, dtype=torch.int32, device=hn.device)
+    last_prev = (pos - 1)[:, None]
+    slot_pos = last_prev - torch.remainder(last_prev - slots[None, :], w)
+    ring_mask = (slot_pos[:, None, :] >= 0) & \
+        (slot_pos[:, None, :] > positions[:, :, None] - window)   # [B,C,w']
+    chunk_mask = (offs[None, :, None] >= offs[None, None, :]) & \
+        (offs[None, :, None] - offs[None, None, :] < window) & \
+        valid_tok[:, None, :]                                      # [B,C,C]
+    # the chunk's own keys: this rank's q heads where the axis divides them
+    h0, h1 = sh.share(hq) if (sh is not None and sh.is_split(attn)
+                              and hq % sh.size == 0) else (0, hq)
+    if (ring is None or ring.size == 1) and (h0, h1) == (0, hq):
+        # the whole ring and every head here: one softmax
+        o = _chunk_softmax(qf, ck, cv, k, v, ring_mask, chunk_mask)
+        o = o.reshape(b, hq, c, hd)
+    else:
+        o_r, lse_r = _chunk_partial(qf, ck, cv, ring_mask[:, None, None])
+        o_r, lse_r = combine_partials(
+            o_r, lse_r, group=ring.group if ring is not None else None,
+            return_stat=True)
+        kv_of = torch.arange(h0, h1, device=hn.device) // group
+        o_c, lse_c = _chunk_partial(
+            qf.reshape(b, hq, 1, c, hd)[:, h0:h1], k[:, kv_of], v[:, kv_of],
+            chunk_mask[:, None, None])
+        o_r = o_r.reshape(b, hq, c, hd)[:, h0:h1]
+        lse_r = lse_r.reshape(b, hq, c)[:, h0:h1]
+        o = combine_partials([o_r, o_c[:, :, 0]], [lse_r, lse_c[:, :, 0]])
+    out = _out_cols(attn, o.to(hn.dtype), h0, sh, hn.shape[-1])
 
     # ragged ring write: slot s takes the chunk position p_s in
     # (last - w, last] with p_s % w == s when that position lies in this
     # lane's chunk; every other slot (and every row of a length-0 lane)
-    # keeps its value
+    # keeps its value. A rank writes the slots it holds.
     last = (pos + length - 1)[:, None]
-    p_s = last - torch.remainder(last - slots[None, :], w)     # [B, w]
+    p_s = last - torch.remainder(last - slots[None, :], w)     # [B, w']
     written = (length[:, None] > 0) & (p_s >= pos[:, None])
     src = (p_s - pos[:, None]).clamp(0, c - 1).long()
-    src = src[:, None, :, None].expand(b, hkv, w, hd)
+    src = src[:, None, :, None].expand(b, hkv, hi - lo, hd)
     sel = written[:, None, :, None]
     state["k"].copy_(torch.where(sel, torch.gather(k, 2, src), ck))
     state["v"].copy_(torch.where(sel, torch.gather(v, 2, src), cv))
 
     if a3 and "sk_vals" in state and sort_any:
         # incremental comprehension-time preprocessing: lanes on their
-        # final chunk fold the whole ring into the per-column sort (the
-        # caller decides sort_any on the host: no device read here)
-        sk = sort_key_columns(state["k"])
+        # final chunk fold the ring into the per-column sort (the caller
+        # decides sort_any on the host: no device read here)
+        sk = sort_ring(state["k"], sh)
         l4 = sort_lanes[:, None, None, None]
         state["sk_vals"].copy_(torch.where(l4, sk.values, state["sk_vals"]))
         state["sk_rows"].copy_(torch.where(l4, sk.rows, state["sk_rows"]))
         state["sorted_upto"].copy_(torch.where(
             sort_lanes, (pos + length).to(torch.int32),
             state["sorted_upto"]))
-    return attention_out(layer.attn, o)
+    return out
 
 
 def _attn_decode_step(layer, state: Dict[str, torch.Tensor],
@@ -392,37 +593,70 @@ def _attn_decode_step(layer, state: Dict[str, torch.Tensor],
     into the ring in place and attends over it. With ``probe`` an A^3
     layer with a cached sort also leaves its quality probe, ``[B, 2]``
     (mean candidates, captured score mass), in ``state["_probe"]``; the
-    output runs the identical ops either way."""
-    hd = cfg.resolved_head_dim
-    q, k, v = attention_qkv(layer.attn, hn, pos[:, None], cfg.num_heads,
-                            cfg.num_kv_heads, hd, cfg.rope_theta)
+    output runs the identical ops either way. On a mesh every q head
+    (this rank's projection columns gathered over the axis) attends over
+    this rank's ring rows, the rank holding slot ``pos % w`` writes the
+    token there, the partials combine over the ring's ranks (#1's
+    log-sum-exp, or #3's row sums against the max over the ring), and
+    ``wo`` runs on this rank's columns, summed over the axis."""
+    sh = _serving_plan()
+    attn = layer.attn
+    b = hn.shape[0]
+    q, k, v = _serve_qkv(attn, hn, pos[:, None], cfg, sh)
+    q, k, v = q[:, :, 0], k[:, :, 0], v[:, :, 0]
     kc, vc = state["k"], state["v"]
-    _write_token(kc, k[:, :, 0], pos)
-    _write_token(vc, v[:, :, 0], pos)
-    w = kc.shape[2]
-    valid = _ring_valid_mask(w, pos, seg.window)               # [B, w]
+    ring, lo, hi, w = _ring_span(sh, seg, kc.shape[2])
+    at = pos
+    if sh is not None:               # the rank holding slot pos % w writes
+        slot = torch.remainder(pos, w)
+        at = torch.where((pos >= 0) & (slot >= lo) & (slot < hi),
+                         slot - lo, -1)
+    _write_token(kc, k, at)
+    _write_token(vc, v, at)
+    valid = _ring_valid_mask(w, pos, seg.window)[:, lo:hi]     # [B, w']
+    grp = ring.group if ring is not None else None
     use_a3 = seg.uses_a3(a3.mode != A3Mode.OFF)
     if use_a3 and "sk_vals" in state:
         # sorted keys cached at prefill; rows written since the last
         # re-sort get exact treatment
-        fresh = _ring_slot_positions(w, pos) >= state["sorted_upto"][:, None]
+        fresh = (_ring_slot_positions(w, pos)
+                 >= state["sorted_upto"][:, None])[:, lo:hi]
         o = a3_decode_attention_compact(
-            q[:, :, 0], kc, vc, valid, a3,
+            q, kc, vc, valid, a3,
             SortedKeys(state["sk_vals"], state["sk_rows"]),
-            fresh_mask=fresh, return_probe=probe)
+            fresh_mask=fresh, return_probe=probe, ring=ring)
         if probe:
             o, state["_probe"] = o
-    elif use_a3:
+    elif use_a3 and ring is None:
         # no cached sort: build one inline (single-shot use). The two-pass
         # pair tests every score against the whole ring's max, the exact
         # threshold rule of the oracle the reference's models decode
         # through; #1 advances its max a block_k tile at a time
-        o = a3_decode_attention(q[:, :, 0], kc, vc, valid, a3,
+        o = a3_decode_attention(q, kc, vc, valid, a3,
                                 sorted_keys=sort_key_columns(kc),
                                 exact_two_pass=True)
+    elif use_a3:
+        # the same on a split ring: the candidates of the whole ring
+        # (gathered over its ranks), #2 on this rank's rows, the max over
+        # the ring and #3 against it, so each rank keeps the one-device set
+        k_all = all_gather(kc, 2, ring.size, grp)
+        mask, thr = a3_decode_mask(q, k_all,
+                                   _ring_valid_mask(w, pos, seg.window), a3,
+                                   sorted_keys=sort_key_columns(k_all))
+        mask = mask[..., lo:hi].contiguous()
+        q = q.contiguous()
+        rm = nan_max(dk.rowmax(q, kc, mask), grp)
+        o, lsum = dk.attend(q, kc, vc, mask, rm, threshold=thr, partial=True)
+        o = combine_partials(o, lsum, stat="sum", group=grp)
+    elif ring is None:
+        o = a3_decode_attention(q, kc, vc, valid, A3Config())
     else:
-        o = a3_decode_attention(q[:, :, 0], kc, vc, valid, A3Config())
-    return attention_out(layer.attn, o[:, :, None, :])
+        mask = valid[:, None, :].expand(b, cfg.num_heads, hi - lo)
+        o, lse = dk.fused(q.contiguous(), kc, vc, mask.contiguous(),
+                          partial=True)
+        o = combine_partials(o, lse, group=grp)
+    return _out_cols(attn, o.to(hn.dtype)[:, :, None, :], 0, sh,
+                     hn.shape[-1])
 
 
 def _attn_init_pages(cfg: ModelConfig, seg: SegmentSpec, pages: int,
@@ -482,6 +716,10 @@ def _attn_gather_pages(state: Dict[str, torch.Tensor],
     donor prompt's leaf snapshot (:func:`slice_sorted_keys`; an int8
     snapshot is dequantized first) when there is one, else re-sorted
     from the gathered ring; either way ``sorted_upto`` becomes ``t``."""
+    sh = current_shardings()
+    if sh is not None and sh.pool is not None:
+        return _gather_pages_mesh(state, pool_seg, si, t, page_idx, row_off,
+                                  valid, sh, a3=a3, sk_snap=sk_snap)
     v4 = valid[None, None, :, None]
     out_dtype = state["k"].dtype
 
@@ -510,6 +748,55 @@ def _attn_gather_pages(state: Dict[str, torch.Tensor],
         state["sk_vals"][:, si] = sk.values
         state["sk_rows"][:, si] = sk.rows
         state["sorted_upto"][:, si] = t
+
+
+def _gather_pages_mesh(state, pool_seg, si, t, page_idx, row_off, valid,
+                       sh, *, a3, sk_snap=None) -> None:
+    """:func:`_attn_gather_pages` on a mesh: the pool is laid out as the
+    rings (this rank's pages and page rows, ``sh.pool``), so a slot's
+    source row may sit on any rank. Each rank reads (and dequantizes) the
+    matched rows it holds, zeros elsewhere, one all-reduce over the
+    pool's ranks gives every rank the lane's whole ring, and the rank
+    holding the lane keeps its ring rows and its rows of the whole ring's
+    sorted columns, as one device sorts them (a donor's sorted-key
+    snapshot on a split ring is refused)."""
+    pool = sh.pool
+    out_dtype = state["k"].dtype
+    w = page_idx.shape[0]
+    n_pages = pool_seg["k"].shape[1]
+    mine = valid & (page_idx >= pool.p0) & (page_idx < pool.p1) & \
+        (row_off >= pool.r0) & (row_off < pool.r1)
+    pg = (page_idx - pool.p0).clamp(0, n_pages - 1)
+    off = (row_off - pool.r0).clamp(0, pool.r1 - pool.r0 - 1)
+
+    def take(name):
+        g = pool_seg[name].permute(1, 3, 0, 2, 4)[pg, off]   # [w, L, H, hd]
+        g = g.permute(1, 2, 0, 3)                           # [L, H, w, hd]
+        if f"{name}_scale" in pool_seg:
+            sc = pool_seg[f"{name}_scale"][:, :, :, 0, 0][:, pg]
+            g = g.float() * sc.permute(0, 2, 1)[..., None]
+        g = torch.where(mine[None, None, :, None], g.to(out_dtype),
+                        torch.zeros((), dtype=out_dtype, device=g.device))
+        return all_reduce_sum(g, pool.group)
+
+    k_all, v_all = take("k"), take("v")
+    lanes = sh.lanes or (0, state["k"].shape[1])
+    if not lanes[0] <= si < lanes[1]:
+        return
+    ring = sh.ring_of(w)
+    lo, hi = ring.span(w) if ring is not None else (0, w)
+    li = si - lanes[0]
+    state["k"][:, li] = k_all[:, :, lo:hi]
+    state["v"][:, li] = v_all[:, :, lo:hi]
+    if a3 and "sk_vals" in state:
+        if sk_snap is not None and ring is not None:
+            raise NotImplementedError(
+                "a donor's sorted-key snapshot on a KV ring split over "
+                "ranks: the warm admission re-sorts instead")
+        sk = sort_key_columns(k_all)
+        state["sk_vals"][:, li] = sk.values[:, :, lo:hi]
+        state["sk_rows"][:, li] = sk.rows[:, :, lo:hi]
+        state["sorted_upto"][:, li] = t
 
 
 def _attn_snapshot(state: Dict[str, torch.Tensor], si: int
@@ -702,7 +989,13 @@ def _carry_snapshot(state: Dict[str, torch.Tensor], si: int
 
 def _carry_restore(state: Dict[str, torch.Tensor],
                    snap: Dict[str, torch.Tensor], si: int) -> None:
-    """In place: replay a boundary snapshot into lane ``si``."""
+    """In place: replay a boundary snapshot into lane ``si`` (on a mesh:
+    this rank's share of the snapshot, by the rank holding the lane)."""
+    sh = current_shardings()
+    if sh is not None and sh.lanes is not None:
+        if not sh.lanes[0] <= si < sh.lanes[1]:
+            return
+        si -= sh.lanes[0]
     for k, v in state.items():
         v[:, si] = snap[k][:, 0]
 

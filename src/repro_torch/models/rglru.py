@@ -19,6 +19,14 @@ chunks: a few dozen kernels per chunk, not a Python loop per token.
 Results differ from the reference's only by the association of the
 products.
 
+On a mesh (``models.common.ActShardings``) a split block computes this
+rank's channels of the model axis: its columns of ``w_in_gate`` /
+``w_in_rnn``, its taps of the conv, its ``lam``, the scan of its
+channels, and its rows of ``w_out``, whose partial outputs are summed
+over the axis. ``w_a`` and ``w_x`` read every channel of the conv output,
+so that is gathered over the axis, and each rank computes its output
+channels of them. The carried ``h`` and conv tail are its channels.
+
 Parameters are named as the reference's leaves: the dense projections
 ``w_in_gate``/``w_in_rnn``/``w_a``/``w_x``/``w_out`` are ``nn.Linear``
 weights ([d_out, d_in], the reference's transposed); ``conv_w`` [4, C]
@@ -33,7 +41,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from repro_torch.models.common import _linear, dense_init_, gelu
+from repro_torch.models.common import _linear, dense_init_, gelu, \
+    split_plan
 
 CONV_WIDTH = 4
 LRU_C = 8.0
@@ -86,11 +95,22 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     return (out + b.float()).to(x.dtype)
 
 
-def _lru_gates(p: RGLRU, xc: torch.Tensor
+def _in_proj(p: RGLRU, x: torch.Tensor, sh
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(gelu gate float32, rnn branch) of this rank's channels."""
+    if sh is not None:
+        x = sh.enter(x)
+    gate = gelu(F.linear(x, p.w_in_gate.weight).float())
+    return gate, F.linear(x, p.w_in_rnn.weight)
+
+
+def _lru_gates(p: RGLRU, xc: torch.Tensor, sh=None
                ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(a, b) of the recurrence h_t = a_t h_{t-1} + b_t, float32."""
-    r = torch.sigmoid(F.linear(xc, p.w_a.weight).float())
-    i = torch.sigmoid(F.linear(xc, p.w_x.weight).float())
+    """(a, b) of the recurrence h_t = a_t h_{t-1} + b_t, float32 (split:
+    ``w_a`` / ``w_x`` read the conv output of every channel)."""
+    xin = xc if sh is None else sh.gather(xc, -1)
+    r = torch.sigmoid(F.linear(xin, p.w_a.weight).float())
+    i = torch.sigmoid(F.linear(xin, p.w_x.weight).float())
     log_a = LRU_C * r * F.logsigmoid(p.lam.float())
     a = torch.exp(log_a)
     b = torch.sqrt(torch.clamp(1.0 - a * a, min=1e-12)) * (i * xc.float())
@@ -124,8 +144,9 @@ def _lru_scan_chunked(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor,
 
 
 def _out(p: RGLRU, gate: torch.Tensor, h: torch.Tensor,
-         dtype) -> torch.Tensor:
-    return F.linear((gate * h).to(dtype), p.w_out.weight)
+         dtype, sh=None) -> torch.Tensor:
+    y = F.linear((gate * h).to(dtype), p.w_out.weight)
+    return y if sh is None else sh.leave(y)
 
 
 def rglru_apply_scan(p: RGLRU, x: torch.Tensor,
@@ -136,17 +157,17 @@ def rglru_apply_scan(p: RGLRU, x: torch.Tensor,
     """Full-sequence block, x [B, S, D] -> (out [B, S, D], h_last [B, C]
     float32, conv tail [B, 3, C])."""
     bsz = x.shape[0]
-    gate = gelu(F.linear(x, p.w_in_gate.weight).float())
-    xr = F.linear(x, p.w_in_rnn.weight)
+    sh = split_plan(p)
+    gate, xr = _in_proj(p, x, sh)
     xc = _causal_conv(xr, p.conv_w, p.conv_b, conv_buf)
-    a, b = _lru_gates(p, xc)
+    a, b = _lru_gates(p, xc, sh)
     if h0 is None:
         h0 = torch.zeros((bsz, a.shape[-1]), device=x.device)
     h = _lru_scan_chunked(a, b, h0, chunk)
     prev = conv_buf if conv_buf is not None else \
         xr.new_zeros((bsz, CONV_WIDTH - 1, xr.shape[-1]))
     new_buf = torch.cat([prev.to(xr.dtype), xr], 1)[:, -(CONV_WIDTH - 1):]
-    return _out(p, gate, h, x.dtype), h[:, -1], new_buf
+    return _out(p, gate, h, x.dtype, sh), h[:, -1], new_buf
 
 
 def rglru_chunk_step(p: RGLRU, x: torch.Tensor, h0: torch.Tensor,
@@ -158,10 +179,10 @@ def rglru_chunk_step(p: RGLRU, x: torch.Tensor, h0: torch.Tensor,
     ``h_last`` is the state after each lane's last valid token, and the
     conv tail advances to each lane's last 3 valid rows (gathered per
     lane; a lane with no valid token keeps its tail)."""
-    gate = gelu(F.linear(x, p.w_in_gate.weight).float())
-    xr = F.linear(x, p.w_in_rnn.weight)
+    sh = split_plan(p)
+    gate, xr = _in_proj(p, x, sh)
     xc = _causal_conv(xr, p.conv_w, p.conv_b, conv_buf)
-    a, b = _lru_gates(p, xc)
+    a, b = _lru_gates(p, xc, sh)
     v = valid[..., None]
     a = torch.where(v, a, 1.0)
     b = torch.where(v, b, 0.0)
@@ -173,7 +194,7 @@ def rglru_chunk_step(p: RGLRU, x: torch.Tensor, h0: torch.Tensor,
     idx = length[:, None] + torch.arange(CONV_WIDTH - 1, device=x.device)
     new_buf = torch.gather(
         ext, 1, idx[..., None].expand(-1, -1, ext.shape[-1]))
-    return _out(p, gate, h, x.dtype), h[:, -1], new_buf
+    return _out(p, gate, h, x.dtype, sh), h[:, -1], new_buf
 
 
 def rglru_decode_step(p: RGLRU, x: torch.Tensor, h: torch.Tensor,
@@ -181,10 +202,10 @@ def rglru_decode_step(p: RGLRU, x: torch.Tensor, h: torch.Tensor,
                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One token: x [B, 1, D], h [B, C] float32, conv_buf [B, 3, C] ->
     (out [B, 1, D], h, conv_buf)."""
-    gate = gelu(F.linear(x, p.w_in_gate.weight).float())
-    xr = F.linear(x, p.w_in_rnn.weight)
+    sh = split_plan(p)
+    gate, xr = _in_proj(p, x, sh)
     xc = _causal_conv(xr, p.conv_w, p.conv_b, conv_buf)
-    a, b = _lru_gates(p, xc)
+    a, b = _lru_gates(p, xc, sh)
     h_new = a[:, 0] * h + b[:, 0]
     new_buf = torch.cat([conv_buf.to(xr.dtype), xr], 1)[:, 1:]
-    return _out(p, gate, h_new[:, None], x.dtype), h_new, new_buf
+    return _out(p, gate, h_new[:, None], x.dtype, sh), h_new, new_buf

@@ -18,6 +18,19 @@ a stabiliser and block-diagonal recurrent weights (one block per head).
 Inherently sequential: a loop over time in plain torch, as the
 reference's ``lax.scan``.
 
+On a mesh (``models.common.ActShardings``) a split block computes this
+rank's share of the model axis, its input entering with a backward sum
+and its partial output leaving through a sum over the axis. The mLSTM
+takes its heads: its columns of ``wq``/``wk``/``wv``/``w_o``, its
+columns of the gate weights and of ``ln_scale``, kernel #7 launched on
+those heads, and its rows of ``w_out``; its carried (C, n, m) are its
+heads'. The sLSTM takes its channels of every gate (rows of ``wx`` and
+``b`` and the recurrent weights that feed them); its recurrent input
+``h @ wr`` reads whole heads whose outputs land in the channels of other
+ranks (the reference reshapes [H, 4 dh] to the four gates), so each step
+gathers ``h`` over the axis, and the output norm reads every channel;
+its carried (c, n, m, h) are its channels'.
+
 Parameters are ``nn.Module``s named as the reference's leaves. Dense
 projections are ``nn.Linear`` weights ([d_out, d_in], the reference's
 [d_in, d_out] transposed); the gate weights ``w_i``/``w_f`` [d_model, H],
@@ -37,7 +50,8 @@ import torch.nn.functional as F
 
 from repro_torch.kernels.mlstm_chunk.kernel import mlstm_chunk_kernel, \
     mlstm_chunk_plain
-from repro_torch.models.common import NEG_INF, _linear, dense_init_
+from repro_torch.models.common import NEG_INF, _linear, dense_init_, \
+    split_plan
 
 State = Tuple[torch.Tensor, ...]
 
@@ -87,11 +101,26 @@ def mlstm_init_(p: MLSTM, generator: torch.Generator) -> None:
         p.ln_scale.fill_(1.0)
 
 
-def _mlstm_gates(p: MLSTM, x: torch.Tensor):
-    """log input gate and log-sigmoid forget gate, [B, S, H] float32."""
+def _heads_share(p: MLSTM, sh, num_heads: int):
+    """(heads, gate weights and biases [w_i, w_f, b_i, b_f], ln_scale) of
+    this rank: all of them, or with a plan its block of the heads (the
+    replicated leaves entered, so their gradients sum over the axis)."""
+    if sh is None:
+        return num_heads, (p.w_i, p.w_f, p.b_i, p.b_f), p.ln_scale
+    h = num_heads // sh.size
+    lo = sh.index * h
+    gates = (sh.enter(p.w_i)[:, lo:lo + h], sh.enter(p.w_f)[:, lo:lo + h],
+             sh.enter(p.b_i)[lo:lo + h], sh.enter(p.b_f)[lo:lo + h])
+    return h, gates, sh.enter(p.ln_scale)[lo:lo + h]
+
+
+def _mlstm_gates(p: MLSTM, x: torch.Tensor, gates=None):
+    """log input gate and log-sigmoid forget gate, [B, S, H] float32
+    (``gates``: the [w_i, w_f, b_i, b_f] of the heads computed)."""
+    w_i, w_f, b_i, b_f = gates or (p.w_i, p.w_f, p.b_i, p.b_f)
     xf = x.float()
-    log_i = xf @ p.w_i + p.b_i
-    log_f = F.logsigmoid(xf @ p.w_f + p.b_f)
+    log_i = xf @ w_i + b_i
+    log_f = F.logsigmoid(xf @ w_f + b_f)
     return log_i, log_f
 
 
@@ -171,6 +200,10 @@ def mlstm_chunkwise(p: MLSTM, x: torch.Tensor, num_heads: int,
     kernel takes the short last chunk as it is: pad rows come after every
     real row and change neither their outputs nor the state."""
     b, s, _ = x.shape
+    sh = split_plan(p)
+    if sh is not None:
+        x = sh.enter(x)
+    num_heads, gates, ln_scale = _heads_share(p, sh, num_heads)
     dh = num_heads * head_dim
 
     def heads(w: nn.Linear) -> torch.Tensor:        # -> [B, H, S, hd]
@@ -178,7 +211,7 @@ def mlstm_chunkwise(p: MLSTM, x: torch.Tensor, num_heads: int,
                                              head_dim).transpose(1, 2)
 
     q, k, v = heads(p.wq), heads(p.wk), heads(p.wv)
-    log_i, log_f = (g.transpose(1, 2) for g in _mlstm_gates(p, x))
+    log_i, log_f = (g.transpose(1, 2) for g in _mlstm_gates(p, x, gates))
     if valid is not None:
         log_i = torch.where(valid[:, None, :], log_i, NEG_INF)
         log_f = torch.where(valid[:, None, :], log_f, 0.0)
@@ -188,10 +221,11 @@ def mlstm_chunkwise(p: MLSTM, x: torch.Tensor, num_heads: int,
     hs, *state = MLSTMChunk.apply(
         *(t.contiguous() for t in (q, k, v, log_i, log_f, *state)),
         min(chunk, s), 1.0 / math.sqrt(head_dim))
-    h = _headwise_ln(hs, p.ln_scale[None, :, None, :])
+    h = _headwise_ln(hs, ln_scale[None, :, None, :])
     o = torch.sigmoid(F.linear(x, p.w_o.weight).float())
     h = h.transpose(1, 2).reshape(b, s, dh) * o
-    return F.linear(h.to(x.dtype), p.w_out.weight), tuple(state)
+    out = F.linear(h.to(x.dtype), p.w_out.weight)
+    return (out if sh is None else sh.leave(out)), tuple(state)
 
 
 def mlstm_parallel(p: MLSTM, x: torch.Tensor, num_heads: int,
@@ -208,13 +242,17 @@ def mlstm_decode_step(p: MLSTM, x: torch.Tensor, state: State,
     """One-token recurrent step. x: [B, 1, D] -> (out, new state)."""
     b = x.shape[0]
     C, n, m = state
+    sh = split_plan(p)
+    if sh is not None:
+        x = sh.enter(x)
+    num_heads, gates, ln_scale = _heads_share(p, sh, num_heads)
 
     def heads(w: nn.Linear) -> torch.Tensor:        # -> [B, H, hd] f32
         return F.linear(x, w.weight).reshape(b, num_heads, head_dim).float()
 
     q, v = heads(p.wq), heads(p.wv)
     k = heads(p.wk) / math.sqrt(head_dim)
-    log_i, log_f = (g[:, 0] for g in _mlstm_gates(p, x))     # [B, H]
+    log_i, log_f = (g[:, 0] for g in _mlstm_gates(p, x, gates))  # [B, H]
     m_new = torch.maximum(log_f + m, log_i)
     f_eff = torch.exp(log_f + m - m_new)
     i_eff = torch.exp(log_i - m_new)
@@ -224,10 +262,12 @@ def mlstm_decode_step(p: MLSTM, x: torch.Tensor, state: State,
     num = torch.einsum("bhkv,bhk->bhv", C_new, q)
     qn = torch.einsum("bhk,bhk->bh", n_new, q)
     den = torch.maximum(qn.abs(), torch.exp(-m_new))
-    h = _headwise_ln(num / den[..., None], p.ln_scale[None])
+    h = _headwise_ln(num / den[..., None], ln_scale[None])
     o = torch.sigmoid(F.linear(x, p.w_o.weight).float())[:, 0]
     h = h.reshape(b, num_heads * head_dim) * o
     out = F.linear(h.to(x.dtype), p.w_out.weight)
+    if sh is not None:
+        out = sh.leave(out)
     return out[:, None, :], (C_new, n_new, m_new)
 
 
@@ -277,15 +317,53 @@ def slstm_init_state(batch: int, d_model: int, device=None) -> State:
             z())
 
 
-def _slstm_cell(p: SLSTM, xg: torch.Tensor, state: State,
-                num_heads: int) -> State:
-    """xg: [B, 4d] precomputed input contribution -> new (c, n, m, h)."""
+class _SlstmShare:
+    """What one rank of a split sLSTM computes: its channels [c0, c0 + n)
+    of each of the 4 gates (``rows`` of ``wx`` and ``b``), and the
+    recurrent weights that feed them: gate entry j reads head j // 4dh of
+    ``h`` through column j % 4dh of that head's ``wr`` block. Without a
+    plan: every channel, the recurrent product as the reference's
+    ``einsum("bhd,hdf->bhf")``."""
+
+    def __init__(self, p: SLSTM, sh, num_heads: int):
+        d = p.ln_scale.shape[0]
+        self.sh, self.num_heads, self.d = sh, num_heads, d
+        if sh is None:
+            self.wx, self.b, self.wr = p.wx.weight, p.b, p.wr
+            self.ln_scale = p.ln_scale
+            return
+        n = d // sh.size
+        self.c0, self.n = sh.index * n, n
+        dev = p.b.device
+        rows = torch.cat([g * d + self.c0 + torch.arange(n, device=dev)
+                          for g in range(4)])
+        dh = d // num_heads
+        self.heads = torch.div(rows, 4 * dh, rounding_mode="floor")
+        self.wx = sh.enter(p.wx.weight)[rows]
+        self.b = sh.enter(p.b)[rows]
+        self.wr = sh.enter(p.wr)[self.heads, :, rows % (4 * dh)]  # [4n, dh]
+        self.ln_scale = sh.enter(p.ln_scale)
+
+    def full_h(self, h: torch.Tensor) -> torch.Tensor:
+        """The h the recurrence reads: this rank's channels gathered."""
+        return h if self.sh is None else self.sh.gather(h, -1)
+
+    def rec(self, h_full: torch.Tensor) -> torch.Tensor:
+        """The recurrent input of this rank's gate entries, [B, 4 n]."""
+        b = h_full.shape[0]
+        hb = h_full.reshape(b, self.num_heads, self.d // self.num_heads)
+        if self.sh is None:
+            return torch.einsum("bhd,hdf->bhf", hb, self.wr).reshape(
+                b, 4 * self.d)
+        return torch.einsum("bje,je->bj", hb[:, self.heads], self.wr)
+
+
+def _slstm_cell(xg: torch.Tensor, rec: torch.Tensor, bias: torch.Tensor,
+                state: State) -> State:
+    """xg: [B, 4d] precomputed input contribution, rec the recurrent one
+    -> new (c, n, m, h)."""
     c, n, m, h = state
-    b, d4 = xg.shape
-    d = d4 // 4
-    hb = h.reshape(b, num_heads, d // num_heads)
-    rec = torch.einsum("bhd,hdf->bhf", hb, p.wr).reshape(b, d4)
-    z, i_pre, f_pre, o_pre = torch.chunk(xg + rec + p.b, 4, dim=-1)
+    z, i_pre, f_pre, o_pre = torch.chunk(xg + rec + bias, 4, dim=-1)
     log_i = i_pre
     log_f = F.logsigmoid(f_pre)
     m_new = torch.maximum(log_f + m, log_i)
@@ -297,11 +375,23 @@ def _slstm_cell(p: SLSTM, xg: torch.Tensor, state: State,
     return c_new, n_new, m_new, h_new
 
 
-def _slstm_out(p: SLSTM, h: torch.Tensor, dtype) -> torch.Tensor:
-    mu = h.mean(-1, keepdim=True)
-    var = h.var(-1, keepdim=True, correction=0)
-    h = (h - mu) * torch.rsqrt(var + 1e-6) * p.ln_scale
-    return F.linear(h.to(dtype), p.w_out.weight)
+def _slstm_out(p: SLSTM, sp: _SlstmShare, h_full: torch.Tensor,
+               dtype) -> torch.Tensor:
+    """The norm over every channel, then this rank's rows of ``w_out``."""
+    mu = h_full.mean(-1, keepdim=True)
+    var = h_full.var(-1, keepdim=True, correction=0)
+    h = (h_full - mu) * torch.rsqrt(var + 1e-6) * sp.ln_scale
+    if sp.sh is None:
+        return F.linear(h.to(dtype), p.w_out.weight)
+    h = h[..., sp.c0:sp.c0 + sp.n]
+    return sp.sh.leave(F.linear(h.to(dtype), p.w_out.weight))
+
+
+def _slstm_share(p: SLSTM, x: torch.Tensor, num_heads: int):
+    sh = split_plan(p)
+    if sh is not None:
+        x = sh.enter(x)
+    return x, _SlstmShare(p, sh, num_heads)
 
 
 def slstm_apply_scan(p: SLSTM, x: torch.Tensor, num_heads: int,
@@ -314,23 +404,27 @@ def slstm_apply_scan(p: SLSTM, x: torch.Tensor, num_heads: int,
     step reselects the carried state bit-identically, so the final state
     is the state after each lane's last valid token."""
     b, s, d = x.shape
-    xg = F.linear(x.float(), p.wx.weight)                   # [B, S, 4D]
+    x, sp = _slstm_share(p, x, num_heads)
+    xg = F.linear(x.float(), sp.wx)                    # [B, S, 4 d']
     if state is None:
-        state = slstm_init_state(b, d, x.device)
+        state = slstm_init_state(b, xg.shape[-1] // 4, x.device)
     hs = []
+    h_full = sp.full_h(state[3])
     for t in range(s):
-        new = _slstm_cell(p, xg[:, t], state, num_heads)
+        new = _slstm_cell(xg[:, t], sp.rec(h_full), sp.b, state)
         if valid is not None:
             vt = valid[:, t, None]
             new = tuple(torch.where(vt, a, o) for a, o in zip(new, state))
         state = new
-        hs.append(state[3])
-    return _slstm_out(p, torch.stack(hs, 1), x.dtype), state
+        h_full = sp.full_h(state[3])
+        hs.append(h_full)
+    return _slstm_out(p, sp, torch.stack(hs, 1), x.dtype), state
 
 
 def slstm_decode_step(p: SLSTM, x: torch.Tensor, state: State,
                       num_heads: int) -> Tuple[torch.Tensor, State]:
     """x: [B, 1, D] -> (out [B, 1, D], new state)."""
-    xg = F.linear(x[:, 0].float(), p.wx.weight)
-    new = _slstm_cell(p, xg, state, num_heads)
-    return _slstm_out(p, new[3], x.dtype)[:, None], new
+    x, sp = _slstm_share(p, x, num_heads)
+    xg = F.linear(x[:, 0].float(), sp.wx)
+    new = _slstm_cell(xg, sp.rec(sp.full_h(state[3])), sp.b, state)
+    return _slstm_out(p, sp, sp.full_h(new[3]), x.dtype)[:, None], new

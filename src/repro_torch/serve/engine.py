@@ -212,29 +212,85 @@ def decode_block_step(model, cfg: ModelConfig, cache, token, first_tok,
     return (torch.cat([token[:, None], ring], 1), carry, cache, *pr)
 
 
-def make_serve_step(cfg: ModelConfig, a3: A3Config = A3Config()
-                    ) -> Callable:
+def _mesh_step(run, cfg: ModelConfig, a3: A3Config, mesh, sharding_cfg,
+               max_len: Optional[int], logits=()):
+    """``run(model, cache, token, *rest)`` under the serving plan of
+    ``mesh`` (one plan a batch size, made at its first call): the model
+    holds DTensors laid out by the rules, the cache is this rank's share
+    (``step.plan(batch).init_cache`` / ``cut_cache``), and every output
+    comes back whole: this rank's lanes gathered with the others', and
+    the outputs at the indices ``logits`` over the vocab too."""
+    from repro_torch.config import ShardingConfig
+    from repro_torch.models.common import current_shardings
+    from repro_torch.sharding.plan import serving_plan
+    if max_len is None:
+        raise ValueError("a serving step on a mesh needs max_len (the "
+                         "rings' rows)")
+    sharding_cfg = sharding_cfg or ShardingConfig(remat="none")
+    plans: Dict[int, Any] = {}
+
+    def plan(batch: int):
+        if batch not in plans:
+            plans[batch] = serving_plan(
+                cfg, mesh, sharding_cfg, batch=batch, max_len=max_len,
+                dispatch="decode",
+                select_shards=a3.select_shards if a3.mode != A3Mode.OFF
+                else 0)
+        return plans[batch]
+
+    def step(model, cache, token, *rest):
+        with plan(token.shape[0]).dispatch_context(model):
+            outs = run(model, cache, token, *rest)
+            sh = current_shardings()
+            whole = []
+            for i, o in enumerate(outs):
+                if isinstance(o, torch.Tensor):
+                    if i in logits and sh.is_split(model):
+                        o = sh.gather(o, -1)
+                    o = sh.gather_lanes(o)
+                whole.append(o)
+            return tuple(whole)
+
+    step.plan = plan
+    return step
+
+
+def make_serve_step(cfg: ModelConfig, a3: A3Config = A3Config(), *,
+                    mesh=None, sharding_cfg=None,
+                    max_len: Optional[int] = None) -> Callable:
     """-> step(model, cache, token [B], pos scalar or [B]) -> (logits
     [B, Vp], cache): one ``decoder.decode_step`` (the reference's
     ``make_serve_step``; the cache is updated in place, and the tensors'
-    device picks the kernel route, so there is no ``use_kernel``)."""
+    device picks the kernel route, so there is no ``use_kernel``). With a
+    ``mesh`` (and ``sharding_cfg``, ``max_len``) the dispatch runs this
+    rank's share under the serving plan (``sharding.plan``) and the
+    logits come back whole; ``step.plan(batch)`` is the plan, whose
+    ``init_cache`` makes this rank's cache."""
 
     def step(model, cache, token, pos):
-        return decoder.decode_step(model, cfg, cache, token, pos, a3=a3)
+        logits, cache = decoder.decode_step(model, cfg, cache, token, pos,
+                                            a3=a3)
+        return logits, cache
 
-    return step
+    if mesh is None:
+        return step
+    return _mesh_step(step, cfg, a3, mesh, sharding_cfg, max_len,
+                      logits=(0,))
 
 
 def make_decode_block_step(cfg: ModelConfig, a3: A3Config = A3Config(), *,
                            steps: int = 1, resort_every: int = 0,
-                           temperature: float = 0.0, probe: bool = False
-                           ) -> Callable:
+                           temperature: float = 0.0, probe: bool = False,
+                           mesh=None, sharding_cfg=None,
+                           max_len: Optional[int] = None) -> Callable:
     """-> the blocked-decode dispatch (the reference's
     ``make_decode_block_step``): step(model, cache, token [B], first_tok
     [B], ctrl [B, CTRL_COLS][, key]) -> (harvest [B, 1+steps], carry [B],
     cache), or with ``probe`` (harvest, probe [B, 3], carry, cache). It
     wraps :func:`decode_block_step`; the ``key`` argument exists only
-    when ``temperature > 0``."""
+    when ``temperature > 0``. With a ``mesh``, as
+    :func:`make_serve_step`: this rank's share under the serving plan,
+    the harvest and carry of every lane."""
 
     def _run(model, cache, token, first_tok, ctrl, key=None):
         harvest, carry, cache, *pr = decode_block_step(
@@ -244,13 +300,16 @@ def make_decode_block_step(cfg: ModelConfig, a3: A3Config = A3Config(), *,
         return (harvest, pr[0], carry, cache) if probe else \
             (harvest, carry, cache)
 
+    if mesh is not None:
+        _run = _mesh_step(_run, cfg, a3, mesh, sharding_cfg, max_len)
     if temperature > 0.0:
         def step(model, cache, token, first_tok, ctrl, key):
             return _run(model, cache, token, first_tok, ctrl, key)
     else:
         def step(model, cache, token, first_tok, ctrl):
             return _run(model, cache, token, first_tok, ctrl)
-
+    if mesh is not None:
+        step.plan = _run.plan
     return step
 
 

@@ -25,9 +25,9 @@ computes over the same global batch, ZeRO-3 style:
   its q heads where the axis divides them (its kv heads, or its k / v
   columns gathered), else its block of the q rows; the dense FFN its
   ``d_ff`` columns; the MoE its experts (EP) or its slice of each (TP);
-  the LM head its vocab rows, with a vocab-parallel log-sum-exp. The
-  recurrent blocks (RG-LRU channels, mLSTM / sLSTM heads) still compute
-  in full on every rank of the axis;
+  the LM head its vocab rows, with a vocab-parallel log-sum-exp; the
+  RG-LRU its channels, the mLSTM its heads and the sLSTM its channels
+  (``sharding.plan`` builds this plan, for serving too);
 * the ranks of one row block compute the same loss; each weighs its
   term as the block's share, so the gradients summed over the ranks of
   different rows are the global gradient; the MoE routes every row of
@@ -46,7 +46,6 @@ batch's tokens, forward and backward.
 """
 from __future__ import annotations
 
-import contextlib
 import itertools
 import math
 from typing import Callable, Dict, NamedTuple, Optional, Tuple
@@ -58,7 +57,6 @@ import torch.distributed as dist
 from repro_torch import resolve_device
 from repro_torch.config import RunConfig
 from repro_torch.models import decoder
-from repro_torch.models.common import ActShardings, activation_shardings
 from repro_torch.optim.adamw import OptState, adamw_init, adamw_update
 
 
@@ -211,43 +209,11 @@ def make_train_step(run: RunConfig, mesh=None
 # the sharded step
 # ---------------------------------------------------------------------------
 
-class _Rows:
-    """The batch rows of the ranks that sum their gradients together:
-    ``count`` blocks laid out over ``submesh`` (major axis first), this
-    rank's the ``index``-th (the plan ``models.common.batch_rows``
-    carries)."""
-
-    def __init__(self, submesh, index: int, count: int):
-        self.submesh, self.index, self.count = submesh, index, count
-
-    def gather(self, x: torch.Tensor) -> torch.Tensor:
-        """[b, ...] of this rank -> [count * b, ...] of every block; the
-        backward sums each block's gradient over the ranks."""
-        from torch.distributed.tensor import DTensor, Partial, Replicate, \
-            Shard
-        n = self.submesh.ndim
-        dt = DTensor.from_local(x, self.submesh, [Shard(0)] * n,
-                                run_check=False)
-        return dt.redistribute(self.submesh, [Replicate()] * n).to_local(
-            grad_placements=[Partial()] * n)
-
-    def own(self, y: torch.Tensor) -> torch.Tensor:
-        b = y.shape[0] // self.count
-        return y[self.index * b:(self.index + 1) * b]
-
-
-def _dims_of(entry) -> Tuple[str, ...]:
-    return () if entry is None else (
-        (entry,) if isinstance(entry, str) else tuple(entry))
-
-
 def _sharded_step(run: RunConfig, mesh):
-    from torch.distributed.tensor import Partial, Replicate
-    from torch.nn.utils.stateless import _reparametrize_module
     from repro_torch.models.convert import reference_leaf
     from repro_torch.sharding.compression import psum_compressed
-    from repro_torch.sharding.rules import act_specs, batch_spec, \
-        mesh_sizes
+    from repro_torch.sharding.plan import MeshPlan, Rows, dims_of
+    from repro_torch.sharding.rules import batch_spec, mesh_sizes
 
     cfg, sh = run.model, run.sharding
     names = tuple(mesh.mesh_dim_names)
@@ -259,7 +225,7 @@ def _sharded_step(run: RunConfig, mesh):
     group_dims = tuple(n for n in names if not (compress and n == "pod"))
     group_size = math.prod(sizes[n] for n in group_dims)
     n_pods = sizes["pod"] if compress else 1
-    batch_dims = _dims_of(batch_spec(run.shape, mesh, sh)[0])
+    batch_dims = dims_of(batch_spec(run.shape, mesh, sh)[0])
     row_dims = tuple(n for n in batch_dims if n in group_dims)
     n_blocks = math.prod(sizes[n] for n in batch_dims)
     n_row_blocks = math.prod(sizes[n] for n in row_dims)
@@ -279,62 +245,13 @@ def _sharded_step(run: RunConfig, mesh):
     row_index = 0
     for n in row_dims:
         row_index = row_index * sizes[n] + coord[n]
-    rows = (_Rows(mesh[row_dims], row_index, n_row_blocks)
+    rows = (Rows(mesh[row_dims], row_index, n_row_blocks)
             if n_row_blocks > 1 else None)
 
     # the model axis: a module that the rules cut over it keeps its share
-    # of the weights and computes only that share
-    tp = sh.tp_axis if (sh.tensor_parallel
-                        and sizes.get(sh.tp_axis, 1) > 1) else None
-    tp_dim = names.index(tp) if tp else None
-    specs = act_specs(cfg, run.shape, mesh, sh)
-    heads_split = tp is not None and specs.get("q", (None,) * 4)[1] == tp
-    model_group = mesh.get_group(tp).group_name if tp else None
-
-    def keeps(name: str, p) -> bool:
-        """Whether parameter ``name`` stays cut over the model axis: its
-        layout cuts it there and its module computes a share (attention
-        only where the axis divides the q heads; the recurrent blocks
-        compute in full)."""
-        if tp is None or not p.placements[tp_dim].is_shard():
-            return False
-        if any(f".{k}." in name for k in ("rnn", "mlstm", "slstm")):
-            return False
-        return heads_split or ".attn." not in name
-
-    def gather(name: str, p):
-        """The tensor this rank computes with: ``p`` gathered over every
-        mesh dim, but the model axis where it keeps its share. Its
-        gradient is summed over the ranks of other rows (the rest compute
-        the same gradient) and cut to ``p``'s layout in the backward."""
-        keep = keeps(name, p)
-        pl = tuple(p.placements[k] if (k == tp_dim and keep) else Replicate()
-                   for k in range(len(names)))
-        grad_pl = tuple(Partial() if n in row_dims else pl[k]
-                        for k, n in enumerate(names))
-        return p.redistribute(mesh, pl).to_local(grad_placements=grad_pl)
-
-    def plan(split) -> ActShardings:
-        return ActShardings(specs, rows, axis=tp or "model",
-                            size=sizes[tp] if tp else 1,
-                            index=coord[tp] if tp else 0,
-                            group=model_group, split=split)
-
-    def layer_plan(blk, prefix: str) -> ActShardings:
-        """The plan of layer ``blk`` (parameter names from ``prefix``):
-        its modules that hold a parameter keeping its share."""
-        return plan([m for n, m in blk.named_modules()
-                     if any(keeps(f"{prefix}{n}.{k}" if n else prefix + k, p)
-                            for k, p in m.named_parameters())])
-
-    layer_plans: Dict[int, Tuple[str, ActShardings]] = {}
-
-    @contextlib.contextmanager
-    def layer_context(blk):
-        prefix, act = layer_plans[id(blk)]
-        full = {n: gather(prefix + n, p) for n, p in blk.named_parameters()}
-        with _reparametrize_module(blk, full), activation_shardings(act):
-            yield
+    # of the weights and computes only that share (sharding.plan)
+    mp = MeshPlan(cfg, run.shape, mesh, sh, dispatch="train", rows=rows,
+                  row_dims=row_dims)
 
     remat = sh.remat
     attn_chunk = sh.attn_chunk
@@ -355,20 +272,11 @@ def _sharded_step(run: RunConfig, mesh):
         cnt = sum((batch["labels"][g * per:(g + 1) * per] != -1).float().sum()
                   for g in group_blocks)
         params = dict(model.named_parameters())
-        for si, seg in enumerate(model.segs):
-            for li, blk in enumerate(seg.layers):
-                if id(blk) not in layer_plans:
-                    pre = f"segs.{si}.layers.{li}."
-                    layer_plans[id(blk)] = (pre, layer_plan(blk, pre))
-        top = {n: gather(n, p) for n, p in params.items()
-               if not n.startswith("segs.")}
-        # the vocab rows of embed (and lm_head)
-        act = plan([model] if keeps("embed", params["embed"]) else [])
-        with _reparametrize_module(model, top), activation_shardings(act):
+        with mp.model_context(model):
             h, aux = decoder.forward_hidden(
                 model, cfg, mine.get("tokens"), mine.get("embeds"),
                 remat=remat, attn_chunk=attn_chunk,
-                layer_context=layer_context)
+                layer_context=mp.layer_context)
             nll, _ = decoder.chunked_nll(model, cfg, h, mine["labels"],
                                          ce_chunk)
             term = nll / torch.clamp(cnt, min=1.0) \

@@ -211,9 +211,9 @@ C_ARGS = {
         "q", "k", "mask", "rowmax", "is_bf16", "B", "Hq", "Hkv", "S", "D",
         "bk", "cluster", "kvec", "scale", "stream"),
     "decode_attention_attend": (
-        "q", "k", "v", "mask", "rowmax", "out", "is_bf16", "B", "Hq", "Hkv",
-        "S", "D", "Dv", "bk", "cluster", "kvec", "scale", "has_thr", "thr",
-        "stream"),
+        "q", "k", "v", "mask", "rowmax", "out", "pout", "lsum", "is_bf16",
+        "B", "Hq", "Hkv", "S", "D", "Dv", "bk", "cluster", "kvec", "scale",
+        "has_thr", "thr", "stream"),
 }
 
 

@@ -21,7 +21,13 @@ One spawn of 4 ranks and one of 8 (``test_torch_mesh_worker.py``,
   whole on any rank. The MoE splits its experts over the model axis
   only (every rank of a data row routes and runs the whole batch's
   tokens, as GSPMD runs the forward): its count is held to that
-  accounting, beside the reference's.
+  accounting, beside the reference's;
+* the f32 smoke recurrentgemma-2b and xlstm-350m on (2, 4): the RG-LRU
+  channels, the mLSTM heads and the sLSTM channels split over the model
+  axis. recurrentgemma-2b counts the reference's per-device FLOPs;
+  xlstm-350m splits its count over the ranks exactly, with the mLSTM
+  backward's recompute counted apart, and stays above the reference's
+  (the test says by how much and why).
 """
 from __future__ import annotations
 
@@ -42,14 +48,18 @@ from repro_torch.models.convert import params_from_numpy  # noqa: E402
 
 from helpers import check, run_with_devices  # noqa: E402
 from test_torch_helpers import TINY, port_cfg  # noqa: E402
-from test_torch_mesh_worker import BATCH, SPLIT_CELLS, SPLIT_SEQ, result, \
-    run_ranks, save_tree  # noqa: E402
+from test_torch_mesh_worker import BATCH, SPLIT_CELLS, SPLIT_SEQ, \
+    mlstm_recompute_counted, result, run_ranks, save_tree  # noqa: E402
 
 MOE = dataclasses.replace(jcfg.smoke_variant(jcfg.get_arch("deepseek-moe-16b")),
                           dtype="float32")
 CONFIGS = {"tiny": TINY, "tiny-6h": dataclasses.replace(TINY, name="tiny-6h",
                                                         num_heads=6),
-           "moe": MOE}
+           "moe": MOE,
+           "rg": dataclasses.replace(jcfg.smoke_variant(
+               jcfg.get_arch("recurrentgemma-2b")), dtype="float32"),
+           "xl": dataclasses.replace(jcfg.smoke_variant(
+               jcfg.get_arch("xlstm-350m")), dtype="float32")}
 STEPS = 2
 
 # the reference's per-device dot FLOPs of one step of these cells, as
@@ -67,6 +77,9 @@ CF = {"tiny": TINY, "tiny-6h": dataclasses.replace(TINY, name="tiny-6h",
                                                    num_heads=6),
       "moe": dataclasses.replace(C.smoke_variant(C.get_arch(
           "deepseek-moe-16b")), dtype="float32")}
+for a, n in (("recurrentgemma-2b", "rg"), ("xlstm-350m", "xl")):
+    CF[n] = dataclasses.replace(C.smoke_variant(C.get_arch(a)),
+                                dtype="float32")
 shape = C.ShapeConfig("t", C.ShapeKind.TRAIN, %(seq)d, %(batch)d)
 for case, (name, ms, ep) in %(cells)r.items():
     mesh = Mesh(np.array(jax.devices()[:ms[0] * ms[1]]).reshape(ms),
@@ -134,20 +147,56 @@ def test_split_step_matches_single_device_reference(split_runs, case):
 
 
 @pytest.mark.parametrize("case", ["split_tiny_2x2", "split_tiny_2x4",
-                                  "split_tiny-6h_2x4"])
+                                  "split_tiny-6h_2x4", "split_rg_2x4"])
 def test_each_rank_does_the_reference_per_device_flops(split_runs, case):
+    """Every rank's count is the reference's per-device count, and that is
+    the one-device count over the ranks; the RG-LRU's channels split
+    too."""
     d, _, jax_flops = split_runs
     got = result(d, case)["flops"]
     want = {"split_tiny_2x2": 104_857_600, "split_tiny_2x4": 52_428_800,
-            "split_tiny-6h_2x4": 60_817_408}[case]
+            "split_tiny-6h_2x4": 60_817_408}.get(case, jax_flops[case])
     assert jax_flops[case] == want
     assert want * shape_ranks(case) == _single_device_flops(
         SPLIT_CELLS[case][0])
     np.testing.assert_allclose(got, np.full_like(got, want), rtol=1e-6)
 
 
+def test_xlstm_step_splits_its_products_over_the_ranks(split_runs):
+    """xlstm-350m on (2, 4): the mLSTM heads and sLSTM channels split, so
+    each rank's count, with ``MLSTMChunk``'s backward recompute counted
+    apart (``mlstm_recompute_counted``: the reference has no such pass),
+    is the one-device count so counted over the 8 ranks, and the
+    recompute splits the same way. Not met: that count stays 1.9% above
+    the reference's per-device ``dot_flops()`` (449,560,576 against
+    440,991,744, printed with ``-s``). Most of the gap is the size of the
+    update of the final mLSTM state, which a train step never reads and
+    XLA can drop while the port computes it; the rest is not traced op
+    by op (CHANGES.md, PERF.md)."""
+    d, _, jax_flops = split_runs
+    got = result(d, "split_xl_2x4")
+    one, one_recompute = _one_device_counts("xl")
+    ranks = shape_ranks("split_xl_2x4")
+    np.testing.assert_allclose(got["flops"] - got["recompute"],
+                               np.full(ranks, (one - one_recompute) / ranks),
+                               rtol=1e-6)
+    np.testing.assert_allclose(got["recompute"],
+                               np.full(ranks, one_recompute / ranks),
+                               rtol=1e-6)
+    assert one_recompute > 0
+    print(f"xlstm-350m (2, 4): per rank {float(got['flops'][0]):.0f}, "
+          f"recompute {float(got['recompute'][0]):.0f}, the reference's "
+          f"{jax_flops['split_xl_2x4']:.0f}")
+
+
 def _single_device_flops(name: str) -> float:
     """``FlopCounterMode``'s count of one port step on one device."""
+    return _one_device_counts(name)[0]
+
+
+def _one_device_counts(name: str):
+    """``FlopCounterMode``'s count of one port step on one device, and of
+    the mLSTM backward's recompute in it."""
     from torch.utils.flop_counter import FlopCounterMode
     from repro_torch import config as tc
     from repro_torch.data.synthetic import make_lm_batch as port_batch
@@ -158,10 +207,11 @@ def _single_device_flops(name: str) -> float:
         "t", tc.ShapeKind.TRAIN, SPLIT_SEQ, BATCH),
         sharding=tc.ShardingConfig(remat="full"))
     state = port_init(run, torch.Generator().manual_seed(0), "cpu")
-    with FlopCounterMode(display=False) as fc:
+    with FlopCounterMode(display=False) as fc, \
+            mlstm_recompute_counted() as rc:
         port_step(run)(state, port_batch(0, BATCH, SPLIT_SEQ,
                                          cfg.vocab_size, 0))
-    return float(fc.get_total_flops())
+    return float(fc.get_total_flops()), float(rc.flops)
 
 
 def shape_ranks(case: str) -> int:

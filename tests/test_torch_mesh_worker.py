@@ -36,6 +36,13 @@ SRC = HERE.parent / "src"
 def run_ranks(world: int, cases, directory, timeout: float = 300.0):
     """Run ``cases`` on ``world`` gloo ranks; -> the ranks' exit codes
     (None for a rank killed at the timeout)."""
+    return start_ranks(world, cases, directory)(timeout)
+
+
+def start_ranks(world: int, cases, directory):
+    """Start ``cases`` on ``world`` gloo ranks -> wait(timeout=300.0),
+    which returns the ranks' exit codes (None for a rank killed at the
+    timeout)."""
     directory = Path(directory)
     store = tempfile.mktemp(prefix="gloo_store_", dir=directory)
     env = dict(os.environ, OMP_NUM_THREADS="1",
@@ -50,19 +57,23 @@ def run_ranks(world: int, cases, directory, timeout: float = 300.0):
         procs.append((subprocess.Popen([sys.executable, __file__, arg],
                                        env=env, stdout=log,
                                        stderr=subprocess.STDOUT), log))
-    codes = []
-    for p, log in procs:
-        try:
-            codes.append(p.wait(timeout=timeout))
-        except subprocess.TimeoutExpired:
-            codes.append(None)
-        finally:
-            log.close()
-    for p, _ in procs:
-        if p.poll() is None:
-            p.kill()
-            p.wait()
-    return codes
+
+    def wait(timeout: float = 300.0):
+        codes = []
+        for p, log in procs:
+            try:
+                codes.append(p.wait(timeout=timeout))
+            except subprocess.TimeoutExpired:
+                codes.append(None)
+            finally:
+                log.close()
+        for p, _ in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        return codes
+
+    return wait
 
 
 def result(directory, case: str) -> dict:
@@ -152,7 +163,11 @@ def configs():
     moe = dataclasses.replace(C.smoke_variant(C.get_arch("deepseek-moe-16b")),
                               dtype="float32")
     six = dataclasses.replace(tiny, name="tiny-6h", num_heads=6)
-    return {"tiny": tiny, "moe": moe, "tiny-xl": tiny_xl, "tiny-6h": six}
+    rg, xl = (dataclasses.replace(C.smoke_variant(C.get_arch(a)),
+                                  dtype="float32")
+              for a in ("recurrentgemma-2b", "xlstm-350m"))
+    return {"tiny": tiny, "moe": moe, "tiny-xl": tiny_xl, "tiny-6h": six,
+            "rg": rg, "xl": xl}
 
 
 BATCH, SEQ = 8, 16
@@ -236,6 +251,8 @@ SPLIT_CELLS = {          # case -> (config, mesh shape, expert_parallel)
     "split_moe_2x2": ("moe", (2, 2), True),
     "split_moe_2x4": ("moe", (2, 4), True),
     "split_moe-tp_2x2": ("moe", (2, 2), False),
+    "split_rg_2x4": ("rg", (2, 4), True),
+    "split_xl_2x4": ("xl", (2, 4), True),
 }
 
 
@@ -249,10 +266,36 @@ def split_run(cfg, expert_parallel=True):
                                   expert_parallel=expert_parallel))
 
 
+class mlstm_recompute_counted:
+    """Within it, the FLOPs of ``MLSTMChunk``'s backward recompute (the
+    plain chunk its backward re-runs under autograd; the reference
+    differentiates its forward, with no such pass) are counted on their
+    own as well, into ``.flops``; an enclosing ``FlopCounterMode`` still
+    counts them."""
+
+    def __enter__(self):
+        from torch.utils.flop_counter import FlopCounterMode
+        from repro_torch.models import xlstm
+        self.flops, self._plain = 0, xlstm.mlstm_chunk_plain
+
+        def counted(*a, **k):
+            with FlopCounterMode(display=False) as fc:
+                out = self._plain(*a, **k)
+            self.flops += fc.get_total_flops()
+            return out
+        xlstm.mlstm_chunk_plain = counted
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import xlstm
+        xlstm.mlstm_chunk_plain = self._plain
+
+
 def split_steps(ctx, case_name):
     """2 sharded steps of a split cell from the JAX init -> losses, final
     parameters and every rank's matmul FLOPs of the first step
-    (``FlopCounterMode`` around the whole step)."""
+    (``FlopCounterMode`` around the whole step), with those of the mLSTM
+    backward's recompute apart (``recompute``)."""
     import torch
     from torch.utils.flop_counter import FlopCounterMode
     from repro_torch.data.synthetic import make_lm_batch
@@ -269,19 +312,381 @@ def split_steps(ctx, case_name):
     step = make_train_step(run, mesh)
     losses, flops = [], []
     for i in range(2):
-        with FlopCounterMode(display=False) as fc:
+        with FlopCounterMode(display=False) as fc, \
+                mlstm_recompute_counted() as rc:
             state, metrics = step(state, make_lm_batch(
                 i, BATCH, SPLIT_SEQ, cfg.vocab_size, 0))
         losses.append(float(metrics["loss"]))
-        flops.append(fc.get_total_flops())
+        flops.append((fc.get_total_flops(), rc.flops))
     params = {f"p/{n}": full(p) for n, p in state.model.named_parameters()}
     ctx.save(case_name, losses=np.array(losses),
-             flops=ctx.gather(torch.tensor(flops[0], dtype=torch.float64)),
+             flops=ctx.gather(torch.tensor(flops[0][0], dtype=torch.float64)),
+             recompute=ctx.gather(torch.tensor(flops[0][1],
+                                               dtype=torch.float64)),
              **params)
 
 
 for _case in SPLIT_CELLS:
     CASES[_case] = lambda ctx, c=_case: split_steps(ctx, c)
+
+
+# the serving dispatches on a mesh (test_torch_mesh_serve.py): prompts of
+# SERVE_SEQ tokens into rings of SERVE_SEQ rows, the reference's
+# per-device FLOP cells; decode from a DECODE_FROM-token prefill
+SERVE_SEQ, DECODE_FROM, CHUNK = 64, 48, 16
+SERVE_CELLS = {      # case -> (config, mesh shape, batch, dispatches)
+    "serve_tiny_2x2": ("tiny", (2, 2), 8, "prefill decode decode_a3 "
+                       "decode_block chunk"),
+    "serve_tiny_2x4": ("tiny", (2, 4), 8, "prefill prefill_short decode "
+                       "decode_a3 decode_block chunk chunk_a3"),
+    "serve_tiny-b1_2x4": ("tiny", (2, 4), 1, "prefill decode"),
+    "serve_tiny-6h_2x4": ("tiny-6h", (2, 4), 8, "prefill decode"),
+    "serve_moe_2x4": ("moe", (2, 4), 8, "prefill decode"),
+    "serve_rg_2x4": ("rg", (2, 4), 8, "prefill decode"),
+    "serve_xl_2x4": ("xl", (2, 4), 8, "prefill decode"),
+}
+
+
+def serve_inputs_name(cfg_name: str, batch: int) -> str:
+    return f"serve_in_{cfg_name}_b{batch}"
+
+
+def port_cache(tree, cfg, batch, a3):
+    """A reference cache tree (numpy, float32 through ``save_tree``) ->
+    the port's whole cache with its leaves' dtypes."""
+    import torch
+    from repro_torch.models import decoder
+    want = decoder.init_cache(cfg, batch, SERVE_SEQ, a3=a3, device="cpu")
+    return {s: {k: torch.from_numpy(np.asarray(tree[s][k])).to(v.dtype)
+                for k, v in leaves.items()} for s, leaves in want.items()}
+
+
+def serve_cell(ctx, case_name):
+    """The serving dispatches of a cell on its mesh, from the reference's
+    parameters and inputs (``serve_in_*.npz``, caches the JAX package
+    made): each rank holds its share of the model (DTensors by the rules)
+    and of the cache, runs the dispatch under its plan, and compares its
+    share of the result cache with the same share of the reference's
+    (``<dispatch>/cache_out``): the max |difference| of each leaf, and
+    whether the A^3 sorted rows are equal. Rank 0 writes the whole
+    logits (gathered), decode_block's tokens and every rank's FLOPs."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.config import A3Config, ShardingConfig
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import decoder
+    from repro_torch.models.common import all_gather
+    from repro_torch.models.convert import params_from_numpy
+    from repro_torch.sharding.plan import serving_plan
+    from repro_torch.sharding.rules import distribute_parameters
+
+    name, shape, batch, dispatches = SERVE_CELLS[case_name]
+    cfg = configs()[name]
+    mesh = make_mesh(shape, ("data", "model"), "cpu")
+    shd = ShardingConfig(remat="none")
+    model = distribute_parameters(params_from_numpy(
+        load_tree(ctx.dir / f"init_{name}.npz"), cfg, "cpu"), shd, mesh)
+    tree = load_tree(ctx.dir / f"{serve_inputs_name(name, batch)}.npz")
+    with np.load(ctx.dir / f"{serve_inputs_name(name, batch)}_x.npz") as f:
+        x = {k: torch.from_numpy(f[k]) for k in f.files}
+    ns = shape[1] if batch % shape[0] == 0 and batch >= shape[0] \
+        else shape[0] * shape[1]
+    a3c = dataclasses.replace(A3Config.conservative(), select_shards=ns)
+    out = {}
+
+    def whole(plan, t, vocab):
+        if vocab and plan.keeps("embed", model.embed):
+            t = all_gather(t, -1, plan.model, plan.model_group)
+        if plan.lane_size > 1:
+            t = all_gather(t, 0, plan.lane_size, plan.lane_group)
+        return t.numpy()
+
+    def compare(tag, key, plan, cache, a3):
+        want = plan.cut_cache(port_cache(tree[key]["cache_out"], cfg,
+                                         batch, a3))
+        diff, same = 0.0, True
+        for s_, leaves in cache.items():
+            for k, v in leaves.items():
+                if k.startswith("_"):
+                    continue
+                w = want[s_][k]
+                diff = max(diff, float((v.float() - w.float()).abs().max())
+                           if v.numel() else 0.0)
+                if k == "sk_rows":
+                    same = same and torch.equal(v, w)
+        out[f"{tag}/diff"] = ctx.gather(torch.tensor(diff))
+        out[f"{tag}/sorted_equal"] = ctx.gather(torch.tensor(same))
+
+    for tag in dispatches.split():
+        if tag == "chunk_a3":
+            chunk_then_a3_decode(ctx, out, x, model, mesh, shd, compare,
+                                 whole, name, batch, ns, a3c)
+            continue
+        kind = {"decode_a3": "decode", "decode_block": "decode",
+                "prefill_short": "prefill"}.get(tag, tag)
+        a3 = tag in ("prefill", "prefill_short", "decode_a3")
+        plan = serving_plan(cfg, mesh, shd, batch=batch, max_len=SERVE_SEQ,
+                            dispatch=kind, select_shards=ns)
+        key = {"prefill": f"prefill_{ns}",
+               "decode_a3": f"decode_a3_{ns}"}.get(tag, tag)
+        src = {"prefill": None, "prefill_short": None, "decode": "decode_in",
+               "decode_a3": f"decode_a3_in_{ns}", "decode_block": "decode_in",
+               "chunk": "chunk_in"}[tag]
+        cache = None if src is None else plan.cut_cache(
+            port_cache(tree[src], cfg, batch, a3))
+        with FlopCounterMode(display=False) as fc, \
+                plan.dispatch_context(model):
+            if tag in ("prefill", "prefill_short"):
+                # the short prompt leaves some ranks' ring rows unwritten
+                toks = x["tokens"] if tag == "prefill" \
+                    else x["tokens"][:, :DECODE_FROM - 8]
+                logits, cache = decoder.prefill(
+                    model, cfg, toks, max_len=SERVE_SEQ, a3=a3,
+                    select_shards=ns)
+            elif tag == "chunk":
+                logits, cache = decoder.prefill_chunk(
+                    model, cfg, cache, x["chunk_tokens"], x["chunk_pos"],
+                    x["chunk_len"])
+            elif tag == "decode_block":
+                ring, carry, cache = decoder.decode_block(
+                    model, cfg, cache, x["dec_token"], x["dec_pos"],
+                    x["steps_left"], steps=4)
+                logits = None
+            else:
+                logits, cache = decoder.decode_step(
+                    model, cfg, cache, x["dec_token"], x["dec_pos"],
+                    a3=a3c if a3 else A3Config())
+        out[f"{tag}/flops"] = ctx.gather(torch.tensor(
+            float(fc.get_total_flops()), dtype=torch.float64))
+        if logits is not None:
+            out[f"{tag}/logits"] = whole(plan, logits, True)
+        else:
+            out[f"{tag}/ring"] = whole(plan, ring, False)
+            out[f"{tag}/carry"] = whole(plan, carry, False)
+        compare(tag, key, plan, cache, a3)
+    ctx.save(case_name, **out)
+
+
+def chunk_then_a3_decode(ctx, out, x, model, mesh, shd, compare, whole,
+                         name, batch, ns, a3c):
+    """``chunk_a3``: two chunks of a chunked prefill with A^3 (16 tokens a
+    lane, then the ragged second chunk) from an empty cache, then the
+    conservative decode step from each lane's next position. The cache
+    against the reference's and the whole decode logits for the test."""
+    import torch
+    from repro_torch.models import decoder
+    from repro_torch.sharding.plan import serving_plan
+    cfg = configs()[name]
+    plan = serving_plan(cfg, mesh, shd, batch=batch, max_len=SERVE_SEQ,
+                        dispatch="chunk", select_shards=ns)
+    cache = plan.cut_cache(decoder.init_cache(cfg, batch, SERVE_SEQ, a3=True,
+                                              device="cpu"))
+    with plan.dispatch_context(model):
+        decoder.prefill_chunk(model, cfg, cache, x["tokens"][:, :CHUNK],
+                              torch.zeros(batch, dtype=torch.int32),
+                              torch.full((batch,), CHUNK, dtype=torch.int32),
+                              a3=True)
+        decoder.prefill_chunk(model, cfg, cache, x["chunk_tokens"],
+                              x["chunk_pos"], x["chunk_len"], a3=True)
+    compare("chunk_a3", "chunk_a3", plan, cache, True)
+    plan = serving_plan(cfg, mesh, shd, batch=batch, max_len=SERVE_SEQ,
+                        dispatch="decode", select_shards=ns)
+    with plan.dispatch_context(model):
+        logits, _ = decoder.decode_step(
+            model, cfg, cache, x["tokens"][:, 2 * CHUNK],
+            x["chunk_pos"] + x["chunk_len"], a3=a3c)
+    out["chunk_a3/logits"] = whole(plan, logits, True)
+
+
+for _case in SERVE_CELLS:
+    CASES[_case] = lambda ctx, c=_case: serve_cell(ctx, c)
+
+
+def one_rank_serve(cfg, mesh, a3_mode, seed=0):
+    """TINY's chunked prefill and two 4-step decode blocks through
+    ``make_decode_block_step`` unsharded and on a one-rank mesh (the plan,
+    its collectives and the partial-softmax kernels with their combine,
+    on one rank) -> (prefill logits, harvests, final caches) of each."""
+    import torch
+    from repro_torch.config import A3Config, ShardingConfig
+    from repro_torch.models import decoder
+    from repro_torch.serve import engine as E
+    from repro_torch.sharding.rules import distribute_parameters
+
+    batch, max_len, prompt = 4, SERVE_SEQ, 24
+    a3 = {"off": A3Config(), "conservative": A3Config.conservative()}[a3_mode]
+    use_a3 = a3_mode != "off"
+    shd = ShardingConfig(remat="none")
+    g = torch.Generator().manual_seed(seed)
+    model = decoder.init_params(cfg, g, "cpu")
+    tokens = torch.randint(0, cfg.vocab_size, (batch, prompt), generator=g)
+    out = {}
+    for label, m in (("single", None), ("mesh", mesh)):
+        step = E.make_decode_block_step(cfg, a3, steps=4, resort_every=8,
+                                        mesh=m, sharding_cfg=shd,
+                                        max_len=max_len)
+        if m is None:
+            net = model
+            cache = decoder.init_cache(cfg, batch, max_len, a3=use_a3,
+                                       device="cpu")
+        else:
+            net = distribute_parameters(decoder.init_params(
+                cfg, torch.Generator().manual_seed(seed), "cpu"), shd, m)
+            cache = step.plan(batch).init_cache(batch, max_len, a3=use_a3,
+                                                device="cpu")
+        pos = torch.zeros(batch, dtype=torch.int32)
+        length = torch.full((batch,), prompt, dtype=torch.int32)
+        if m is None:
+            logits, cache = decoder.prefill_chunk(net, cfg, cache, tokens,
+                                                  pos, length, a3=use_a3)
+        else:
+            from repro_torch.sharding.plan import serving_plan
+            plan = serving_plan(cfg, m, shd, batch=batch, max_len=max_len,
+                                dispatch="chunk",
+                                select_shards=a3.select_shards
+                                if use_a3 else 0)
+            with plan.dispatch_context(net):
+                logits, cache = decoder.prefill_chunk(
+                    net, cfg, cache, tokens, pos, length, a3=use_a3)
+        token = logits.argmax(-1).to(torch.int32)
+        ctrl = torch.zeros((batch, E.CTRL_COLS), dtype=torch.int32)
+        harvests = []
+        for blk in range(2):
+            ctrl[:, E.CTRL_D_POS] = prompt + 4 * blk
+            ctrl[:, E.CTRL_D_STEPS] = 4
+            harvest, token, cache = step(net, cache, token, token, ctrl)
+            harvests.append(harvest)
+        out[label] = (logits, torch.cat(harvests, 1), cache)
+    return out
+
+
+COMBINE_SHAPE = dict(b=3, hq=4, hkv=2, s=64, d=16)
+
+
+def combine_inputs():
+    """q, k, v, mask of ``COMBINE_SHAPE`` (numpy seed 3), float32: lane 1
+    with a NaN key row 37, lane 2 with its rows 16-31 masked for every
+    head (an empty slice on the second of 4 ranks) and head 3 of lane 0
+    masked everywhere (a -1e30 ring)."""
+    import torch
+    c = COMBINE_SHAPE
+    rng = np.random.default_rng(3)
+    q = torch.from_numpy(rng.standard_normal((c["b"], c["hq"], c["d"]),
+                                             dtype=np.float32))
+    k = torch.from_numpy(rng.standard_normal(
+        (c["b"], c["hkv"], c["s"], c["d"]), dtype=np.float32))
+    v = torch.from_numpy(rng.standard_normal(
+        (c["b"], c["hkv"], c["s"], c["d"]), dtype=np.float32))
+    mask = torch.from_numpy(rng.random((c["b"], c["hq"], c["s"])) < 0.7)
+    k[1, :, 37] = float("nan")
+    mask[1, :, 37] = True
+    mask[2, :, 16:32] = False
+    mask[0, 3] = False
+    return q, k, v, mask
+
+
+@case
+def combine_group(ctx):
+    """``combine_partials`` over the world's ranks, each holding its slice
+    of the ring: #1's plain version with the log-sum-exp, and #2 / #3
+    against the ranks' max (NaN kept), threshold None and 3.0."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.kernels.decode_attention import kernel as tk
+    from repro_torch.kernels.decode_attention.ops import combine_partials
+    from repro_torch.models.common import nan_max
+    grp = dist.group.WORLD.group_name
+    q, k, v, mask = combine_inputs()
+    n = k.shape[2] // ctx.world
+    sl = slice(ctx.rank * n, (ctx.rank + 1) * n)
+    ks, vs, ms = k[:, :, sl], v[:, :, sl], mask[:, :, sl].contiguous()
+    o, lse = tk.fused(q, ks, vs, ms, partial=True)
+    out = {"fused": combine_partials(o, lse, group=grp).numpy()}
+    rm = nan_max(tk.rowmax(q, ks, ms), grp)
+    for thr in (None, 3.0):
+        o, lsum = tk.attend(q, ks, vs, ms, rm, threshold=thr, partial=True)
+        out[f"attend_{thr}"] = combine_partials(o, lsum, stat="sum",
+                                                group=grp).numpy()
+    ctx.save("combine_group", **out)
+
+
+GATHER = dict(pages=32, page_size=16, si=5, t=40, select_shards=2)
+
+
+@case
+def gather_2x2(ctx):
+    """``serve.prefix_cache.gather_fn`` on a (2, 2) mesh, from the
+    reference's TINY cache and an fp and an int8 pool (``gather_in.npz``):
+    each rank holds its lanes' ring rows and its pages' page rows (pages
+    over data, rows over model); lane ``si`` (rank data 1's) takes the
+    matched prefix. Each rank's share of the result against the same
+    share of the reference's (``gather_<kind>/cache_out``)."""
+    import torch
+    from repro_torch.config import ShardingConfig
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import decoder
+    from repro_torch.models.common import activation_shardings
+    from repro_torch.models.mixer import build_segments
+    from repro_torch.serve.prefix_cache import gather_fn
+    from repro_torch.sharding.plan import serving_plan
+
+    cfg = configs()["tiny"]
+    mesh = make_mesh((2, 2), ("data", "model"), "cpu")
+    g = GATHER
+    tree = load_tree(ctx.dir / "gather_in.npz")
+    out = {}
+    for kind in ("none", "int8"):
+        plan = serving_plan(cfg, mesh, ShardingConfig(remat="none"),
+                            batch=8, max_len=SERVE_SEQ, dispatch="decode",
+                            select_shards=g["select_shards"]).with_pool(
+                                g["pages"], g["page_size"])
+        cache = plan.cut_cache(port_cache(tree["cache"], cfg, 8, True))
+        want_pool = decoder.init_page_pool(cfg, g["pages"], g["page_size"],
+                                           a3=True, kv_quant=kind,
+                                           device="cpu")
+        pool = plan.cut_pool({
+            s_: {k: torch.from_numpy(np.asarray(tree[f"pool_{kind}"][s_][k]))
+                 .to(v.dtype) for k, v in leaves.items()}
+            for s_, leaves in want_pool.items()})
+        idx = {"seg0": {"page": torch.from_numpy(
+                            tree["idx"]["page"].astype(np.int64)),
+                        "off": torch.from_numpy(
+                            tree["idx"]["off"].astype(np.int64)),
+                        "valid": torch.from_numpy(tree["idx"]["valid"] > 0)}}
+        with activation_shardings(plan.plan()):
+            gather_fn(build_segments(cfg), True, cache, pool, g["si"],
+                      g["t"], idx, {}, {})
+        want = plan.cut_cache(port_cache(tree[f"gather_{kind}"]["cache_out"],
+                                         cfg, 8, True))["seg0"]
+        diff = max(float((cache["seg0"][k].float()
+                          - want[k].float()).abs().max())
+                   for k in ("k", "v", "sk_vals"))
+        out[f"{kind}/diff"] = ctx.gather(torch.tensor(diff))
+        out[f"{kind}/sorted_equal"] = ctx.gather(torch.tensor(
+            torch.equal(cache["seg0"]["sk_rows"], want["sk_rows"])
+            and torch.equal(cache["seg0"]["sorted_upto"],
+                            want["sorted_upto"])))
+    ctx.save("gather_2x2", **out)
+
+
+@case
+def serve_one_rank(ctx):
+    """The serving mesh path on a one-rank (data 1, model 1) mesh equals
+    the unsharded dispatches bit for bit (TINY f32, A^3 off and
+    conservative): prefill logits, tokens and the cache."""
+    import torch
+    from repro_torch.launch.mesh import make_mesh
+    mesh = make_mesh((1, 1), ("data", "model"), "cpu")
+    res = {}
+    for mode in ("off", "conservative"):
+        r = one_rank_serve(configs()["tiny"], mesh, mode)
+        (l1, h1, c1), (l2, h2, c2) = r["single"], r["mesh"]
+        res[f"{mode}/logits"] = np.array(torch.equal(l1, l2))
+        res[f"{mode}/tokens"] = np.array(torch.equal(h1, h2))
+        res[f"{mode}/cache"] = np.array(all(
+            torch.equal(c1[s_][k], c2[s_][k]) for s_ in c1 for k in c1[s_]))
+        res[f"{mode}/harvest"] = h2.numpy()
+    ctx.save("serve_one_rank", **res)
 
 
 @case
