@@ -33,8 +33,9 @@ first phase that does not hold:
    from seed 0; 4 slots, max_len 512, 8 requests of 64-token prompts, 16
    new tokens) through ``ServeEngine`` with A^3 off at decode_block 1 and
    4, and checks that the fused kernel ran 32 x decode_steps times;
-   (3b) the same serve at decode_block 4 through the engine's pipelined
-   harvest, pipeline_depth 0 and 1 (tokens identical), then tempered at
+   (3b) its first 5 requests (the 4 slots and one refill) at decode_block 4
+   through the engine's pipelined harvest, pipeline_depth 0 and 1 (tokens
+   identical), then tempered at
    temperature 0.8, depth 1, decode_block 1 and 4 (tokens identical
    across block sizes), #1 32 x decode_steps times in each, with tok/s,
    host syncs, stalls and the per-phase tick times, greedy and sampled
@@ -169,7 +170,7 @@ first phase that does not hold:
    after each crash) on the card vs the CPU: tokens, clock-free stats
    and chaos events identical, #1 (#7 for TINY_XL) launched.
 12. the serving telemetry plane (after [11], on phase 3's model): phase
-   3's serve (8 requests of 64-token prompts, 16 greedy new tokens, 4
+   3's first 5 requests (64-token prompts, 8 greedy new tokens, 4
    slots, max_len 512, decode_block 4), A^3 off and conservative,
    pipeline_depth 0 and 1, each as telemetry off, on with
    telemetry_every 1 and 8, and off again (the wall in turns). Holds:
@@ -195,7 +196,7 @@ first phase that does not hold:
    ``MLSTMChunk`` (#7's forward; its backward recomputes the plain
    version) against the same batch with the chunk loop in its plain
    version on the card (loss and every grad within 2e-2 of max |grad|),
-   every mLSTM parameter's grad finite and non-zero, then 4 steps of
+   every mLSTM parameter's grad finite and non-zero, then 3 steps of
    ``train_loop`` on ``SyntheticLM`` with #7 launched 21 x 2 a step (the
    forward and the remat recompute) on its tensor-core route; step ms by
    events, device ms and kernels of a step by the profiler, peak memory,
@@ -246,9 +247,10 @@ first phase that does not hold:
    (its defaults) run on the card and exit 0.
 15. the device mesh (after [14]), on a one-rank NCCL ("data", "model")
    mesh (``launch.mesh``; the tool gives one card, NCCL takes one rank a
-   card): (a) internlm2-1.8b (B=4 x 2048) and (b) xlstm-350m (B=4 x 512)
-   at full width and depth, remat full, 3 steps of the unsharded step
-   and 3 of the sharded step (``make_train_step(run, mesh)``: DTensor
+   card): (a) internlm2-1.8b (B=4 x 2048) and (b) xlstm-350m (B=4 x 256)
+   at full width and depth, remat full, 3 (xlstm-350m: 2) steps of the
+   unsharded step and as many of the sharded step
+   (``make_train_step(run, mesh)``: DTensor
    parameters and moments, weights gathered per layer) from the same
    seed and batches, one model on the card at a time: losses within 1e-5
    relative, step ms (CUDA events) and peak memory, #7 launched 2 x 21 a
@@ -298,16 +300,33 @@ first phase that does not hold:
    conservative decode, each beside its one-device trace: per-rank
    FLOPs, HBM and collective bytes, peak, roofline terms and bottleneck,
    and FLOPs x ranks against one device (the replicated remainder).
+18. the MoE's routed experts on a mesh (after [17]): (a) deepseek-moe-16b
+   at full width and depth (28 layers, bf16) at [17b]'s serving shape on
+   the one-rank NCCL mesh, where the MoE takes its mesh path (the
+   routing integers gathered over the batch's ranks, the capacity
+   buffer's reduce-scatter there and all-gather back, the fixed-order
+   combine), against
+   the unsharded dispatches, A^3 off and conservative: tokens equal,
+   prefill logits within the bf16 tolerance, #1 28 a decode step; (b) 3
+   sharded train steps of its first 4 layers (layer 0 dense) at 1 x
+   2048, remat full, against 3 unsharded steps: losses within 1e-5
+   relative; (c) ``MOE_DRY``: deepseek-moe-16b prefill_32k and
+   decode_32k and grok-1-314b decode_32k traced in two children (started
+   at [15]) on fake (16, 16) worlds, each beside its one-device trace:
+   per-rank FLOPs x ranks within [1, 1.01] of one device's, the peak a
+   rank under the card's 80 GiB, and the roofline terms. Collectives
+   across cards stay unmeasured (one card).
 
-Prints one JSON line of per-kernel numbers (every row with
-``device_ms``, the profiler's device time per launch; rows #1-#3 with
-``s4096``, the long ring's ms, device ms and bound; row #1 with
+Prints each phase's seconds on a line of its own, then one JSON line of
+per-kernel numbers (every row with ``device_ms``, the profiler's device
+time per launch; rows #1-#3 with ``s4096``, the long ring's ms, device ms
+and bound; row #1 with
 ``served_shapes``, phase 9's and [14c]'s rows, and rows #1 and #3 with
 [17a]'s split-ring error (``split_ring_max_abs_err``) and #1 with its
 device time with and without the partial output, each beside its bound
 on the same inputs (``partial_device_ms``); #1's
-launches include [10]'s, [11]'s, [12]'s, [14]'s and [17b]'s A^3-off
-decode steps, #7's [10b]'s, [11d]'s, [12b]'s, [13]'s ([13a]'s
+launches include [10]'s, [11]'s, [12]'s, [14]'s, [17b]'s and [18a]'s
+A^3-off decode steps, #7's [10b]'s, [11d]'s, [12b]'s, [13]'s ([13a]'s
 train_loop steps and [13c]'s card steps), [15b]'s sharded steps and
 [16b]'s real steps),
 then, last,
@@ -317,6 +336,7 @@ when CUDA is unavailable or the port's sources are not beside the script.
 from __future__ import annotations
 
 import atexit
+import contextlib
 import copy
 import dataclasses
 import gc
@@ -338,6 +358,15 @@ CARD = ""
 
 class SmokeError(RuntimeError):
     pass
+
+
+PHASE_S = {}                # phase -> seconds, printed before the result
+
+
+def took(phase, t0):
+    """Log and keep the seconds phase ``phase`` took since ``t0``."""
+    PHASE_S[phase] = round(time.perf_counter() - t0, 1)
+    log(f"  phase [{phase}] took {PHASE_S[phase]:.1f} s")
 
 
 def check(cond, msg):
@@ -971,8 +1000,8 @@ def check_conservation(eng):
 
 
 def phase_engine(model, cfg, dev):
-    """[3b]: phi4-mini-3.8b's serve (phase 3's requests, A^3 off,
-    decode_block 4) through the engine's pipelined harvest and tempered
+    """[3b]: phi4-mini-3.8b's serve (phase 3's first 5 requests, A^3
+    off, decode_block 4) through the engine's pipelined harvest and tempered
     sampling; one depth-1 tick under ``set_sync_debug_mode("error")``; a
     lifecycle run at depth 1 -> kernel #1's launches in its serves."""
     import numpy as np
@@ -987,8 +1016,10 @@ def phase_engine(model, cfg, dev):
 
     def serve(label, decode_block, **knobs):
         nonlocal fused
-        outs, eng, dt, launches = serve_run(model, cfg, prompts, A3Config(),
-                                            decode_block, 16, **knobs)
+        # the 4 slots and one refill (the lifecycle below takes all 8)
+        outs, eng, dt, launches = serve_run(model, cfg, prompts[:5],
+                                            A3Config(), decode_block, 16,
+                                            **knobs)
         want = cfg.num_layers * eng.stats["decode_steps"]
         got = launches["decode_attention_fused"]
         check(got == want > 0, f"{label}: fused kernel launched {got} times, "
@@ -1965,6 +1996,7 @@ def phase_durable_tiny(dev):
 # ---------------------------------------------------------------------------
 
 TELEMETRY_EVERY = (1, 8)
+TELEMETRY_NEW = 8       # 5 requests on 4 slots: a refill, 16 decode steps
 
 
 def probe_recorder(eng):
@@ -2014,7 +2046,7 @@ def trace_by_uid(tm):
 
 
 def phase_telemetry(model, cfg, dev):
-    """[12] phase [3]'s serve (8 requests of 64-token prompts, 16 greedy
+    """[12] phase [3]'s first 5 requests (64-token prompts, 8 greedy
     new tokens, 4 slots, max_len 512, decode_block 4) with A^3 off and
     conservative at pipeline_depth 0 and 1: telemetry off, on with
     telemetry_every 1 and 8, and off again (the wall in turns). Holds:
@@ -2038,7 +2070,7 @@ def phase_telemetry(model, cfg, dev):
     from repro_torch.serve.engine import ServeEngine
 
     rng = np.random.default_rng(0)
-    prompts = [rng.integers(0, cfg.vocab_size, size=64) for _ in range(8)]
+    prompts = [rng.integers(0, cfg.vocab_size, size=64) for _ in range(5)]
     knobs = dict(slots=4, max_len=512, decode_block=4)
     fused, kept = 0, {}
 
@@ -2052,7 +2084,7 @@ def phase_telemetry(model, cfg, dev):
                 rows.append(probe_recorder(eng))
 
         outs, eng, dt, launches = serve_run(
-            model, cfg, prompts, a3, 4, 16, on_engine=watch,
+            model, cfg, prompts, a3, 4, TELEMETRY_NEW, on_engine=watch,
             pipeline_depth=depth, **tel)
         return (outs, eng, dt, launches["decode_attention_fused"],
                 rows[0] if rows else None)
@@ -2198,8 +2230,9 @@ def phase_telemetry(model, cfg, dev):
         saved = decoder.init_params
         decoder.init_params = lambda *a, **k: model
         try:
-            cli.main(["--arch", cfg.name, "--requests", "8", "--prompt-len",
-                      "64", "--max-new", "16", "--decode-block", "4",
+            cli.main(["--arch", cfg.name, "--requests", "5", "--prompt-len",
+                      "64", "--max-new", str(TELEMETRY_NEW),
+                      "--decode-block", "4",
                       "--pipeline-depth", "1", "--a3", "conservative",
                       "--telemetry", "--telemetry-every", "8",
                       "--stats-json", spath, "--device", dev.type])
@@ -3498,7 +3531,7 @@ def phase_tiny_families(dev):
 # phase 13: training
 # ---------------------------------------------------------------------------
 
-TRAIN_XL = dict(batch=4, seq=512, steps=4)        # xlstm-350m, remat full
+TRAIN_XL = dict(batch=4, seq=512, steps=3)        # xlstm-350m, remat full
 TRAIN_LM = dict(batch=4, seq=2048, steps=3,      # internlm2-1.8b
                 timed_steps=4)
 TRAIN_LM_CMP_BATCH = 1     # remat none vs full: none keeps ~3 GB of f32
@@ -3597,7 +3630,7 @@ def phase_train_xlstm(dev):
     """[13a]: xlstm-350m at full width and depth (bf16, 21 mLSTM + 3
     sLSTM), batch 4 x 512, remat full: one batch's grads through
     MLSTMChunk (#7 forward) vs the plain chunkwise (on the card), every
-    mLSTM parameter's grad finite and non-zero, then 4 steps of
+    mLSTM parameter's grad finite and non-zero, then 3 steps of
     ``train_loop`` on SyntheticLM with #7 launched 21 x 2 per step ->
     #7 launches of those steps."""
     import tempfile
@@ -4390,7 +4423,7 @@ def phase_frontend(dev):
 # ---------------------------------------------------------------------------
 
 MESH_LM = dict(batch=4, seq=2048, steps=3)       # internlm2-1.8b
-MESH_XL = dict(batch=4, seq=512, steps=3)        # xlstm-350m
+MESH_XL = dict(batch=4, seq=256, steps=2)        # xlstm-350m
 MESH_TINY_STEPS = 3
 MESH_CPU_WORLD = 4                               # a (data 2, model 2) mesh
 
@@ -4478,19 +4511,21 @@ def finish_cpu_ranks(procs, out, timeout=300):
     return json.loads(out.read_text())
 
 
-def mesh_full_width(arch, shape, dev, mesh):
-    """[15a]/[15b]: ``arch`` at full width and depth (bf16, AdamW m/v
-    float32), remat full, ``shape``'s batch and steps: the unsharded step
-    and the sharded step on the one-rank mesh, each from generator seed 0
-    on the card and the same SyntheticLM batches, one model on the card
-    at a time -> (unsharded losses, sharded losses, #7 launches of the
-    sharded steps)."""
+def mesh_full_width(arch, shape, dev, mesh, layers=None):
+    """[15a]/[15b]/[18b]: ``arch`` at full width and depth (or its first
+    ``layers`` layers; bf16, AdamW m/v float32), remat full, ``shape``'s
+    batch and steps: the unsharded step and the sharded step on the
+    one-rank mesh, each from generator seed 0 on the card and the same
+    SyntheticLM batches, one model on the card at a time -> (unsharded
+    losses, sharded losses, #7 launches of the sharded steps)."""
     import torch
     from repro_torch.kernels.mlstm_chunk import kernel as mk
     from repro_torch.config import get_arch
     from repro_torch.train.step import init_train_state, make_train_step
 
     cfg = get_arch(arch)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
     run = train_run(cfg, shape["seq"], shape["batch"], "full", None)
     out, launches = {}, None
     for label, m in (("unsharded", None), ("sharded", mesh)):
@@ -4517,7 +4552,8 @@ def mesh_full_width(arch, shape, dev, mesh):
             launches = mk.launches()
         ms = [a.elapsed_time(b) for a, b in zip([start] + ends[:-1], ends)]
         peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
-        log(f"  {arch} {label}{' (one-rank mesh)' if m is not None else ''}"
+        log(f"  {arch}{f' ({layers} layers)' if layers else ''} {label}"
+            f"{' (one-rank mesh)' if m is not None else ''}"
             f" B={shape['batch']} x {shape['seq']} remat full: loss "
             + " -> ".join(f"{x:.6f}" for x in losses)
             + "; step ms " + ", ".join(f"{x:.1f}" for x in ms)
@@ -4722,6 +4758,22 @@ for _i, _group in enumerate(SERVING_GROUPS):
         _cells["17c-phi4-decode-a3-2x16x16"] = dict(
             SERVING_DRY["17c-phi4-decode-a3"], mesh=[2, 16, 16])
     DRY_CELLS[f"17c-{_i}"] = {"cells": _cells}
+
+
+# [18c]: the MoE archs' serving cells on (16, 16) and on one rank, in two
+# children started with [17c]'s
+MOE_DRY = (
+    {"18c-deepseek-prefill": dict(arch="deepseek-moe-16b",
+                                  shape="prefill_32k"),
+     "18c-grok-decode": dict(arch="grok-1-314b", shape="decode_32k")},
+    {"18c-deepseek-decode": dict(arch="deepseek-moe-16b",
+                                 shape="decode_32k")},
+)
+for _i, _group in enumerate(MOE_DRY):
+    DRY_CELLS[f"18c-{_i}"] = {"cells": {
+        f"{_name}-{'x'.join(map(str, _mesh)) or '1'}": dict(_spec,
+                                                            mesh=_mesh)
+        for _name, _spec in _group.items() for _mesh in ([16, 16], [])}}
 
 
 def dry_cell(spec):
@@ -5161,65 +5213,60 @@ def mesh_serve_run(model, cfg, prompts, a3, mesh, dev):
 
 
 def phase_mesh_serve(dev):
-    """[17b] phi4-mini-3.8b at [3]'s serving shape on a one-rank NCCL
-    ("data", "model") mesh (the serving plan, its collectives, #1's
-    partial softmax and its combine) against the unsharded dispatches, A^3
-    off and conservative: tokens equal, prefill logits within the bf16
-    bar -> #1 launches of the mesh decode blocks."""
-    import socket
+    """[17b] phi4-mini-3.8b on a one-rank NCCL mesh: see
+    :func:`mesh_serve_check`."""
+    from repro_torch.config import get_arch
+    with one_rank_mesh() as mesh:
+        return mesh_serve_check(dev, get_arch("phi4-mini-3.8b"), "17b", mesh)
+
+
+def mesh_serve_check(dev, cfg, tag, mesh):
+    """``cfg`` at [3]'s serving shape on the one-rank NCCL ("data",
+    "model") ``mesh`` (the serving plan, its collectives, #1's partial
+    softmax and its combine; the MoE's routing gather and exchange)
+    against the unsharded dispatches, A^3 off and conservative: tokens
+    equal, prefill logits within the bf16 bar -> #1 launches of the mesh
+    decode blocks."""
     import numpy as np
     import torch
-    import torch.distributed as dist
-    from repro_torch.config import A3Config, ShardingConfig, get_arch
-    from repro_torch.launch.mesh import init_distributed, make_mesh
+    from repro_torch.config import A3Config, ShardingConfig
     from repro_torch.models import decoder
     from repro_torch.sharding.rules import distribute_parameters
 
-    cfg = get_arch("phi4-mini-3.8b")
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, cfg.vocab_size, size=MESH_SERVE["prompt"])
                for _ in range(MESH_SERVE["prompts"])]
-    with socket.socket() as sk:
-        sk.bind(("127.0.0.1", 0))
-        port = sk.getsockname()[1]
-    init_distributed("cuda", rank=0, world_size=1,
-                     init_method=f"tcp://127.0.0.1:{port}")
     launches = 0
-    try:
-        mesh = make_mesh((1, 1), ("data", "model"), "cuda")
-        modes = (("off", A3Config()),
-                 ("conservative", A3Config.conservative()))
-        model = decoder.init_params(cfg, torch.Generator(
-            device=dev).manual_seed(0), dev)
-        want = {m: mesh_serve_run(model, cfg, prompts, a3, None, dev)
-                for m, a3 in modes}
-        distribute_parameters(model, ShardingConfig(remat="none"), mesh)
-        for m, a3 in modes:
-            t = time.perf_counter()
-            logits, tokens, n1 = mesh_serve_run(model, cfg, prompts, a3,
-                                                mesh, dev)
-            w_logits, w_tokens, _ = want[m]
-            e, ok = max_err(logits, w_logits)
-            same = torch.equal(tokens, w_tokens)
-            check(same, f"[17b] a3={m}: the one-rank mesh's tokens differ "
-                        f"from the unsharded run's")
-            check(ok, f"[17b] a3={m}: prefill logits {e:.3g} from the "
-                      f"unsharded run's (bf16 tolerance)")
-            if m == "off":
-                n_steps = MESH_SERVE["steps"] * MESH_SERVE["blocks"] * (
-                    MESH_SERVE["prompts"] // MESH_SERVE["slots"])
-                check(n1 == cfg.num_layers * n_steps or dev.type != "cuda",
-                      f"[17b] #1 launched {n1} times on the mesh, expected "
-                      f"{cfg.num_layers} layers x {n_steps} steps")
-                launches += n1
-            log(f"  [17b] phi4-mini-3.8b a3={m} on the one-rank mesh: "
-                f"{tokens.numel()} tokens equal to the unsharded run's, "
-                f"prefill logits within {e:.3g}; #1 (with its log-sum-exp) "
-                f"{n1} launches in the decode blocks; "
-                f"{time.perf_counter() - t:.1f} s [{CARD}]")
-        del model
-    finally:
-        dist.destroy_process_group()
+    modes = (("off", A3Config()), ("conservative", A3Config.conservative()))
+    model = decoder.init_params(cfg, torch.Generator(device=dev).manual_seed(
+        0), dev)
+    want = {m: mesh_serve_run(model, cfg, prompts, a3, None, dev)
+            for m, a3 in modes}
+    distribute_parameters(model, ShardingConfig(remat="none"), mesh)
+    for m, a3 in modes:
+        t = time.perf_counter()
+        logits, tokens, n1 = mesh_serve_run(model, cfg, prompts, a3, mesh,
+                                            dev)
+        w_logits, w_tokens, _ = want[m]
+        e, ok = max_err(logits, w_logits)
+        same = torch.equal(tokens, w_tokens)
+        check(same, f"[{tag}] a3={m}: the one-rank mesh's tokens differ "
+                    f"from the unsharded run's")
+        check(ok, f"[{tag}] a3={m}: prefill logits {e:.3g} from the "
+                  f"unsharded run's (bf16 tolerance)")
+        if m == "off":
+            n_steps = MESH_SERVE["steps"] * MESH_SERVE["blocks"] * (
+                MESH_SERVE["prompts"] // MESH_SERVE["slots"])
+            check(n1 == cfg.num_layers * n_steps or dev.type != "cuda",
+                  f"[{tag}] #1 launched {n1} times on the mesh, expected "
+                  f"{cfg.num_layers} layers x {n_steps} steps")
+            launches += n1
+        log(f"  [{tag}] {cfg.name} a3={m} on the one-rank mesh: "
+            f"{tokens.numel()} tokens equal to the unsharded run's, "
+            f"prefill logits within {e:.3g}; #1 (with its log-sum-exp) "
+            f"{n1} launches in the decode blocks; "
+            f"{time.perf_counter() - t:.1f} s [{CARD}]")
+    del model, want
     gc.collect()
     torch.cuda.empty_cache()
     return launches
@@ -5231,10 +5278,13 @@ def serving_cell_line(tag, r, one):
     # a warm-admission copy does no product at all
     share = extra / one["flops_per_device"] if one["flops_per_device"] \
         else 0.0
+    kinds = ", ".join(f"{k} {v:.6g}" for k, v in
+                      sorted(r["collective_bytes_by_kind"].items()))
     log(f"  [{tag}] {r['arch']} {r['shape']} a3={r['a3_mode']} on "
         f"{r['mesh']} ({r['chips']} fake ranks): per rank "
         f"{r['flops_per_device']:.6g} FLOPs, {r['bytes_per_device']:.6g} HBM "
-        f"bytes, {r['collective_bytes']:.6g} collective bytes, peak "
+        f"bytes, {r['collective_bytes']:.6g} collective bytes "
+        f"({kinds}), peak "
         f"{r['memory']['peak_device_bytes'] / 2**30:.2f} GiB; compute "
         f"{r['compute_s'] * 1e3:.3f} ms, memory {r['memory_s'] * 1e3:.3f} ms,"
         f" collective {r['collective_s'] * 1e3:.3f} ms -> {r['bottleneck']}; "
@@ -5259,6 +5309,84 @@ def phase_serving_dryrun(children):
         extra = serving_cell_line(tag, recs[tag], one)
         check(extra >= -1e-6 * one["flops_per_device"],
               f"[{tag}] the ranks' FLOPs {extra:.6g} short of one rank's")
+
+
+# ---------------------------------------------------------------------------
+# [18] the MoE's routed experts on a mesh
+# ---------------------------------------------------------------------------
+
+MOE_TRAIN = dict(batch=1, seq=2048, steps=3, layers=4)   # [18b]
+MOE_DRY_MAX = 1.01          # [18c]: FLOPs x ranks over one device, at most
+HBM_GIB = 80.0
+
+
+@contextlib.contextmanager
+def one_rank_mesh():
+    """A one-rank NCCL process group on the card (a free local port) and
+    its ("data", "model") mesh; the group is destroyed on the way out."""
+    import socket
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import init_distributed, make_mesh
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    init_distributed("cuda", rank=0, world_size=1,
+                     init_method=f"tcp://127.0.0.1:{port}")
+    try:
+        yield make_mesh((1, 1), ("data", "model"), "cuda")
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_moe_mesh(dev, children):
+    """[18] deepseek-moe-16b on a one-rank NCCL mesh: (a) served at [17b]'s
+    shape through the mesh MoE path (the routing integers gathered over
+    the batch's ranks, the capacity buffer's exchange, the combine)
+    against the unsharded dispatches, A^3 off and conservative; (b) 3
+    sharded train steps of its first 4 layers at 1 x 2048 against the
+    unsharded step; (c) the MoE archs' serving dry-run cells (children
+    started at [15]) against their one-device traces -> #1's launches of
+    (a)'s mesh decode blocks."""
+    import torch
+    from repro_torch.config import get_arch
+    with one_rank_mesh() as mesh:
+        launches = mesh_serve_check(dev, get_arch("deepseek-moe-16b"), "18a",
+                                    mesh)
+        log("[18b] deepseek-moe-16b training on the one-rank mesh")
+        t = time.perf_counter()
+        sm = MOE_TRAIN
+        want, got, _ = mesh_full_width("deepseek-moe-16b", sm, dev, mesh,
+                                       layers=sm["layers"])
+        rel = max(abs(a - b) / abs(b) for a, b in zip(got, want))
+        check(rel <= 1e-5, f"[18b] sharded losses {got} vs unsharded {want}: "
+                           f"{rel:.3g} relative")
+        log(f"  [18b] deepseek-moe-16b ({sm['layers']} layers, layer 0 "
+            f"dense) {sm['steps']} sharded steps at {sm['batch']} x "
+            f"{sm['seq']}: losses within {rel:.3g} relative of the "
+            f"unsharded steps'; {time.perf_counter() - t:.1f} s [{CARD}]")
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("[18c] the MoE archs' serving dry-run cells (per rank, against one "
+        "rank)")
+    t = time.perf_counter()
+    recs = {}
+    for group in finish_dryrun_cells(children).values():
+        recs.update(group)
+    for tag in sorted(recs):
+        if tag.endswith("-1"):
+            continue
+        r, one = recs[tag], recs[tag.rsplit("-", 1)[0] + "-1"]
+        extra = serving_cell_line(tag, r, one)
+        total = r["flops_per_device"] * r["chips"]
+        peak = r["memory"]["peak_device_bytes"] / 2 ** 30
+        check(extra >= -1e-6 * one["flops_per_device"]
+              and total <= MOE_DRY_MAX * one["flops_per_device"],
+              f"[{tag}] the ranks' FLOPs {total:.6g} against one rank's "
+              f"{one['flops_per_device']:.6g}: outside [1, {MOE_DRY_MAX}]")
+        check(peak < HBM_GIB, f"[{tag}] peak {peak:.2f} GiB a rank does not "
+                              f"fit the card's {HBM_GIB:.0f} GiB")
+    log(f"  [18c] waited {time.perf_counter() - t:.1f} s for the children")
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -5291,7 +5419,8 @@ def main() -> int:
     t0 = time.perf_counter()
     sources = sorted(p.name for p in build.CSRC.glob("*.cu"))
     paths = build.build_all(sources)
-    log(f"[1] built {sources} in {time.perf_counter() - t0:.1f} s -> "
+    PHASE_S["1"] = round(time.perf_counter() - t0, 1)
+    log(f"[1] built {sources} in {PHASE_S['1']:.1f} s -> "
         f"{[str(p.relative_to(ROOT)) for p in paths.values()]}")
     for src, text in build.BUILD_LOGS.items():
         for fn, props in ptxas_report(text):
@@ -5300,15 +5429,19 @@ def main() -> int:
     log("[2] kernels vs plain versions (B=4, Hq=24, Hkv=8, S=512, D=128, "
         "bf16)")
     dev = torch.device("cuda")
+    t2 = time.perf_counter()
     errs, times = phase_kernels(dev)
+    took("2", t2)
     log("[3-4] full-width serve, phi4-mini-3.8b")
+    t3 = time.perf_counter()
     cfg = get_arch("phi4-mini-3.8b")
     _, main_launches, ring, model = phase_serve(dev, cfg)
+    took("3-4", t3)
     log("[3b] the engine at phi4-mini-3.8b width: pipeline_depth 0 / 1, "
         "temperature 0.8, a synchronizing-call check, the lifecycle")
     t3b = time.perf_counter()
     main_launches += phase_engine(model, cfg, dev)
-    log(f"  phase [3b] took {time.perf_counter() - t3b:.1f} s")
+    took("3b", t3b)
     log("[10] the paged prefix cache at phi4-mini-3.8b width: 8 requests "
         "sharing a 1024-token prefix, cold / fp pool / int8 pool")
     t10 = time.perf_counter()
@@ -5316,7 +5449,7 @@ def main() -> int:
     log("[10b] TINY, TINY_RG, TINY_XL f32 with fp and int8 pools, card vs "
         "CPU")
     prefix_mlstm = phase_prefix_tiny(dev)
-    log(f"  phase [10] took {time.perf_counter() - t10:.1f} s")
+    took("10", t10)
     log("[11] durable serving state at phi4-mini-3.8b width: the L2 tier, "
         "restore_corrupt, checkpoint / restore, chaos")
     t11 = time.perf_counter()
@@ -5324,7 +5457,7 @@ def main() -> int:
     ck_launches, free = phase_checkpoint(model, cfg, dev)
     main_launches += ck_launches + phase_chaos(model, cfg, dev, free)
     prefix_mlstm += phase_durable_tiny(dev)
-    log(f"  phase [11] took {time.perf_counter() - t11:.1f} s")
+    took("11", t11)
     log("[12] the serving telemetry plane at phi4-mini-3.8b width: A^3 off "
         "/ conservative, pipeline_depth 0 / 1, telemetry off / every 1 / "
         "every 8")
@@ -5332,11 +5465,15 @@ def main() -> int:
     main_launches += phase_telemetry(model, cfg, dev)
     log("[12b] TINY, TINY_RG, TINY_XL f32 with telemetry, card vs CPU")
     prefix_mlstm += phase_telemetry_tiny(dev)
-    log(f"  phase [12] took {time.perf_counter() - t12:.1f} s")
+    took("12", t12)
     log("[5] two-pass path")
+    t5 = time.perf_counter()
     two_pass = phase_two_pass(ring, dev)
+    took("5", t5)
     log("[6] TINY f32, card vs CPU")
+    t6 = time.perf_counter()
     phase_tiny(dev)
+    took("6", t6)
     log("[7] A^3 prefill attention at phi4-mini width (B=1, Hq=24, Hkv=8, "
         "S=2048, D=128, bf16, causal)")
     t7 = time.perf_counter()
@@ -5346,14 +5483,14 @@ def main() -> int:
     log("[7d] kernels #4-#6 at gemma3-4b's attention width (B=1, Hq=8, "
         "Hkv=4, S=2048, D=256)")
     phase_head_dim_256(dev)
-    log(f"  phase [7] took {time.perf_counter() - t7:.1f} s")
+    took("7", t7)
     log("[8] xLSTM: chunkwise mLSTM kernel #7 at xlstm-350m width (B=4, "
         "H=4, S=2048, D=256, bf16 streams), xlstm-350m serving, TINY_XL")
     t8 = time.perf_counter()
     xerr, xtimes = phase_mlstm_kernel(dev)
     xl_launches = phase_xlstm_serve(dev) + prefix_mlstm
     phase_tiny_xl(dev)
-    log(f"  phase [8] took {time.perf_counter() - t8:.1f} s")
+    took("8", t8)
     log("[9] the later families at full width and depth (gemma3-4b, "
         "recurrentgemma-2b, deepseek-moe-16b, h2o-danube-1.8b), TINY_RG, "
         "TINY_LG, TINY_MOE")
@@ -5361,7 +5498,7 @@ def main() -> int:
     fam_launches, served = phase_families(dev)
     main_launches += fam_launches
     phase_tiny_families(dev)
-    log(f"  phase [9] took {time.perf_counter() - t9:.1f} s")
+    took("9", t9)
     del model, ring
     gc.collect()
     torch.cuda.empty_cache()
@@ -5369,7 +5506,7 @@ def main() -> int:
         "and TINY_XL card vs CPU, MemN2N on bAbI")
     t13 = time.perf_counter()
     xl_launches += phase_train(dev)
-    log(f"  phase [13] took {time.perf_counter() - t13:.1f} s")
+    took("13", t13)
     log("[14] the frontend archs from precomputed embeddings: "
         "musicgen-medium and internvl2-2b at full width and depth, #1 on "
         "their rings, musicgen training, smoke variants card vs CPU, the "
@@ -5380,7 +5517,7 @@ def main() -> int:
     fe_launches, fe_served = phase_frontend(dev)
     main_launches += fe_launches
     served += fe_served
-    log(f"  phase [14] took {time.perf_counter() - t14:.1f} s")
+    took("14", t14)
     log("[15] the device mesh: internlm2-1.8b and xlstm-350m sharded on a "
         "one-rank NCCL mesh vs unsharded, the mesh primitives on CUDA "
         "tensors, TINY on four gloo CPU ranks vs the card")
@@ -5389,14 +5526,16 @@ def main() -> int:
         n for n in DRY_CELLS if n.startswith("16") and n != "16b"]))
     serve_children = start_dryrun_cells([n for n in DRY_CELLS
                                          if n.startswith("17c")])
+    moe_children = start_dryrun_cells([n for n in DRY_CELLS
+                                       if n.startswith("18c")])
     xl_launches += phase_mesh(dev)
-    log(f"  phase [15] took {time.perf_counter() - t15:.1f} s")
+    took("15", t15)
     log("[16] the training dry run: internlm2-1.8b and xlstm-350m traced "
         "at [13]'s shapes against one real step each on the card, "
         "internlm2-1.8b train_4k on fake (16, 16) and (2, 16, 16) worlds")
     t16 = time.perf_counter()
     xl_launches += phase_dryrun(dev, dry_children)
-    log(f"  phase [16] took {time.perf_counter() - t16:.1f} s")
+    took("16", t16)
     log("[17] the serving dispatches on a mesh: the KV ring cut into "
         "slices with #1's log-sum-exp and #2/#3's row sums combined, "
         "phi4-mini-3.8b on a one-rank NCCL mesh vs unsharded, the serving "
@@ -5410,7 +5549,14 @@ def main() -> int:
     t = time.perf_counter()
     phase_serving_dryrun(serve_children)
     log(f"  [17c] waited {time.perf_counter() - t:.1f} s for the children")
-    log(f"  phase [17] took {time.perf_counter() - t17:.1f} s")
+    took("17", t17)
+    log("[18] the MoE's routed experts on a mesh: deepseek-moe-16b served "
+        "and trained on a one-rank NCCL mesh vs unsharded, the MoE archs' "
+        "serving dry-run cells on fake (16, 16) worlds")
+    t18 = time.perf_counter()
+    log("[18a] deepseek-moe-16b serving on a one-rank NCCL mesh")
+    main_launches += phase_moe_mesh(dev, moe_children)
+    took("18", t18)
 
     src = "src/repro_torch/csrc/decode_attention.cu"
     jax_kernel = "src/repro/kernels/decode_attention/kernel.py"
@@ -5461,6 +5607,8 @@ def main() -> int:
                  "bound_ms": xtimes["bound"][0],
                  "bound_by": xtimes["bound"][1], "library_ms": None,
                  "device_ms": xtimes["device_ms"]})
+    log("phase seconds: " + ", ".join(f"[{k}] {v}" for k, v in
+                                      PHASE_S.items()))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -438,6 +438,7 @@ def run_cell(arch: Union[str, ModelConfig],
             "peak_device_bytes": st.peak_bytes,
         },
         "kernel_flops": st.kernel_flops,
+        "collective_bytes_by_kind": st.collective_bytes,
         "ops": st.ops,
         "lower_s": trace.seconds,
         "compile_s": 0.0,

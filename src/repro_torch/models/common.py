@@ -32,10 +32,12 @@ NEG_INF = -1e30
 # own share of the model axis instead, Megatron style, and
 # :class:`ActShardings` is the plan that reaches the layers:
 #
-# * ``rows``: the batch rows of the ranks that share this rank's batch.
-#   The MoE's capacity, expert ranks and load-balance loss are statistics
-#   of the whole batch, so ``moe_apply`` routes every row of them
-#   (``rows.gather``) and keeps its own (``rows.own``);
+# * ``rows``: the ranks whose rows make up the batch (a :class:`Ring`;
+#   ``rows_dim`` says whether each holds a block of the batch or of the
+#   sequence). The MoE's capacity, expert ranks and load-balance loss are
+#   statistics of the whole batch: ``moe_apply`` gathers the routing
+#   integers over these ranks, never the hidden rows, and each rank runs
+#   its block of the capacity buffer;
 # * the model axis (``size`` ranks, this one the ``index``-th): a module
 #   in ``split`` holds this rank's share of its weights (its heads, its
 #   ``d_ff`` columns, its experts or its slice of each, its vocab rows)
@@ -136,6 +138,21 @@ class _Gather(torch.autograd.Function):
         return _reduce_scatter(g, dim, sh.size, sh.group), None, None, None
 
 
+class _Scatter(torch.autograd.Function):
+    """The sum over the axis of ``x``, this rank's block of ``dim`` (a
+    reduce-scatter); the backward gathers the blocks' gradients."""
+
+    @staticmethod
+    def forward(ctx, x, sh, dim):
+        ctx.sh, ctx.dim = sh, dim
+        return _reduce_scatter(x, dim, sh.size, sh.group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_gather(g, ctx.dim, ctx.sh.size, ctx.sh.group), \
+            None, None
+
+
 class _Cut(torch.autograd.Function):
     """This rank's block of ``dim``; the backward gathers the blocks'
     gradients (the input is the same on every rank of the axis)."""
@@ -178,10 +195,13 @@ class PoolShare(NamedTuple):
 class ActShardings:
     """The plan of one rank of a sharded train step or serving dispatch
     (see above; built by ``sharding.plan.MeshPlan``): ``specs``
-    (``sharding.rules.act_specs``), ``rows`` (the batch plan, or None),
-    and the model axis ``axis`` of ``size`` ranks over the process group
-    named ``group``, this rank its ``index``-th; ``split`` holds the
-    modules that keep their model-axis share of the weights.
+    (``sharding.rules.act_specs``), ``rows`` (the :class:`Ring` of ranks
+    whose rows make up the batch; ``rows_dim`` 0 where each holds a block
+    of the batch, 1 where it holds a block of the sequence; None: this
+    rank's rows are the batch), and the model axis ``axis`` of ``size``
+    ranks over the process group named ``group``, this rank its
+    ``index``-th; ``split`` holds the modules that keep their model-axis
+    share of the weights.
 
     Serving adds: ``lanes`` ([lo, hi) of the batch this rank holds: its
     block over (pod, data); None for all), ``lane_group`` / ``lane_size``
@@ -198,7 +218,8 @@ class ActShardings:
     block of the contraction and sums over it, :func:`klinear`). A
     warm-admission copy adds ``pool`` (this rank's :class:`PoolShare`)."""
 
-    def __init__(self, specs=None, rows=None, *, axis: str = "model",
+    def __init__(self, specs=None, rows: Optional[Ring] = None, *,
+                 rows_dim: int = 0, axis: str = "model",
                  size: int = 1, index: int = 0, group: Optional[str] = None,
                  split=(), lanes: Optional[Tuple[int, int]] = None,
                  lane_group: Optional[str] = None, lane_size: int = 1,
@@ -207,7 +228,7 @@ class ActShardings:
                  kdim: Optional[Ring] = None,
                  pool: Optional[PoolShare] = None, layer_hook=None):
         self.specs = dict(specs or {})
-        self.rows = rows
+        self.rows, self.rows_dim = rows, rows_dim
         self.axis, self.size, self.index, self.group = axis, size, index, \
             group
         self._split = frozenset(id(m) for m in split)
@@ -262,6 +283,9 @@ class ActShardings:
 
     def cut(self, x: torch.Tensor, dim: int) -> torch.Tensor:
         return _Cut.apply(x, self, dim % x.dim())
+
+    def scatter(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        return _Scatter.apply(x, self, dim % x.dim())
 
     def max(self, x: torch.Tensor) -> torch.Tensor:
         """The elementwise max over the axis, without a gradient."""

@@ -14,8 +14,10 @@ both (``train.step`` and the serving dispatches of ``models.decoder``):
   the layout cuts them by gate, and a rank needs its channels of every
   gate;
 * the batch: training rows as ``train.step`` passes them; serving lanes,
-  this rank's block of B over (pod, data) (``batch_spec``), the MoE
-  routing every lane of the batch as one device does (:class:`Rows`);
+  this rank's block of B over (pod, data) (``batch_spec``). ``rows`` is
+  the ranks whose rows make up the batch: the MoE gathers its routing
+  integers over them (one device's capacity and drops) and splits its
+  capacity slots over them;
 * the KV rings (``cache_specs``): their rows over ``model``, or over
   (data, model) when the batch is smaller than the data axis;
 * every parameter is a DTensor laid out by ``param_specs``; each layer's
@@ -61,40 +63,18 @@ def group_name(mesh, axes: Sequence[str]) -> str:
     return mesh[axes]._flatten().get_group().group_name
 
 
-class Rows:
-    """The batch rows of the ranks that share this rank's rows' statistics
-    (the MoE's capacity and routing): ``count`` blocks laid out over
-    ``submesh`` (major axis first), this rank's the ``index``-th."""
-
-    def __init__(self, submesh, index: int, count: int):
-        self.submesh, self.index, self.count = submesh, index, count
-
-    def gather(self, x: torch.Tensor) -> torch.Tensor:
-        """[b, ...] of this rank -> [count * b, ...] of every block; the
-        backward sums each block's gradient over the ranks."""
-        from torch.distributed.tensor import DTensor, Partial, Replicate, \
-            Shard
-        n = self.submesh.ndim
-        dt = DTensor.from_local(x, self.submesh, [Shard(0)] * n,
-                                run_check=False)
-        return dt.redistribute(self.submesh, [Replicate()] * n).to_local(
-            grad_placements=[Partial()] * n)
-
-    def own(self, y: torch.Tensor) -> torch.Tensor:
-        b = y.shape[0] // self.count
-        return y[self.index * b:(self.index + 1) * b]
-
-
 class MeshPlan:
     """One rank's plan of ``dispatch`` (one of :data:`DISPATCHES`) for
-    ``cfg`` at ``shape`` on ``mesh``. ``rows`` and ``row_dims`` are the
-    training step's batch plan (the mesh dims whose gradients are summed
-    over rows); ``select_shards`` the serving A^3 selection blocks (0:
-    none, A^3 off)."""
+    ``cfg`` at ``shape`` on ``mesh``. ``row_dims`` are the training step's
+    batch plan (the mesh dims over which the rows differ and gradients are
+    summed); ``select_shards`` the serving A^3 selection blocks (0: none,
+    A^3 off). ``rows`` / ``rows_dim``: the :class:`Ring` of ranks whose
+    rows make up the batch, each holding a block of the batch (0) or of
+    the sequence (1); None where no mesh dim splits the rows."""
 
     def __init__(self, cfg: ModelConfig, shape: ShapeConfig, mesh,
                  sharding_cfg: ShardingConfig, *, dispatch: str,
-                 rows=None, row_dims: Tuple[str, ...] = (),
+                 row_dims: Tuple[str, ...] = (),
                  select_shards: int = 0):
         if dispatch not in DISPATCHES:
             raise ValueError(f"dispatch {dispatch!r} not in {DISPATCHES}")
@@ -105,7 +85,8 @@ class MeshPlan:
         self.names = tuple(mesh.mesh_dim_names)
         self.sizes = mesh_sizes(mesh)
         self.coord = dict(zip(self.names, mesh.get_coordinate()))
-        self.rows, self.row_dims = rows, tuple(row_dims)
+        self.row_dims = tuple(row_dims)
+        self.rows, self.rows_dim = self._ring(self.row_dims), 0
         self.select_shards = select_shards
         tp = sh.tp_axis if (sh.tensor_parallel
                             and self.sizes.get(sh.tp_axis, 1) > 1) else None
@@ -123,17 +104,13 @@ class MeshPlan:
         b = shape.global_batch
         batch_dims = dims_of(batch_spec(shape, mesh, sh)[0])
         if dispatch != "train" and batch_dims:
-            n = math.prod(self.sizes[a] for a in batch_dims)
-            idx = 0
-            for a in batch_dims:
-                idx = idx * self.sizes[a] + self.coord[a]
+            self.rows = self._ring(batch_dims)
+            n, idx = self.rows.size, self.rows.index
             self.lanes = (idx * (b // n), (idx + 1) * (b // n))
             self.lane_size = n
             if n > 1:
                 axes = [a for a in batch_dims if self.sizes[a] > 1]
                 self.lane_group = group_name(mesh, axes)
-                # the MoE routes every lane of the batch, as one device
-                self.rows = Rows(mesh[tuple(axes)], idx, n)
         # the KV rings: over the model axis, or (data, model) when the
         # batch is smaller than the data axis (cache_specs)
         self.ring = self.sp = self.kdim = None
@@ -142,13 +119,7 @@ class MeshPlan:
                            if a in self.sizes)
             batch_ok = b % dp == 0 and b >= dp
             axes = (sh.tp_axis,) if batch_ok else (sh.fsdp_axis, sh.tp_axis)
-            axes = tuple(a for a in axes if a in self.sizes)
-            if axes:
-                idx = 0
-                for a in axes:
-                    idx = idx * self.sizes[a] + self.coord[a]
-                self.ring = Ring(group_name(mesh, axes),
-                                 math.prod(self.sizes[a] for a in axes), idx)
+            self.ring = self._ring([a for a in axes if a in self.sizes])
             # a batch smaller than the data axis: a prefill splits the
             # sequence over the ring's ranks, a decode its dense products'
             # contraction over the data axis (act_specs)
@@ -157,6 +128,7 @@ class MeshPlan:
                 if dispatch == "prefill" and self.ring is not None and \
                         shape.seq_len % self.ring.size == 0:
                     self.sp = self.ring
+                    self.rows, self.rows_dim = self.sp, 1
                 elif dispatch == "decode" and self.sizes.get(fsdp, 1) > 1:
                     self.kdim = Ring(group_name(mesh, (fsdp,)),
                                      self.sizes[fsdp], self.coord[fsdp])
@@ -166,6 +138,17 @@ class MeshPlan:
                     f"select_shards {select_shards} is not a multiple of "
                     f"the {self.ring.size} ranks the KV ring is split over")
         self._layer_plans: Dict[int, Tuple[str, ActShardings]] = {}
+
+    def _ring(self, axes: Sequence[str]):
+        """The :class:`Ring` over mesh dims ``axes`` (major first; this
+        rank's index its block's), None for no dims."""
+        if not axes:
+            return None
+        idx = 0
+        for a in axes:
+            idx = idx * self.sizes[a] + self.coord[a]
+        return Ring(group_name(self.mesh, axes),
+                    math.prod(self.sizes[a] for a in axes), idx)
 
     # -- what a rank computes -------------------------------------------
     def splits(self, kind: BlockKind) -> bool:
@@ -221,7 +204,8 @@ class MeshPlan:
 
     def plan(self, split=(), layer_hook=None) -> ActShardings:
         return ActShardings(
-            self.specs, self.rows, axis=self.tp or "model", size=self.model,
+            self.specs, self.rows, rows_dim=self.rows_dim,
+            axis=self.tp or "model", size=self.model,
             index=self.coord[self.tp] if self.tp else 0,
             group=self.model_group, split=split, lanes=self.lanes,
             lane_group=self.lane_group, lane_size=self.lane_size,

@@ -24,14 +24,17 @@ computes over the same global batch, ZeRO-3 style:
   backward sum and its partial output leaves through a sum): attention
   its q heads where the axis divides them (its kv heads, or its k / v
   columns gathered), else its block of the q rows; the dense FFN its
-  ``d_ff`` columns; the MoE its experts (EP) or its slice of each (TP);
-  the LM head its vocab rows, with a vocab-parallel log-sum-exp; the
-  RG-LRU its channels, the mLSTM its heads and the sLSTM its channels
+  ``d_ff`` columns; the MoE its experts (EP) or its slice of each (TP)
+  over its block of the capacity slots (``models.moe``); the LM head
+  its vocab rows, with a vocab-parallel log-sum-exp; the RG-LRU its
+  channels, the mLSTM its heads and the sLSTM its channels
   (``sharding.plan`` builds this plan, for serving too);
 * the ranks of one row block compute the same loss; each weighs its
   term as the block's share, so the gradients summed over the ranks of
   different rows are the global gradient; the MoE routes every row of
-  the batch (``ActShardings.rows``) as the single-device step does;
+  the batch as the single-device step does, from the routing integers
+  of every rank of ``row_dims`` (``ActShardings.rows``), and splits the
+  capacity slots over those ranks;
 * the global-norm clip takes one all-reduce and counts every element
   once;
 * with ``grad_compression`` on a mesh with a ``pod`` axis, gradients
@@ -39,10 +42,11 @@ computes over the same global batch, ZeRO-3 style:
   ``sharding.compression.psum_compressed`` with error feedback, and the
   loss is averaged over pods (the reference's per-pod ``shard_map``).
 
-Where GSPMD differs: the reference's program also computes the expert
-weights' gradients in their FSDP layout (split over the data axis); the
-port's ranks of a data row each run their experts over the whole
-batch's tokens, forward and backward.
+The routed experts' work splits as GSPMD splits the reference's: each
+rank runs its experts (or expert columns) over its block of the
+capacity slots, forward and backward: the tokens reach their slots by a
+reduce-scatter over the ranks of ``row_dims`` and the outputs come back
+by an all-gather.
 """
 from __future__ import annotations
 
@@ -212,7 +216,7 @@ def make_train_step(run: RunConfig, mesh=None
 def _sharded_step(run: RunConfig, mesh):
     from repro_torch.models.convert import reference_leaf
     from repro_torch.sharding.compression import psum_compressed
-    from repro_torch.sharding.plan import MeshPlan, Rows, dims_of
+    from repro_torch.sharding.plan import MeshPlan, dims_of
     from repro_torch.sharding.rules import batch_spec, mesh_sizes
 
     cfg, sh = run.model, run.sharding
@@ -242,15 +246,11 @@ def _sharded_step(run: RunConfig, mesh):
     group_blocks = sorted({block_of({**coord, **dict(zip(row_dims, c))})
                            for c in itertools.product(
                                *(range(sizes[n]) for n in row_dims))})
-    row_index = 0
-    for n in row_dims:
-        row_index = row_index * sizes[n] + coord[n]
-    rows = (Rows(mesh[row_dims], row_index, n_row_blocks)
-            if n_row_blocks > 1 else None)
 
     # the model axis: a module that the rules cut over it keeps its share
-    # of the weights and computes only that share (sharding.plan)
-    mp = MeshPlan(cfg, run.shape, mesh, sh, dispatch="train", rows=rows,
+    # of the weights and computes only that share; the MoE routes the
+    # rows of the ranks over ``row_dims`` as one batch (sharding.plan)
+    mp = MeshPlan(cfg, run.shape, mesh, sh, dispatch="train",
                   row_dims=row_dims)
 
     remat = sh.remat

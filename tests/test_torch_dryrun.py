@@ -239,16 +239,16 @@ print(json.dumps(out))
 
 def test_dry_run_counts_what_a_rank_counts():
     """The fake-world trace of each split cell: the reference's (and the
-    gloo rank's) per-device FLOPs; the MoE cells the count of the expert
-    split (``test_torch_mesh_split._moe_flops``, held there on the gloo
-    ranks); one device the real step's count."""
+    gloo rank's) per-device FLOPs; the MoE cells the single device's count
+    over the ranks (``test_torch_mesh_split._moe_flops``, held there on
+    the gloo ranks); one device the real step's count."""
     from test_torch_mesh_split import _moe_flops, _single_device_flops
     got = json.loads(_python(_SPLIT).strip().splitlines()[-1])
     want = {"split_tiny_2x2": 104_857_600, "split_tiny_2x4": 52_428_800,
             "split_tiny-6h_2x4": 60_817_408,
-            "split_moe_2x2": _moe_flops(2, 4),
-            "split_moe_2x4": _moe_flops(4, 8),
-            "split_moe-tp_2x2": _moe_flops(2, 4),
+            "split_moe_2x2": _moe_flops(4),
+            "split_moe_2x4": _moe_flops(8),
+            "split_moe-tp_2x2": _moe_flops(4),
             "one": _single_device_flops("tiny")}
     for case, w in want.items():
         assert got[case][0] == pytest.approx(w, rel=1e-6), case

@@ -1,5 +1,6 @@
 """Rank-side code of the port's gloo-rank tests (``test_torch_sharding.py``,
-``test_torch_mesh_train.py``, ``test_torch_mesh_split.py``); no tests of
+``test_torch_mesh_train.py``, ``test_torch_mesh_split.py``,
+``test_torch_mesh_serve.py``, ``test_torch_mesh_moe.py``); no tests of
 its own.
 
 :func:`run_ranks` starts ``world`` CPU processes of this file, each a
@@ -362,17 +363,27 @@ def port_cache(tree, cfg, batch, a3):
 
 
 def serve_cell(ctx, case_name):
-    """The serving dispatches of a cell on its mesh, from the reference's
+    """The serving dispatches of a ``SERVE_CELLS`` cell on its mesh; rank 0
+    writes what :func:`serve_dispatches` returns."""
+    from repro_torch.config import ShardingConfig
+    name, shape, batch, dispatches = SERVE_CELLS[case_name]
+    ctx.save(case_name, **serve_dispatches(
+        ctx, name, shape, batch, dispatches, ShardingConfig(remat="none")))
+
+
+def serve_dispatches(ctx, name, shape, batch, dispatches, shd):
+    """The serving dispatches of config ``name`` on a ("data", "model")
+    mesh of ``shape`` laid out by ``shd``, from the reference's
     parameters and inputs (``serve_in_*.npz``, caches the JAX package
     made): each rank holds its share of the model (DTensors by the rules)
     and of the cache, runs the dispatch under its plan, and compares its
     share of the result cache with the same share of the reference's
     (``<dispatch>/cache_out``): the max |difference| of each leaf, and
-    whether the A^3 sorted rows are equal. Rank 0 writes the whole
-    logits (gathered), decode_block's tokens and every rank's FLOPs."""
+    whether the A^3 sorted rows are equal -> the whole logits (gathered),
+    decode_block's tokens and every rank's FLOPs, by dispatch."""
     import torch
     from torch.utils.flop_counter import FlopCounterMode
-    from repro_torch.config import A3Config, ShardingConfig
+    from repro_torch.config import A3Config
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models import decoder
     from repro_torch.models.common import all_gather
@@ -380,10 +391,8 @@ def serve_cell(ctx, case_name):
     from repro_torch.sharding.plan import serving_plan
     from repro_torch.sharding.rules import distribute_parameters
 
-    name, shape, batch, dispatches = SERVE_CELLS[case_name]
     cfg = configs()[name]
     mesh = make_mesh(shape, ("data", "model"), "cpu")
-    shd = ShardingConfig(remat="none")
     model = distribute_parameters(params_from_numpy(
         load_tree(ctx.dir / f"init_{name}.npz"), cfg, "cpu"), shd, mesh)
     tree = load_tree(ctx.dir / f"{serve_inputs_name(name, batch)}.npz")
@@ -464,7 +473,7 @@ def serve_cell(ctx, case_name):
             out[f"{tag}/ring"] = whole(plan, ring, False)
             out[f"{tag}/carry"] = whole(plan, carry, False)
         compare(tag, key, plan, cache, a3)
-    ctx.save(case_name, **out)
+    return out
 
 
 def chunk_then_a3_decode(ctx, out, x, model, mesh, shd, compare, whole,
@@ -500,6 +509,128 @@ def chunk_then_a3_decode(ctx, out, x, model, mesh, shd, compare, whole,
 
 for _case in SERVE_CELLS:
     CASES[_case] = lambda ctx, c=_case: serve_cell(ctx, c)
+
+
+# the routed experts on a mesh (test_torch_mesh_moe.py): the f32 smoke
+# deepseek-moe-16b (4 experts, top-2) with its experts over the model
+# axis (EP) or each expert's columns there (TP); train steps at batch
+# 8 x MOE_SEQ, the serving dispatches of SERVE_CELLS, the drop cell
+MOE_SEQ = 32
+MOE_SERVE = "prefill decode decode_block chunk"
+MOE_CELLS = {      # case -> (mesh shape, expert_parallel, microbatches)
+    "moe_ep_2x2": ((2, 2), True, 1),
+    "moe_ep_2x4": ((2, 4), True, 1),
+    "moe_tp_2x2": ((2, 2), False, 2),
+}
+DROP = dict(batch=8, seq=32, bias=4.0)      # 256 tokens, expert 0 first
+
+
+def moe_train_run(ep, microbatches):
+    from repro_torch import config as C
+    return C.RunConfig(
+        model=configs()["moe"],
+        shape=C.ShapeConfig("t", C.ShapeKind.TRAIN, MOE_SEQ, BATCH),
+        optimizer=C.OptimizerConfig(lr=1e-3, warmup_steps=1, total_steps=10),
+        sharding=C.ShardingConfig(remat="none", expert_parallel=ep,
+                                  microbatches=microbatches))
+
+
+def moe_drop(ctx, mesh, ep):
+    """``moe_apply`` of one MoE layer (``moe_drop_in.npz``: the reference's
+    weights with a router that sends every token to expert 0 first, and
+    [8, 32, d] inputs) on ``mesh`` in a train plan: this rank's rows of
+    the inputs, its experts or expert columns -> the whole output
+    (gathered over the data axis), the aux loss and the drop fraction."""
+    import torch
+    import torch.nn as nn
+    from repro_torch.config import ShapeConfig, ShapeKind, ShardingConfig
+    from repro_torch.models.common import activation_shardings, all_gather
+    from repro_torch.models.moe import MoE, moe_apply
+    from repro_torch.sharding.plan import MeshPlan, group_name
+
+    cfg = configs()["moe"]
+    with np.load(ctx.dir / "moe_drop_in.npz") as f:
+        a = {k: torch.from_numpy(f[k]) for k in f.files}
+    plan = MeshPlan(cfg, ShapeConfig("t", ShapeKind.TRAIN, DROP["seq"],
+                                     DROP["batch"]), mesh,
+                    ShardingConfig(remat="none", expert_parallel=ep),
+                    dispatch="train", row_dims=("data",))
+    n_data, n_model = mesh.shape
+    r, m = plan.coord["data"], plan.coord["model"]
+    e, de = cfg.moe.num_experts, cfg.moe.d_expert
+    moe = MoE(cfg.d_model, cfg.moe, torch.float32)
+    if ep:
+        cut = slice(m * e // n_model, (m + 1) * e // n_model)
+        w = (a["w_gate"][cut], a["w_up"][cut], a["w_down"][cut])
+    else:
+        c = slice(m * de // n_model, (m + 1) * de // n_model)
+        w = (a["w_gate"][:, :, c], a["w_up"][:, :, c], a["w_down"][:, c])
+    for name, t in zip(("w_gate", "w_up", "w_down"), w):
+        setattr(moe, name, nn.Parameter(t.contiguous()))
+    with torch.no_grad():
+        moe.router.copy_(a["router"])
+        for name in ("w_gate", "w_up", "w_down"):
+            getattr(moe.shared, name).weight.copy_(a[f"shared_{name}"].t())
+    b = DROP["batch"] // n_data
+    with activation_shardings(plan.plan([moe])), torch.no_grad():
+        out, aux = moe_apply(moe, a["x"][r * b:(r + 1) * b], cfg.moe)
+    whole = all_gather(out, 0, n_data, group_name(mesh, ("data",)))
+    return {"drop/out": whole.numpy(),
+            "drop/aux": aux["moe_aux_loss"].numpy(),
+            "drop/dropped": aux["moe_drop_fraction"].numpy()}
+
+
+def moe_cell(ctx, case_name):
+    """A ``MOE_CELLS`` cell: 2 sharded steps from the JAX init (losses,
+    final parameters, every rank's FLOPs of the first step), the serving
+    dispatches ``MOE_SERVE`` (``serve_dispatches``) and the drop cell."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.config import ShardingConfig
+    from repro_torch.data.synthetic import make_lm_batch
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.convert import train_state_from_numpy
+    from repro_torch.train.step import make_train_step
+
+    shape, ep, mb = MOE_CELLS[case_name]
+    mesh = make_mesh(shape, ("data", "model"), "cpu")
+    run = moe_train_run(ep, mb)
+    state = train_state_from_numpy(load_tree(ctx.dir / "init_moe.npz"), run,
+                                   "cpu", mesh)
+    step = make_train_step(run, mesh)
+    losses, flops = [], []
+    for i in range(2):
+        with FlopCounterMode(display=False) as fc:
+            state, metrics = step(state, make_lm_batch(
+                i, BATCH, MOE_SEQ, run.model.vocab_size, 0))
+        losses.append(float(metrics["loss"]))
+        flops.append(float(fc.get_total_flops()))
+    out = {f"p/{n}": full(p) for n, p in state.model.named_parameters()}
+    out["losses"] = np.array(losses)
+    out["train/flops"] = ctx.gather(torch.tensor(flops[0],
+                                                 dtype=torch.float64))
+    del state
+    out.update(serve_dispatches(ctx, "moe", shape, BATCH, MOE_SERVE,
+                                ShardingConfig(remat="none",
+                                               expert_parallel=ep)))
+    out.update(moe_drop(ctx, mesh, ep))
+    ctx.save(case_name, **out)
+
+
+for _case in MOE_CELLS:
+    CASES[_case] = lambda ctx, c=_case: moe_cell(ctx, c)
+
+
+@case
+def moe_b1_2x2(ctx):
+    """One lane on (2, 2), EP: the prefill splits the sequence over (data,
+    model), so each rank routes its block of the prompt's positions (the
+    routing integers gathered along the sequence); the decode step runs
+    the lane on every rank."""
+    from repro_torch.config import ShardingConfig
+    ctx.save("moe_b1_2x2", **serve_dispatches(
+        ctx, "moe", (2, 2), 1, "prefill decode", ShardingConfig(
+            remat="none")))
 
 
 def one_rank_serve(cfg, mesh, a3_mode, seed=0):
