@@ -83,12 +83,16 @@ first phase that does not hold:
 8. xLSTM: (a) the chunkwise mLSTM kernel #7 against its plain version at
    xlstm-350m's heads (B=4, H=4, S=2048, D=256, bf16 streams, float32
    gates, chunk 256) from the zero state, from a random carried state
-   (the final state compared too), at the served prefill shape (S=512)
-   and at an odd S=300, within 2e-4, all four on the tensor-core route,
-   then its time over inputs larger than L2 by events and by device time
-   beside its plain version and its bound (no single PyTorch call
-   computes it); (b) main path: serves xlstm-350m at full width (24
-   layers, 21 mLSTM + 3 sLSTM, random bf16 weights from seed 0; 4 slots,
+   (the final state compared too), at the served prefill shape (S=512),
+   at an odd S=300, with no final state asked for (the last chunk's
+   state update skipped) and at one rank's share of the heads on a
+   16-rank model axis (H=1, Dk=256, Dv=64, carried state), within 2e-4,
+   all six on the tensor-core route, then its time over inputs larger
+   than L2 by events and by device time (or why the profiler gave none)
+   beside its plain version and its bound, and the share's beside
+   them (no single PyTorch call computes it); (b) main path: serves
+   xlstm-350m at full width (24 layers, 21 mLSTM + 3 sLSTM, random bf16
+   weights from seed 0; 4 slots,
    8 requests of 512-token prompts, 16 new tokens, decode_block 1 and 4)
    and checks that kernel #7 ran once per mLSTM layer per prefill
    dispatch, on its tensor-core route only; (8b') the decode_block-4
@@ -316,10 +320,17 @@ first phase that does not hold:
    per-rank FLOPs x ranks within [1, 1.01] of one device's, the peak a
    rank under the card's 80 GiB, and the roofline terms. Collectives
    across cards stay unmeasured (one card).
+19. xlstm-350m's mLSTM on a model axis that does not divide its 4 heads
+   (after [18]): its decode_32k and long_500k cells traced in two
+   children (started at [15]) on fake (16, 16) and (2, 16, 16) worlds,
+   each beside its one-device trace: per-rank FLOPs x ranks at most 1.02
+   x one device's at decode_32k, 17 / 34 at long_500k (its one lane does
+   not split over the data axes), and no rank short of its share.
 
 Prints each phase's seconds on a line of its own, then one JSON line of
 per-kernel numbers (every row with ``device_ms``, the profiler's device
-time per launch; rows #1-#3 with ``s4096``, the long ring's ms, device ms
+time per launch; row #7 with ``share``, [8a]'s share shape's numbers;
+rows #1-#3 with ``s4096``, the long ring's ms, device ms
 and bound; row #1 with
 ``served_shapes``, phase 9's and [14c]'s rows, and rows #1 and #3 with
 [17a]'s split-ring error (``split_ring_max_abs_err``) and #1 with its
@@ -406,28 +417,39 @@ def cuda_ms(fn, arg_sets, iters):
 
 
 def device_ms(fn, arg_sets, iters, per_launch=False):
-    """Device time per call by ``torch.profiler``: the self device time
-    of every kernel launched over ``iters`` calls cycling through
-    ``arg_sets``, over ``iters`` (with ``per_launch``, for a wrapper that
-    launches one kernel a call, over the kernel launches the profiler
-    recorded); None when the profiler saw no device activity. Beside
-    ``cuda_ms`` it separates the kernels' time from the host's
-    enqueue."""
+    """Device time per call by ``torch.profiler``: the time of every
+    device event of the trace (kernels, copies) over ``iters`` calls
+    cycling through ``arg_sets``, over ``iters`` (with ``per_launch``, for
+    a wrapper that launches one kernel a call, over the device events).
+    Beside ``cuda_ms`` it separates the kernels' time from the host's
+    enqueue. Read from the trace's raw device events, not grouped under
+    host ops. A trace can come back with no device event at all (some
+    calls of a run, not the same ones in every run): then the reason is
+    logged, with the CUDA API calls the trace did hold, and the calls are
+    traced once more; None when that trace holds none either."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     for args in arg_sets:
         fn(*args)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for i in range(iters):
-            fn(*arg_sets[i % len(arg_sets)])
-        torch.cuda.synchronize()
-    dev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    total_us = sum(e.self_device_time_total for e in dev)
-    n = sum(e.count for e in dev) if per_launch else iters
-    return total_us / 1e3 / n if total_us > 0 and n > 0 else None
+    for attempt in (1, 2):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for i in range(iters):
+                fn(*arg_sets[i % len(arg_sets)])
+            torch.cuda.synchronize()
+        evs = prof.profiler.kineto_results.events()
+        dev = [e for e in evs if e.device_type() == DeviceType.CUDA]
+        total_ns = sum(e.duration_ns() for e in dev)
+        n = len(dev) if per_launch else iters
+        if total_ns > 0 and n > 0:
+            return total_ns / 1e6 / n
+        api = sum(1 for e in evs if e.name().startswith("cu"))
+        log(f"    device time not read (trace {attempt} of 2): it held "
+            f"{len(evs)} events, {api} of them CUDA API calls, "
+            f"{len(dev)} on the device")
+    return None
 
 
 def fmt_ms(ms):
@@ -2960,44 +2982,52 @@ def phase_head_dim_256(dev):
 # ---------------------------------------------------------------------------
 
 XL = dict(b=4, h=4, s=2048, d=256, chunk=256)      # xlstm-350m's heads
+# one rank's share of them on a 16-rank model axis: g = gcd(4, 16) = 4
+# groups of r = 4 ranks, a head and 64 of its value columns a rank
+XL_SHARE = dict(XL, h=1, dv=64)
 N_XL_SETS = 2          # 2 x 84 MB of q/k/v/h > 50 MB of L2
 XL_TOL = dict(rtol=2e-4, atol=2e-4)    # float32 h, sequential vs chunked
 
 
-def mlstm_inputs(seed, dev, s=None, state=False):
-    """bf16 q/k/v [4,4,S,256], float32 gates [4,4,S] (log_i normal, log_f
-    a log-sigmoid around 2) and, with ``state``, a random carried (C, n,
-    m)."""
+def mlstm_inputs(seed, dev, s=None, state=False, shape=XL):
+    """bf16 q/k [B,H,S,d], v [B,H,S,dv (d)], float32 gates [B,H,S] (log_i
+    normal, log_f a log-sigmoid around 2) of ``shape`` and, with
+    ``state``, a random carried (C, n, m)."""
     import torch
     import torch.nn.functional as F
     g = torch.Generator(device=dev).manual_seed(seed)
-    b, h, d = XL["b"], XL["h"], XL["d"]
-    s = s or XL["s"]
-    q, k, v = (0.5 * torch.randn((b, h, s, d), generator=g, device=dev)
-               for _ in range(3))
+    b, h, d = shape["b"], shape["h"], shape["d"]
+    dv = shape.get("dv", d)
+    s = s or shape["s"]
+    q, k = (0.5 * torch.randn((b, h, s, d), generator=g, device=dev)
+            for _ in range(2))
+    v = 0.5 * torch.randn((b, h, s, dv), generator=g, device=dev)
     li = torch.randn((b, h, s), generator=g, device=dev)
     lf = F.logsigmoid(torch.randn((b, h, s), generator=g, device=dev) + 2.0)
     st = None
     if state:
-        st = (torch.randn((b, h, d, d), generator=g, device=dev),
+        st = (torch.randn((b, h, d, dv), generator=g, device=dev),
               torch.randn((b, h, d), generator=g, device=dev),
               torch.randn((b, h), generator=g, device=dev))
     return (q.bfloat16(), k.bfloat16(), v.bfloat16(), li, lf), st
 
 
-def mlstm_need(b, h, s, chunk, dk, dv, state):
+def mlstm_need(b, h, s, chunk, dk, dv, state, return_state=False):
     """(bytes, operations) of one chunk-kernel call at bf16 q/k/v: the
     package's formula (``kernels.mlstm_chunk.kernel.need``), which the
     dry run counts #7 by."""
     from repro_torch.kernels.mlstm_chunk.kernel import need
-    return need(b, h, s, chunk, dk, dv, state)
+    return need(b, h, s, chunk, dk, dv, state, return_state=return_state)
 
 
 def phase_mlstm_kernel(dev):
     """[8](a): kernel #7 vs its plain version at xlstm-350m's shape: zero
     state, a random carried state (also the final state), the served
-    prefill dispatch's shape (S=512) and an odd S; then its time, its
-    plain version's and its bound."""
+    prefill dispatch's shape (S=512), an odd S, the final state not asked
+    for (the last chunk's update skipped) and one rank's share of the
+    heads on a 16-rank model axis (``XL_SHARE``: one head, 64 value
+    columns, carried state); then the times, device times and bounds of
+    the whole shape and of the share, and the plain version's."""
     import torch
     from repro_torch.kernels.mlstm_chunk import kernel as mk
 
@@ -3025,9 +3055,40 @@ def phase_mlstm_kernel(dev):
         log(f"  mlstm_chunk ({name}) vs plain: h max_abs_err {e:.3g}, "
             f"final C/n/m within tolerance (atol {XL_TOL['atol']} + rtol "
             f"{XL_TOL['rtol']})")
-    check(mk.LAUNCHES == {"mlstm_chunk_wgmma": 4, "mlstm_chunk_simt": 0},
+    # no final state asked for: the kernel skips the last chunk's update
+    args, _ = mlstm_inputs(350, dev)
+    kw = dict(chunk=XL["chunk"], scale=XL["d"] ** -0.5)
+    got, want = mk.mlstm_chunk_kernel(*args, **kw), \
+        mk.mlstm_chunk_plain(*args, **kw)
+    sync(dev)
+    e = float((got - want).abs().max())
+    check(bool(torch.allclose(got, want, **XL_TOL)),
+          f"mlstm_chunk kernel without the final state disagrees with its "
+          f"plain version: max_abs_err {e}")
+    err = max(err, e)
+    log(f"  mlstm_chunk (zero state, no final state) vs plain: h "
+        f"max_abs_err {e:.3g}")
+    # one rank's share of the heads on a 16-rank model axis
+    args, st = mlstm_inputs(360, dev, state=True, shape=XL_SHARE)
+    kw = dict(chunk=XL["chunk"], scale=XL["d"] ** -0.5, state=st,
+              return_state=True)
+    got, gst = mk.mlstm_chunk_kernel(*args, **kw)
+    want, wst = mk.mlstm_chunk_plain(*args, **kw)
+    sync(dev)
+    for a, b_ in ((got, want),) + tuple(zip(gst, wst)):
+        e = float((a - b_).abs().max())
+        check(bool(torch.allclose(a, b_, **XL_TOL))
+              and bool(torch.isfinite(a).all()),
+              f"mlstm_chunk kernel disagrees with its plain version at one "
+              f"rank's share (B=4, H=1, Dk=256, Dv=64): max_abs_err {e}")
+    e = float((got - want).abs().max())
+    err = max(err, e)
+    log(f"  mlstm_chunk (one rank's share of 16: B=4, H=1, S=2048, Dk=256, "
+        f"Dv=64, carried state) vs plain: h max_abs_err {e:.3g}, final "
+        f"C/n/m within tolerance")
+    check(mk.LAUNCHES == {"mlstm_chunk_wgmma": 6, "mlstm_chunk_simt": 0},
           f"bf16 mlstm_chunk calls at xlstm-350m width took {mk.LAUNCHES}, "
-          f"expected the tensor-core route four times")
+          f"expected the tensor-core route six times")
     log(f"  mlstm_chunk routes at xlstm-350m width, bf16: {mk.LAUNCHES}")
     sets = [mlstm_inputs(400 + i, dev)[0] for i in range(N_XL_SETS)]
     kw = dict(chunk=XL["chunk"], scale=XL["d"] ** -0.5)
@@ -3043,6 +3104,29 @@ def phase_mlstm_kernel(dev):
         f"kernel {res['ms']:.4f} ms by events, {fmt_ms(res['device_ms'])} "
         f"device, plain {res['plain_ms']:.4f} ms, library not applicable, "
         f"bound {res['bound'][0]:.4f} ms ({res['bound'][1]}) [{CARD}]")
+    share = [mlstm_inputs(410 + i, dev, state=True, shape=XL_SHARE)
+             for i in range(N_XL_SETS)]
+    sets_share = [a + st for a, st in share]
+
+    def call_share(q, k, v, li, lf, C, n, m):
+        return mk.mlstm_chunk_kernel(q, k, v, li, lf, chunk=XL["chunk"],
+                                     scale=XL["d"] ** -0.5, state=(C, n, m),
+                                     return_state=True)
+    sh = XL_SHARE
+    res["share"] = dict(
+        shape=dict(b=sh["b"], h=sh["h"], s=sh["s"], dk=sh["d"], dv=sh["dv"],
+                   chunk=sh["chunk"], state=True),
+        ms=cuda_ms(call_share, sets_share, 20),
+        device_ms=device_ms(call_share, sets_share, 20, True),
+        bound=bound(*mlstm_need(sh["b"], sh["h"], sh["s"], sh["chunk"],
+                                sh["d"], sh["dv"], True, True)))
+    r = res["share"]
+    log(f"  mlstm_chunk at one rank's share (B=4, H=1, S=2048, Dk=256, "
+        f"Dv=64, carried state returned): kernel {r['ms']:.4f} ms by "
+        f"events, {fmt_ms(r['device_ms'])} device, bound {r['bound'][0]:.4f}"
+        f" ms ({r['bound'][1]}); the whole shape {res['ms']:.4f} ms, "
+        f"{fmt_ms(res['device_ms'])} device, bound {res['bound'][0]:.4f} ms"
+        f" [{CARD}]")
     # the grid the wrapper chose (t_split) beside one CTA per value slice
     chosen = mk.t_split(XL["b"] * XL["h"], XL["d"])
     t_split = mk.t_split
@@ -4776,6 +4860,21 @@ for _i, _group in enumerate(MOE_DRY):
         for _name, _spec in _group.items() for _mesh in ([16, 16], [])}}
 
 
+# [19]: xlstm-350m's serving cells on (16, 16), (2, 16, 16) and one rank,
+# in two children started with [17c]'s; the bar on FLOPs x ranks over one
+# rank's by cell and mesh (long_500k's one lane does not split over the
+# data axes, so each of their ranks repeats the model axis's share)
+XL_DRY = {"19-decode": dict(arch="xlstm-350m", shape="decode_32k"),
+          "19-long": dict(arch="xlstm-350m", shape="long_500k")}
+XL_DRY_MAX = {("19-decode", "16x16"): 1.02, ("19-decode", "2x16x16"): 1.02,
+              ("19-long", "16x16"): 17.0, ("19-long", "2x16x16"): 34.0}
+for _name, _spec in XL_DRY.items():
+    DRY_CELLS[_name] = {"cells": {
+        f"{_name}-{'x'.join(map(str, _mesh)) or '1'}": dict(_spec,
+                                                            mesh=_mesh)
+        for _mesh in ([16, 16], [2, 16, 16], [])}}
+
+
 def dry_cell(spec):
     """One ``DRY_CELLS`` cell traced with fake cuda tensors -> its record."""
     import dataclasses as dc
@@ -4972,7 +5071,7 @@ def phase_dryrun(dev, children=None):
     ops = rec["op_counts"].get("repro_torch.mlstm_chunk", 0)
     per = mk.need(TRAIN_XL["batch"], cfg.num_heads, TRAIN_XL["seq"],
                   min(256, TRAIN_XL["seq"]), cfg.resolved_head_dim,
-                  cfg.resolved_head_dim, True)[1]
+                  cfg.resolved_head_dim, True, return_state=False)[1]
     k_dry = rec["kernel_flops"].get("repro_torch.mlstm_chunk", 0.0)
     check(ops == launches == 2 * n_mlstm,
           f"[16b] the trace counts {ops} #7 ops, the card launched "
@@ -5390,6 +5489,33 @@ def phase_moe_mesh(dev, children):
 
 
 # ---------------------------------------------------------------------------
+# [19] xlstm-350m's mLSTM on a model axis that does not divide its heads
+# ---------------------------------------------------------------------------
+
+def phase_xlstm_dryrun(children):
+    """[19] xlstm-350m's decode_32k and long_500k dry-run cells (children
+    started at [15]) on (16, 16) and (2, 16, 16) against one rank: the
+    mLSTM's 4 heads over 4 groups of 4 model ranks, each rank a head's 64
+    value columns. FLOPs x ranks over one rank's at most ``XL_DRY_MAX``
+    and no rank short of its share; each rank's peak and roofline
+    terms."""
+    recs = {}
+    for group in finish_dryrun_cells(children).values():
+        recs.update(group)
+    for tag in sorted(recs):
+        if tag.endswith("-1"):
+            continue
+        r, one = recs[tag], recs[tag.rsplit("-", 1)[0] + "-1"]
+        extra = serving_cell_line(tag, r, one)
+        ratio = r["flops_per_device"] * r["chips"] / one["flops_per_device"]
+        top = XL_DRY_MAX[tag.rsplit("-", 1)[0], r["mesh"]]
+        log(f"  [{tag}] x ranks / one {ratio:.4f} (at most {top})")
+        check(extra >= -1e-6 * one["flops_per_device"] and ratio <= top,
+              f"[{tag}] the ranks' FLOPs are {ratio:.4f} x one rank's, "
+              f"outside [1, {top}]")
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     global CARD
@@ -5528,6 +5654,7 @@ def main() -> int:
                                          if n.startswith("17c")])
     moe_children = start_dryrun_cells([n for n in DRY_CELLS
                                        if n.startswith("18c")])
+    xl_dry_children = start_dryrun_cells(list(XL_DRY))
     xl_launches += phase_mesh(dev)
     took("15", t15)
     log("[16] the training dry run: internlm2-1.8b and xlstm-350m traced "
@@ -5557,6 +5684,12 @@ def main() -> int:
     log("[18a] deepseek-moe-16b serving on a one-rank NCCL mesh")
     main_launches += phase_moe_mesh(dev, moe_children)
     took("18", t18)
+    log("[19] xlstm-350m's mLSTM on a model axis that does not divide its 4 "
+        "heads: the decode_32k and long_500k dry-run cells on fake (16, 16) "
+        "and (2, 16, 16) worlds against one rank")
+    t19 = time.perf_counter()
+    phase_xlstm_dryrun(xl_dry_children)
+    took("19", t19)
 
     src = "src/repro_torch/csrc/decode_attention.cu"
     jax_kernel = "src/repro/kernels/decode_attention/kernel.py"
@@ -5606,7 +5739,10 @@ def main() -> int:
                  "ms": xtimes["ms"], "plain_ms": xtimes["plain_ms"],
                  "bound_ms": xtimes["bound"][0],
                  "bound_by": xtimes["bound"][1], "library_ms": None,
-                 "device_ms": xtimes["device_ms"]})
+                 "device_ms": xtimes["device_ms"],
+                 "share": {**xtimes["share"],
+                           "bound_ms": xtimes["share"]["bound"][0],
+                           "bound_by": xtimes["share"]["bound"][1]}})
     log("phase seconds: " + ", ".join(f"[{k}] {v}" for k, v in
                                       PHASE_S.items()))
     log(f"total {time.perf_counter() - t_start:.1f} s")

@@ -21,7 +21,8 @@
 // then the end-of-chunk state update of (C, n, m). Two additions to the
 // Pallas kernel, which the model's chunk loop (models/xlstm.py) needs:
 // the state may start from a carried (C0, n0, m0) instead of zeros and
-// -1e30, and the final state may be written out. h is written in
+// -1e30, and the final state may be written out (where it is not, the
+// last chunk's state update is skipped: nothing reads it). h is written in
 // float32. A last chunk shorter than L is the Pallas kernel's padded
 // chunk without the pad rows: pad rows carry log_i = -1e30, log_f = 0
 // and come after every real row, so they change neither a real row's
@@ -338,6 +339,8 @@ mlstm_kernel(const T* __restrict__ q, const T* __restrict__ k,
       }
     }
 
+    // the last chunk's state update only where the state is returned
+    if (C_out == nullptr && c0 + Lc == S) break;
     // ---- state update to the end of the chunk ----
     __syncthreads();                           // outputs done with C, n
     for (int idx = tid; idx < Dk * kT; idx += kThreads) sm.C[idx] *= f_eff;
@@ -671,7 +674,8 @@ mlstm_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
           for (int us = 0; us < min(top + 1, nus); ++us)
             load_kv(c0 + us * kStrip);
         }
-        for (int us = 0; us < nus; ++us) load_kv(c0 + us * kStrip);
+        if (C_out != nullptr || c + 1 < nchunks)   // the state update
+          for (int us = 0; us < nus; ++us) load_kv(c0 + us * kStrip);
       }
     }
     return;
@@ -901,6 +905,8 @@ mlstm_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
       }
     }
 
+    // the last chunk's state update only where the state is returned
+    if (C_out == nullptr && c + 1 == nchunks) break;
     // ---- state update to the end of the chunk ----
     named_barrier(1, 256);                     // both WGs done with C's parts
 #pragma unroll
@@ -1040,7 +1046,8 @@ int launch_wgmma(const void* q, const void* k, const void* v,
 // (is_bf16 selects __nv_bfloat16, else float32), log_i/log_f [B,H,S]
 // float32, h [B,H,S,Dv] float32, all contiguous. C0 [B,H,Dk,Dv], n0
 // [B,H,Dk], m0 [B,H] float32 may all be null (zero state, m = -1e30);
-// C_out, n_out, m_out likewise (final state not written).
+// C_out, n_out, m_out likewise (final state neither updated in the
+// last chunk nor written).
 extern "C" int mlstm_chunk_fwd(const void* q, const void* k, const void* v,
                                const void* log_i, const void* log_f,
                                const void* C0, const void* n0, const void* m0,

@@ -14,8 +14,10 @@ Beyond the Pallas kernel, both routes take an optional carried state
 ``state = (C [B,H,Dk,Dv], n [B,H,Dk], m [B,H])`` (float32; None = zeros
 and m = -1e30, the Pallas kernel's start) and return the final state on
 request, as the model's chunk loop needs; with no state they compute
-exactly ``_mlstm_kernel``. Both write h in float32 (the Pallas kernel
-casts it to q's dtype; ``ops.mlstm_chunk`` does that). S need not be a
+exactly ``_mlstm_kernel``. Without ``return_state`` they skip the last
+chunk's state update, which nothing reads (the Pallas kernel has no
+state output either). Both write h in float32 (the Pallas kernel casts
+it to q's dtype; ``ops.mlstm_chunk`` does that). S need not be a
 multiple of L: a short last chunk is the Pallas kernel's padded chunk
 without its pad rows, which change neither the real rows nor the state.
 
@@ -153,6 +155,8 @@ def mlstm_chunk_plain(q, k, v, log_i, log_f, *, chunk: int = 256,
         den = sc.sum(-1) + inter_w * qn
         den = torch.maximum(den.abs(), torch.exp(-m_row))
         out[:, :, c0:c1] = num / den[..., None]
+        if c1 == s and not return_state:
+            break                 # the final state: nothing reads it
         # ---- state update to the end of the chunk ----
         wr_log = f_tot[..., None] - f_cum + li
         m_new = torch.maximum(f_tot + m, wr_log.amax(-1))
@@ -169,18 +173,22 @@ def mlstm_chunk_plain(q, k, v, log_i, log_f, *, chunk: int = 256,
 
 
 def need(b: int, h: int, s: int, chunk: int, dk: int, dv: int,
-         state: bool, itemsize: int = 2) -> Tuple[int, int]:
+         state: bool, itemsize: int = 2, return_state: bool = False
+         ) -> Tuple[int, int]:
     """(bytes, operations) of one call: q/k/v (``itemsize`` bytes each)
-    and the float32 gates read once, the float32 h written once (and the
-    state read and written); per chunk 2 Dk + 2 Dv operations for each
-    causal (t, u) pair, and per row q.C, q.n, the k^T V and n updates."""
+    and the float32 gates read once, the float32 h written once, the
+    carried ``state`` read and the final state written when returned;
+    per chunk 2 Dk + 2 Dv operations for each causal (t, u) pair, and per
+    row q.C and q.n, and the k^T V and n updates but in the last chunk
+    when the final state is not returned."""
     L = min(chunk, s)
-    pairs = sum(n * (n + 1) // 2 for n in
-                [L] * (s // L) + ([s % L] if s % L else []))
-    flops = b * h * (pairs * (2 * dk + 2 * dv) + s * (4 * dk * dv + 4 * dk))
+    lens = [L] * (s // L) + ([s % L] if s % L else [])
+    pairs = sum(n * (n + 1) // 2 for n in lens)
+    updated = s if return_state else s - lens[-1]
+    flops = b * h * (pairs * (2 * dk + 2 * dv) + s * (2 * dk * dv + 2 * dk)
+                     + updated * (2 * dk * dv + 2 * dk))
     nbytes = b * h * (s * (2 * dk + dv) * itemsize + s * 2 * 4 + s * dv * 4)
-    if state:
-        nbytes += 2 * b * h * (dk * dv + dk + 1) * 4
+    nbytes += (int(state) + int(return_state)) * b * h * (dk * dv + dk + 1) * 4
     return nbytes, flops
 
 
@@ -240,7 +248,7 @@ def call_need(q, k, v, log_i, log_f, C, n, m, chunk, scale, return_state,
     """:func:`need` of one call of the op, from its arguments."""
     b, h, s, dk = q.shape
     return need(b, h, s, chunk, dk, v.shape[3], C is not None,
-                q.element_size())
+                q.element_size(), return_state)
 
 
 def _flops(q, k, v, log_i, log_f, C, n, m, chunk, scale, return_state,

@@ -21,7 +21,10 @@ counts per rank:
 * peak live bytes: the bytes resident when the stream starts (the
   tensors handed to :meth:`OpStream.resident`) plus the storages made
   since and not yet freed, at their most. A storage is freed when its
-  last tensor is (views share it, autograd's saved tensors hold it).
+  last tensor is (views share it, autograd's saved tensors hold it). A
+  functional collective's output is one buffer with the tensor its
+  ``wait_tensor`` hands back (another storage under ``FakeTensorMode``):
+  it is counted once and freed when the last tensor of either is.
 
 Everything is per rank: the trace is one rank's program, as the
 reference's HLO is one device's.
@@ -54,7 +57,8 @@ _COLLECTIVES = {
     "c10d.alltoall_base_": "all-to-all",
     "c10d.broadcast_": "collective-permute",
 }
-_SKIP = ("_c10d_functional.wait_tensor", "c10d.barrier")
+_WAIT = "_c10d_functional.wait_tensor"
+_SKIP = (_WAIT, "c10d.barrier")
 
 def _kernel_needs() -> Dict[str, Callable[..., Tuple[int, int]]]:
     """Kernel op -> its (bytes, FLOPs) from the op's arguments; the FLOPs
@@ -124,7 +128,7 @@ class OpStream(TorchDispatchMode):
         self.kernel_flops: Dict[str, float] = defaultdict(float)
         self.wire = 0.0
         self.ops = 0
-        self._live: Dict[int, int] = {}
+        self._live: Dict[int, list] = {}     # storage -> [bytes, storages]
         self._resident: set = set()
         self.resident_bytes = 0
         self.live_bytes = 0
@@ -145,7 +149,17 @@ class OpStream(TorchDispatchMode):
         return self.resident_bytes
 
     def _release(self, key: int) -> None:
-        self.live_bytes -= self._live.pop(key, 0)
+        buf = self._live.pop(key, None)
+        if buf is not None:
+            buf[1] -= 1
+            if buf[1] == 0:
+                self.live_bytes -= buf[0]
+
+    def _hold(self, st, buf: list) -> None:
+        key = st._cdata
+        self._live[key] = buf
+        buf[1] += 1
+        weakref.finalize(st, self._release, key)
 
     def _track(self, out) -> None:
         for t in tree_flatten(out)[0]:
@@ -155,16 +169,27 @@ class OpStream(TorchDispatchMode):
             key = st._cdata
             if key in self._live or key in self._resident:
                 continue            # a view, or an in-place op's self
-            self._live[key] = st.nbytes()
+            self._hold(st, [st.nbytes(), 0])
             self.live_bytes += st.nbytes()
-            weakref.finalize(st, self._release, key)
         self.peak_live = max(self.peak_live, self.live_bytes)
+
+    def _waited(self, out, args) -> None:
+        """``wait_tensor``'s result joins its input's buffer (it is the
+        collective's output, not a new one)."""
+        buf = self._live.get(args[0].untyped_storage()._cdata)
+        st = out.untyped_storage()
+        if buf is None:
+            self._track(out)
+        elif st._cdata not in self._live:
+            self._hold(st, buf)
 
     # -- the stream -----------------------------------------------------
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
         out = func(*args, **kwargs)
         name = func._overloadpacket._qualified_op_name.replace("::", ".")
+        if name == _WAIT:
+            self._waited(out, args)
         if name in _SKIP or not any(isinstance(t, torch.Tensor)
                                     for t in tree_flatten(out)[0]):
             return out          # waits; metadata queries (prim.device)

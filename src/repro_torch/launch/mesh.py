@@ -16,14 +16,19 @@ from __future__ import annotations
 
 import math
 import os
-from typing import Optional, Sequence
+import weakref
+from typing import Dict, Optional, Sequence
 
 import torch
 import torch.distributed as dist
 
 from repro_torch import resolve_device
+from repro_torch.config import ShardingConfig
+from repro_torch.models.common import Ring
 
 BACKENDS = {"cuda": "nccl", "cpu": "gloo"}
+# mesh -> {(axis, r): the process group of this rank's block of r ranks}
+_BLOCKS: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
 
 
 def init_distributed(device="cuda", *, rank: Optional[int] = None,
@@ -50,7 +55,10 @@ def init_distributed(device="cuda", *, rank: Optional[int] = None,
 
 def make_mesh(shape: Sequence[int], axes: Sequence[str], device="cuda"):
     """A ``DeviceMesh`` of ``shape`` named ``axes`` over the default
-    process group (tests, examples). Raises without a process group, or
+    process group (tests, examples), with the process groups of
+    :func:`block_ring` over the model axis (``ShardingConfig.tp_axis``).
+    A collective, as ``init_device_mesh`` is: every rank of the group
+    makes its meshes in one order. Raises without a process group, or
     when the group's size is not the product of ``shape``."""
     from torch.distributed.device_mesh import init_device_mesh
     dev = resolve_device(device)
@@ -65,7 +73,38 @@ def make_mesh(shape: Sequence[int], axes: Sequence[str], device="cuda"):
     if math.prod(shape) != world:
         raise ValueError(f"a {shape} mesh needs {math.prod(shape)} ranks, "
                          f"the process group has {world}")
-    return init_device_mesh(dev.type, shape, mesh_dim_names=axes)
+    mesh = init_device_mesh(dev.type, shape, mesh_dim_names=axes)
+    model = ShardingConfig.tp_axis
+    _BLOCKS[mesh] = _block_groups(mesh, model) if model in axes else {}
+    return mesh
+
+
+def _block_groups(mesh, axis: str) -> Dict[tuple, "dist.ProcessGroup"]:
+    """{(axis, r): the process group of this rank's block of r consecutive
+    ranks along mesh axis ``axis``} for each r that divides its size M,
+    1 < r < M. Made by ``new_subgroups_by_enumeration``, a collective:
+    every rank of the default group calls it, with the same r in the same
+    order (here, as it makes the mesh)."""
+    import numpy as np
+    dim = mesh.mesh_dim_names.index(axis)
+    m = mesh.mesh.shape[dim]
+    ranks = np.moveaxis(np.asarray(mesh.mesh.tolist()), dim, -1)
+    return {(axis, r): dist.new_subgroups_by_enumeration(
+                ranks.reshape(-1, r).tolist())[0]
+            for r in range(2, m) if m % r == 0}
+
+
+def block_ring(mesh, axis: str, r: int) -> Ring:
+    """The ``models.common.Ring`` of this rank's block of ``r``
+    consecutive ranks of ``mesh``'s ``axis`` (the model-axis ranks that
+    share an mLSTM head, ``sharding.plan.MeshPlan.mlstm_groups``), from
+    the groups :func:`make_mesh` made; issues no collective."""
+    pg = _BLOCKS.get(mesh, {}).get((axis, r))
+    if pg is None:
+        raise ValueError(f"no blocks of {r} ranks along {axis!r} on "
+                         f"{mesh}: make the mesh with make_mesh")
+    ranks = dist.get_process_group_ranks(pg)
+    return Ring(pg.group_name, r, ranks.index(dist.get_rank()))
 
 
 def make_production_mesh(*, multi_pod: bool = False, device="cuda"):

@@ -216,7 +216,11 @@ class ActShardings:
     rows) or ``kdim`` (decode: the data axis, over which the dense
     weights keep their FSDP block of d_model, so each product takes its
     block of the contraction and sums over it, :func:`klinear`). A
-    warm-admission copy adds ``pool`` (this rank's :class:`PoolShare`)."""
+    warm-admission copy adds ``pool`` (this rank's :class:`PoolShare`).
+    Where the model axis does not divide the mLSTM's heads but their
+    count divides it, ``cols`` is the :class:`Ring` of the model-axis
+    ranks that share this rank's heads, each holding its block of their
+    value columns (``models.xlstm``)."""
 
     def __init__(self, specs=None, rows: Optional[Ring] = None, *,
                  rows_dim: int = 0, axis: str = "model",
@@ -226,7 +230,8 @@ class ActShardings:
                  ring: Optional[Ring] = None, select_shards: int = 1,
                  max_len: int = 0, sp: Optional[Ring] = None,
                  kdim: Optional[Ring] = None,
-                 pool: Optional[PoolShare] = None, layer_hook=None):
+                 pool: Optional[PoolShare] = None, layer_hook=None,
+                 cols: Optional[Ring] = None):
         self.specs = dict(specs or {})
         self.rows, self.rows_dim = rows, rows_dim
         self.axis, self.size, self.index, self.group = axis, size, index, \
@@ -237,6 +242,7 @@ class ActShardings:
         self.ring, self.select_shards = ring, select_shards
         self.max_len, self.layer_hook = max_len, layer_hook
         self.sp, self.kdim, self.pool = sp, kdim, pool
+        self.cols = cols
 
     def is_split(self, module) -> bool:
         """Whether ``module`` holds (and computes) this rank's share."""
@@ -301,6 +307,19 @@ def nan_max(x: torch.Tensor, group: str) -> torch.Tensor:
                           nan.float()])
     packed = _all_reduce(packed, "max", group)
     return torch.where(packed[1] > 0, float("nan"), packed[0]).to(x.dtype)
+
+
+def ring_sum(x: torch.Tensor, ring: Ring) -> torch.Tensor:
+    """The sum over ``ring``'s ranks of ``x``, each rank using the sum
+    its own way: the backward sums the gradients over them too."""
+    return _Leave.apply(_Enter.apply(x, ring), ring)
+
+
+def ring_gather(x: torch.Tensor, ring: Ring, dim: int) -> torch.Tensor:
+    """``ring``'s ranks' ``x`` concatenated along ``dim``, each rank using
+    the result its own way: the backward sums the gradients' blocks over
+    them (a reduce-scatter)."""
+    return _Gather.apply(x, ring, dim % x.dim(), False)
 
 
 def all_reduce_sum(x: torch.Tensor, group: str) -> torch.Tensor:

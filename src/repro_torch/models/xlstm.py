@@ -24,8 +24,16 @@ and its partial output leaving through a sum over the axis. The mLSTM
 takes its heads: its columns of ``wq``/``wk``/``wv``/``w_o``, its
 columns of the gate weights and of ``ln_scale``, kernel #7 launched on
 those heads, and its rows of ``w_out``; its carried (C, n, m) are its
-heads'. The sLSTM takes its channels of every gate (rows of ``wx`` and
-``b`` and the recurrent weights that feed them); its recurrent input
+heads'. Where the axis's M ranks outnumber the H heads (H divides M),
+the r = M / H ranks of a head (the plan's ``cols`` ring) each project
+their block of its hd / r columns of q, k, v and the output gate: q and
+k are gathered over the r ranks, so #7 runs on whole q and k against
+the rank's value columns (C [B, H', Dk, Dv / r]); n and m come out the
+same on the r ranks; the head-wise norm sums its mean and its centred
+variance over them. The within-chunk q k^T, the n terms and the scalar
+gates stay whole on each of the r ranks. The sLSTM takes its channels
+of every gate (rows of ``wx`` and ``b`` and the recurrent weights that
+feed them); its recurrent input
 ``h @ wr`` reads whole heads whose outputs land in the channels of other
 ranks (the reference reshapes [H, 4 dh] to the four gates), so each step
 gathers ``h`` over the axis, and the output norm reads every channel;
@@ -51,7 +59,7 @@ import torch.nn.functional as F
 from repro_torch.kernels.mlstm_chunk.kernel import mlstm_chunk_kernel, \
     mlstm_chunk_plain
 from repro_torch.models.common import NEG_INF, _linear, dense_init_, \
-    split_plan
+    ring_gather, ring_sum, split_plan
 
 State = Tuple[torch.Tensor, ...]
 
@@ -101,17 +109,24 @@ def mlstm_init_(p: MLSTM, generator: torch.Generator) -> None:
         p.ln_scale.fill_(1.0)
 
 
-def _heads_share(p: MLSTM, sh, num_heads: int):
-    """(heads, gate weights and biases [w_i, w_f, b_i, b_f], ln_scale) of
-    this rank: all of them, or with a plan its block of the heads (the
+def _heads_share(p: MLSTM, sh, num_heads: int, head_dim: int):
+    """(heads, value columns of each, the ring that shares them, gate
+    weights and biases [w_i, w_f, b_i, b_f], ln_scale) of this rank: all
+    of them and no ring, or with a plan its block of the heads (and,
+    where ``sh.cols`` shares them, its block of their columns; the
     replicated leaves entered, so their gradients sum over the axis)."""
     if sh is None:
-        return num_heads, (p.w_i, p.w_f, p.b_i, p.b_f), p.ln_scale
-    h = num_heads // sh.size
-    lo = sh.index * h
+        return num_heads, head_dim, None, (p.w_i, p.w_f, p.b_i, p.b_f), \
+            p.ln_scale
+    cols = sh.cols
+    r = cols.size if cols is not None else 1
+    h, dv = num_heads * r // sh.size, head_dim // r
+    lo = sh.index // r * h
     gates = (sh.enter(p.w_i)[:, lo:lo + h], sh.enter(p.w_f)[:, lo:lo + h],
              sh.enter(p.b_i)[lo:lo + h], sh.enter(p.b_f)[lo:lo + h])
-    return h, gates, sh.enter(p.ln_scale)[lo:lo + h]
+    c0 = cols.index * dv if cols is not None else 0
+    ln_scale = sh.enter(p.ln_scale)[lo:lo + h, c0:c0 + dv]
+    return h, dv, cols, gates, ln_scale
 
 
 def _mlstm_gates(p: MLSTM, x: torch.Tensor, gates=None):
@@ -124,15 +139,27 @@ def _mlstm_gates(p: MLSTM, x: torch.Tensor, gates=None):
     return log_i, log_f
 
 
-def _headwise_ln(h: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6):
-    mu = h.mean(-1, keepdim=True)
-    var = h.var(-1, keepdim=True, correction=0)
-    return (h - mu) * torch.rsqrt(var + eps) * scale
+def _headwise_ln(h: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6,
+                 cols=None):
+    """The norm over each head's columns; with ``cols`` this rank holds
+    its block of them, and the mean, then the centred variance (the
+    reference's two passes), are float32 sums over the ring."""
+    if cols is None:
+        mu = h.mean(-1, keepdim=True)
+        var = h.var(-1, keepdim=True, correction=0)
+        return (h - mu) * torch.rsqrt(var + eps) * scale
+    n = h.shape[-1] * cols.size
+    mu = ring_sum(h.sum(-1, keepdim=True), cols) / n
+    c = h - mu
+    var = ring_sum((c * c).sum(-1, keepdim=True), cols) / n
+    return c * torch.rsqrt(var + eps) * scale
 
 
 def mlstm_init_state(batch: int, num_heads: int, head_dim: int,
-                     device=None) -> State:
-    C = torch.zeros((batch, num_heads, head_dim, head_dim), device=device)
+                     device=None, value_dim: Optional[int] = None) -> State:
+    """Zero (C [B, H, hd, value_dim (hd)], n [B, H, hd]), m -1e30."""
+    C = torch.zeros((batch, num_heads, head_dim, value_dim or head_dim),
+                    device=device)
     n = torch.zeros((batch, num_heads, head_dim), device=device)
     m = torch.full((batch, num_heads), NEG_INF, device=device)
     return C, n, m
@@ -142,9 +169,12 @@ class MLSTMChunk(torch.autograd.Function):
     """Kernel #7 with a backward.
 
     Forward: ``mlstm_chunk_kernel`` (the kernel on CUDA tensors, its plain
-    version on CPU tensors) -> (h [B,H,S,Dv] float32, C, n, m), saving q,
-    k, v, the log gates and the initial state. Backward: recompute
-    ``mlstm_chunk_plain`` on the saved inputs under ``enable_grad`` and
+    version on CPU tensors) -> h [B,H,S,Dv] float32, and with
+    ``return_state`` the final (C, n, m), saving q, k, v, the log gates
+    and the initial state. Without ``return_state`` the kernel skips the
+    last chunk's state update, which nothing reads (a training forward).
+    Backward: recompute ``mlstm_chunk_plain`` on the saved inputs under
+    ``enable_grad`` (the final state only where it has a gradient) and
     return ``torch.autograd.grad`` of it; no kernel launches there.
 
     Memory: the recompute holds one chunk's autograd intermediates at a
@@ -154,24 +184,26 @@ class MLSTMChunk(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, log_i, log_f, C, n, m, chunk: int,
-                scale: float):
-        h, (C1, n1, m1) = mlstm_chunk_kernel(
+                scale: float, return_state: bool = True):
+        out = mlstm_chunk_kernel(
             q, k, v, log_i, log_f, chunk=chunk, scale=scale,
-            state=(C, n, m), return_state=True)
+            state=(C, n, m), return_state=return_state)
         ctx.save_for_backward(q, k, v, log_i, log_f, C, n, m)
         ctx.chunk, ctx.scale = chunk, scale
-        return h, C1, n1, m1
+        return (out[0], *out[1]) if return_state else out
 
     @staticmethod
     def backward(ctx, *grad_outs):
         saved = ctx.saved_tensors
         need = ctx.needs_input_grad[:len(saved)]
         inputs = [t.detach().requires_grad_(r) for t, r in zip(saved, need)]
+        with_state = any(g is not None for g in grad_outs[1:])
         with torch.enable_grad():
-            h, state = mlstm_chunk_plain(
+            res = mlstm_chunk_plain(
                 *inputs[:5], chunk=ctx.chunk, scale=ctx.scale,
-                state=tuple(inputs[5:]), return_state=True)
-        outs = [(o, g) for o, g in zip((h, *state), grad_outs)
+                state=tuple(inputs[5:]), return_state=with_state)
+        outs = (res[0], *res[1]) if with_state else (res,)
+        outs = [(o, g) for o, g in zip(outs, grad_outs)
                 if g is not None and o.requires_grad]
         wrt = [t for t, r in zip(inputs, need) if r]
         grads = torch.autograd.grad([o for o, _ in outs],
@@ -180,15 +212,16 @@ class MLSTMChunk(torch.autograd.Function):
             [None] * len(wrt)
         it = iter(grads)
         res = [next(it) if r else None for r in need]
-        return (*res, None, None)
+        return (*res, None, None, None)
 
 
 def mlstm_chunkwise(p: MLSTM, x: torch.Tensor, num_heads: int,
                     head_dim: int, *, chunk: int = 256,
                     state: Optional[State] = None,
-                    valid: Optional[torch.Tensor] = None
-                    ) -> Tuple[torch.Tensor, State]:
-    """Chunkwise-parallel mLSTM forward -> (out [B, S, D], final state).
+                    valid: Optional[torch.Tensor] = None,
+                    return_state: bool = True):
+    """Chunkwise-parallel mLSTM forward -> (out [B, S, D], final state),
+    or out alone without ``return_state``.
 
     ``state`` resumes from a carried (C, n, m), the chunked-admission
     mid-prompt case. ``valid`` [B, S] masks ragged pad positions (i-gate
@@ -203,37 +236,42 @@ def mlstm_chunkwise(p: MLSTM, x: torch.Tensor, num_heads: int,
     sh = split_plan(p)
     if sh is not None:
         x = sh.enter(x)
-    num_heads, gates, ln_scale = _heads_share(p, sh, num_heads)
-    dh = num_heads * head_dim
+    num_heads, dv, cols, gates, ln_scale = _heads_share(p, sh, num_heads,
+                                                        head_dim)
 
-    def heads(w: nn.Linear) -> torch.Tensor:        # -> [B, H, S, hd]
+    def heads(w: nn.Linear) -> torch.Tensor:        # -> [B, H, S, dv]
         return F.linear(x, w.weight).reshape(b, s, num_heads,
-                                             head_dim).transpose(1, 2)
+                                             dv).transpose(1, 2)
 
     q, k, v = heads(p.wq), heads(p.wk), heads(p.wv)
+    if cols is not None:          # whole q and k of this rank's heads
+        q, k = ring_gather(q, cols, 3), ring_gather(k, cols, 3)
     log_i, log_f = (g.transpose(1, 2) for g in _mlstm_gates(p, x, gates))
     if valid is not None:
         log_i = torch.where(valid[:, None, :], log_i, NEG_INF)
         log_f = torch.where(valid[:, None, :], log_f, 0.0)
     if state is None:
-        state = mlstm_init_state(b, num_heads, head_dim, x.device)
+        state = mlstm_init_state(b, num_heads, head_dim, x.device, dv)
     # streams stay in the model dtype; the kernel widens each tile
-    hs, *state = MLSTMChunk.apply(
+    res = MLSTMChunk.apply(
         *(t.contiguous() for t in (q, k, v, log_i, log_f, *state)),
-        min(chunk, s), 1.0 / math.sqrt(head_dim))
-    h = _headwise_ln(hs, ln_scale[None, :, None, :])
+        min(chunk, s), 1.0 / math.sqrt(head_dim), return_state)
+    hs, state = (res[0], tuple(res[1:])) if return_state else (res, None)
+    h = _headwise_ln(hs, ln_scale[None, :, None, :], cols=cols)
     o = torch.sigmoid(F.linear(x, p.w_o.weight).float())
-    h = h.transpose(1, 2).reshape(b, s, dh) * o
+    h = h.transpose(1, 2).reshape(b, s, num_heads * dv) * o
     out = F.linear(h.to(x.dtype), p.w_out.weight)
-    return (out if sh is None else sh.leave(out)), tuple(state)
+    out = out if sh is None else sh.leave(out)
+    return (out, state) if return_state else out
 
 
 def mlstm_parallel(p: MLSTM, x: torch.Tensor, num_heads: int,
                    head_dim: int, chunk: int = 256,
                    state: Optional[State] = None) -> torch.Tensor:
-    """Output-only view of :func:`mlstm_chunkwise` (train / forward)."""
+    """Output-only view of :func:`mlstm_chunkwise` (train / forward): the
+    final state is not computed."""
     return mlstm_chunkwise(p, x, num_heads, head_dim, chunk=chunk,
-                           state=state)[0]
+                           state=state, return_state=False)
 
 
 def mlstm_decode_step(p: MLSTM, x: torch.Tensor, state: State,
@@ -245,13 +283,16 @@ def mlstm_decode_step(p: MLSTM, x: torch.Tensor, state: State,
     sh = split_plan(p)
     if sh is not None:
         x = sh.enter(x)
-    num_heads, gates, ln_scale = _heads_share(p, sh, num_heads)
+    num_heads, dv, cols, gates, ln_scale = _heads_share(p, sh, num_heads,
+                                                        head_dim)
 
-    def heads(w: nn.Linear) -> torch.Tensor:        # -> [B, H, hd] f32
-        return F.linear(x, w.weight).reshape(b, num_heads, head_dim).float()
+    def heads(w: nn.Linear) -> torch.Tensor:        # -> [B, H, dv] f32
+        return F.linear(x, w.weight).reshape(b, num_heads, dv).float()
 
-    q, v = heads(p.wq), heads(p.wv)
-    k = heads(p.wk) / math.sqrt(head_dim)
+    q, k, v = heads(p.wq), heads(p.wk), heads(p.wv)
+    if cols is not None:          # whole q and k of this rank's heads
+        q, k = ring_gather(q, cols, 2), ring_gather(k, cols, 2)
+    k = k / math.sqrt(head_dim)
     log_i, log_f = (g[:, 0] for g in _mlstm_gates(p, x, gates))  # [B, H]
     m_new = torch.maximum(log_f + m, log_i)
     f_eff = torch.exp(log_f + m - m_new)
@@ -262,9 +303,9 @@ def mlstm_decode_step(p: MLSTM, x: torch.Tensor, state: State,
     num = torch.einsum("bhkv,bhk->bhv", C_new, q)
     qn = torch.einsum("bhk,bhk->bh", n_new, q)
     den = torch.maximum(qn.abs(), torch.exp(-m_new))
-    h = _headwise_ln(num / den[..., None], ln_scale[None])
+    h = _headwise_ln(num / den[..., None], ln_scale[None], cols=cols)
     o = torch.sigmoid(F.linear(x, p.w_o.weight).float())[:, 0]
-    h = h.reshape(b, num_heads * head_dim) * o
+    h = h.reshape(b, num_heads * dv) * o
     out = F.linear(h.to(x.dtype), p.w_out.weight)
     if sh is not None:
         out = sh.leave(out)

@@ -9,10 +9,12 @@ both (``train.step`` and the serving dispatches of ``models.decoder``):
   the q rows with the whole weights) or its columns of every projection
   (chunked prefill and decode); the dense FFN its ``d_ff`` columns; the
   MoE its experts or its slice of each; the LM head its vocab rows; the
-  RG-LRU its channels, the mLSTM its heads (where the axis divides them)
-  and the sLSTM its channels. The sLSTM's ``wx`` and ``b`` stay whole:
-  the layout cuts them by gate, and a rank needs its channels of every
-  gate;
+  RG-LRU its channels, the mLSTM its heads (:meth:`MeshPlan.mlstm_groups`:
+  where the axis does not divide them but their count divides it, a
+  group of ranks shares each head, each rank holding its block of the
+  head's value columns) and the sLSTM its channels. The sLSTM's ``wx``
+  and ``b`` stay whole: the layout cuts them by gate, and a rank needs
+  its channels of every gate;
 * the batch: training rows as ``train.step`` passes them; serving lanes,
   this rank's block of B over (pod, data) (``batch_spec``). ``rows`` is
   the ranks whose rows make up the batch: the MoE gathers its routing
@@ -35,6 +37,7 @@ import torch
 
 from repro_torch.config import BlockKind, ModelConfig, ShapeConfig, \
     ShapeKind, ShardingConfig
+from repro_torch.launch.mesh import block_ring
 from repro_torch.models.common import NEG_INF, ActShardings, PoolShare, \
     Ring, activation_shardings
 from repro_torch.sharding.rules import act_specs, batch_spec, mesh_sizes
@@ -97,6 +100,13 @@ class MeshPlan:
         self.heads_split = tp is not None and \
             self.specs.get("q", (None,) * 4)[1] == tp
         self.model_group = mesh.get_group(tp).group_name if tp else None
+        # the ranks that share this rank's mLSTM heads (mlstm_groups)
+        self.cols = None
+        groups = self.mlstm_groups()
+        if groups is not None and groups[1] > 1 and any(
+                cfg.block_kind(i) == BlockKind.MLSTM
+                for i in range(cfg.num_layers)):
+            self.cols = block_ring(mesh, tp, groups[1])
 
         # serving lanes: this rank's block of the batch over (pod, data)
         self.lanes = None
@@ -160,10 +170,28 @@ class MeshPlan:
         if kind == BlockKind.RGLRU:
             return (cfg.num_heads * cfg.resolved_head_dim) % self.model == 0
         if kind == BlockKind.MLSTM:
-            return cfg.num_heads % self.model == 0
+            return self.mlstm_groups() is not None
         if kind == BlockKind.SLSTM:
             return cfg.d_model % self.model == 0
         return False
+
+    def mlstm_groups(self):
+        """(g, r): the mLSTM's H heads over g = gcd(H, M) groups of the M
+        model-axis ranks, each head's value columns over the r = M / g
+        ranks of its group; None where the mLSTM stays whole on every
+        rank. The layout gives each rank a contiguous block of H hd / M of
+        the head-major rows of ``wq`` / ``wk`` / ``wv`` / ``w_o`` (and
+        columns of ``w_out``): H / M whole heads where M divides H (r = 1),
+        one head's hd / r columns where H divides M. Where neither divides
+        the other, that block is not one rank's heads and columns, and the
+        mLSTM stays whole."""
+        if self.tp is None:
+            return None
+        h, m = self.cfg.num_heads, self.model
+        if h % m and (m % h or self.cfg.resolved_head_dim % (m // h)):
+            return None
+        g = math.gcd(h, m)
+        return g, m // g
 
     def keeps(self, name: str, p) -> bool:
         """Whether parameter ``name`` stays cut over the model axis: its
@@ -211,7 +239,7 @@ class MeshPlan:
             lane_group=self.lane_group, lane_size=self.lane_size,
             ring=self.ring, select_shards=self.select_shards,
             max_len=self.shape.seq_len, sp=self.sp, kdim=self.kdim,
-            pool=self.pool, layer_hook=layer_hook)
+            pool=self.pool, layer_hook=layer_hook, cols=self.cols)
 
     def layer_plan(self, blk, prefix: str) -> ActShardings:
         """The plan of layer ``blk`` (parameter names from ``prefix``):
@@ -273,10 +301,21 @@ class MeshPlan:
             return t
         if not self.splits(seg.kind):
             return t
-        dim = 2 if seg.kind == BlockKind.MLSTM else t.dim() - 1
-        n = t.shape[dim] // self.model
         i = self.coord[self.tp]
-        return t.narrow(dim, i * n, n)
+        if seg.kind == BlockKind.MLSTM:
+            # C [L, B, H, Dk, Dv] over heads and value columns; n
+            # [L, B, H, Dk] and m [L, B, H] over heads only (the same on
+            # the ranks that share a head)
+            g, r = self.mlstm_groups()
+            a, c = divmod(i, r)
+            n = t.shape[2] // g
+            t = t.narrow(2, a * n, n)
+            if t.dim() == 5:
+                n = t.shape[4] // r
+                t = t.narrow(4, c * n, n)
+            return t
+        n = t.shape[-1] // self.model
+        return t.narrow(t.dim() - 1, i * n, n)
 
     def cut_cache(self, cache: Dict[str, Any]) -> Dict[str, Any]:
         """This rank's share of a whole serving cache (a copy): its lanes,

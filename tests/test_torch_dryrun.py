@@ -153,6 +153,53 @@ print(json.dumps([st.collective_bytes, st.collective_counts,
     assert groups == [[0, 1, 2, 3]]
 
 
+_GATHER_PEAK = """
+import json, torch
+from torch._subclasses.fake_tensor import FakeTensorMode
+from repro_torch.launch.dryrun import fake_world
+from repro_torch.launch.hlo_analysis import analyze_step
+from repro_torch.launch.mesh import make_mesh
+from repro_torch.models import common
+fake_world(8)
+mesh = make_mesh((2, 4), ("data", "model"), "cpu")
+g = mesh.get_group("model").group_name
+c10d = common._c10d()
+with FakeTensorMode():
+    x = torch.empty(64, 128)
+
+    def direct():
+        y = c10d.wait_tensor(c10d.all_gather_into_tensor(x, 4, g))
+        return (y * 2).sum()
+
+    def movedim():
+        y = common._all_gather(x, 1, 4, g)
+        return (y * 2).sum()
+
+    def held():
+        a = c10d.all_gather_into_tensor(x.movedim(1, 0).contiguous(), 4, g)
+        y = c10d.wait_tensor(a).movedim(0, 1)
+        return (y * 2).sum()
+    out = {}
+    for f in (direct, movedim, held):
+        st, _, _ = analyze_step(f, [x])
+        out[f.__name__] = [st.resident_bytes, st.peak_bytes]
+print(json.dumps(out))
+"""
+
+
+def test_peak_counts_a_collective_output_once():
+    """An all-gather of a 32 KiB [64, 128] block over 4 ranks: its 128 KiB
+    output stays live from the collective to its last reader, whether it
+    is read as ``wait_tensor`` hands it back, through ``_all_gather``'s
+    ``movedim`` or through a view while the collective's own handle is
+    still held. Each peak is the resident input, the output once, the
+    doubled copy made while it is live and the 4-byte sum."""
+    got = json.loads(_python(_GATHER_PEAK).strip().splitlines()[-1])
+    x, y = 64 * 128 * 4, 4 * 64 * 128 * 4
+    want = [x, x + 2 * y + 4]
+    assert got == {"direct": want, "movedim": want, "held": want}
+
+
 # ---------------------------------------------------------------------------
 # the roofline
 # ---------------------------------------------------------------------------
@@ -203,7 +250,7 @@ def test_mlstm_op_is_counted_by_its_formula(with_state):
               torch.empty(b, h)) if with_state else (None,) * 3
         res, _, out = analyze_step(lambda: torch.ops.repro_torch.mlstm_chunk(
             q, q, q, g, g, *st, 128, 0.125, True))
-    want = mk.need(b, h, s, 128, d, d, with_state)
+    want = mk.need(b, h, s, 128, d, d, with_state, return_state=True)
     assert [tuple(t.shape) for t in out] == [(b, h, s, d), (b, h, d, d),
                                              (b, h, d), (b, h)]
     assert res.dot_flops == want[1]

@@ -292,11 +292,12 @@ class mlstm_recompute_counted:
         xlstm.mlstm_chunk_plain = self._plain
 
 
-def split_steps(ctx, case_name):
-    """2 sharded steps of a split cell from the JAX init -> losses, final
-    parameters and every rank's matmul FLOPs of the first step
-    (``FlopCounterMode`` around the whole step), with those of the mLSTM
-    backward's recompute apart (``recompute``)."""
+def split_steps(ctx, case_name, cell=None):
+    """2 sharded steps of a split cell (``cell``: (config, mesh shape,
+    expert_parallel), by default ``SPLIT_CELLS[case_name]``) from the JAX
+    init -> losses, final parameters and every rank's matmul FLOPs of the
+    first step (``FlopCounterMode`` around the whole step), with those of
+    the mLSTM backward's recompute apart (``recompute``)."""
     import torch
     from torch.utils.flop_counter import FlopCounterMode
     from repro_torch.data.synthetic import make_lm_batch
@@ -304,7 +305,7 @@ def split_steps(ctx, case_name):
     from repro_torch.models.convert import train_state_from_numpy
     from repro_torch.train.step import make_train_step
 
-    name, shape, ep = SPLIT_CELLS[case_name]
+    name, shape, ep = cell or SPLIT_CELLS[case_name]
     mesh = make_mesh(shape, ("data", "model"), "cpu")
     cfg = configs()[name]
     run = split_run(cfg, ep)
@@ -329,6 +330,59 @@ def split_steps(ctx, case_name):
 
 for _case in SPLIT_CELLS:
     CASES[_case] = lambda ctx, c=_case: split_steps(ctx, c)
+
+
+# the mLSTM on a model axis that its heads do not divide
+# (test_torch_mesh_mlstm.py): the smoke xlstm-350m's 4 heads on 8 model
+# ranks, each head's value columns over 2 of them
+MLSTM_MESH = (1, 8)
+MLSTM_SERVE = "prefill decode decode_block chunk"
+
+
+@case
+def mlstm_1x8(ctx):
+    """The split-cell training (``mlstm_1x8_train``: 2 steps at batch 8 x
+    64, remat full) and the serving dispatches (``mlstm_1x8_serve``) of
+    the smoke xlstm-350m on (1, 8), plus every rank's layout: its rows of
+    ``wq`` / ``wk`` / ``wv`` / ``w_o`` and columns of ``w_out`` are its
+    head's block of value columns (``layout``), and the shape of its
+    share of the cache's C (``C_shape``)."""
+    import torch
+    from repro_torch.config import ShardingConfig
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.convert import params_from_numpy
+    from repro_torch.sharding.plan import serving_plan
+    from repro_torch.sharding.rules import distribute_parameters
+
+    split_steps(ctx, "mlstm_1x8_train", ("xl", MLSTM_MESH, True))
+    cfg, shd = configs()["xl"], ShardingConfig(remat="none")
+    mesh = make_mesh(MLSTM_MESH, ("data", "model"), "cpu")
+    model = distribute_parameters(params_from_numpy(
+        load_tree(ctx.dir / "init_xl.npz"), cfg, "cpu"), shd, mesh)
+    plan = serving_plan(cfg, mesh, shd, batch=BATCH, max_len=SERVE_SEQ,
+                        dispatch="decode")
+    g, r = plan.mlstm_groups()
+    a, c = divmod(plan.coord["model"], r)
+    hd = cfg.resolved_head_dim
+    dv = hd // r
+    ok = True
+    for n, p in model.named_parameters():
+        if ".mlstm.w" not in n or not n.endswith(".weight"):
+            continue
+        whole = p.full_tensor()
+        if ".w_out." in n:
+            want = whole.reshape(whole.shape[0], -1, hd)[:, a, c * dv:
+                                                         (c + 1) * dv]
+        else:
+            want = whole.reshape(-1, hd, whole.shape[1])[a, c * dv:
+                                                         (c + 1) * dv]
+        ok = ok and torch.equal(p.to_local(), want)
+    cache = plan.init_cache(BATCH, SERVE_SEQ, device="cpu")
+    shapes = [list(v["C"].shape) for v in cache.values() if "C" in v]
+    out = serve_dispatches(ctx, "xl", MLSTM_MESH, BATCH, MLSTM_SERVE, shd)
+    ctx.save("mlstm_1x8_serve", layout=ctx.gather(torch.tensor(ok)),
+             groups=np.array([g, r]),
+             C_shape=ctx.gather(torch.tensor(shapes[0])), **out)
 
 
 # the serving dispatches on a mesh (test_torch_mesh_serve.py): prompts of

@@ -442,6 +442,30 @@ def test_cuda_simt_route_matches_plain(cuda, dtype, d, chunk):
         np.testing.assert_allclose(N(a), N(w), **SEQ, err_msg=name)
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,b,h,s,dk,dv,chunk,route", [
+    ("bfloat16", 4, 1, 2048, 256, 64, 256, "mlstm_chunk_wgmma"),
+    ("bfloat16", 2, 2, 300, 256, 256, 256, "mlstm_chunk_wgmma"),
+    ("float32", 2, 2, 300, 32, 16, 128, "mlstm_chunk_simt"),
+    ("bfloat16", 1, 2, 150, 48, 80, 64, "mlstm_chunk_simt")])
+def test_cuda_kernel_without_final_state_matches_plain(cuda, dtype, b, h, s,
+                                                       dk, dv, chunk, route):
+    """On the card: with no final state asked for, each route skips the
+    last chunk's state update and its h still equals the plain version's
+    (from a carried state), at one rank's share of xlstm-350m's heads on
+    16 ranks (Dv 64), a short last chunk, and CUDA-core shapes."""
+    arrs = _inputs(s + dv, b, h, s, dk, dv)
+    tt = _t(arrs, getattr(torch, dtype), cuda)
+    state = _cuda_state("carried", s + dk, b, h, dk, dv, cuda)
+    kw = dict(chunk=chunk, scale=dk ** -0.5, state=state)
+    tmk.reset_launch_counts()
+    h_k = tmk.mlstm_chunk_kernel(*tt, **kw)
+    assert tmk.LAUNCHES[route] == 1 and tmk.launches() == 1
+    h_p = tmk.mlstm_chunk_plain(*tt, **kw)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(N(h_k), N(h_p), **SEQ)
+
+
 # ---------------------------------------------------------------------------
 # MLSTMChunk: kernel #7 with a backward (training)
 # ---------------------------------------------------------------------------
