@@ -2485,6 +2485,21 @@ def random_map(seed, dev, density=0.5, shape=PREFILL):
     return ak.union_block_map_gqa(*ak.build_block_map(bm), hq // hkv, nq)
 
 
+def timing_sets(inputs, shape, seed, dev):
+    """The N_PREFILL_SETS input sets (> L2) that #4-#6 are timed over, as
+    the path calls them: (q, k, v), #5's (q, k, map) and #6's (q, k, v,
+    map, row max), and the maps, from ``inputs(seed + i, dev)`` and
+    ``random_map(seed + i, ...)``."""
+    from repro_torch.kernels.a3_attention import kernel as ak
+    sets = [inputs(seed + i, dev) for i in range(N_PREFILL_SETS)]
+    maps = [random_map(seed + i, dev, shape=shape)
+            for i in range(N_PREFILL_SETS)]
+    rsets = [(x[0], x[1], *m) for x, m in zip(sets, maps)]
+    asets = [(*x, *m, ak.sparse_rowmax(*r))
+             for x, m, r in zip(sets, maps, rsets)]
+    return sets, rsets, asets, maps
+
+
 def flash_pairs(sq, sk, causal=True, window=None):
     """Query-key pairs one head's mask admits (prefill offset sk - sq)."""
     import numpy as np
@@ -2604,8 +2619,8 @@ def phase_prefill_kernels(dev):
     sync(dev)
 
     # timed: each over 4 input sets (> L2), as the path calls it
-    sets = [prefill_inputs(200 + i, dev) for i in range(N_PREFILL_SETS)]
-    maps = [random_map(200 + i, dev) for i in range(N_PREFILL_SETS)]
+    sets, rsets, asets, maps = timing_sets(prefill_inputs, PREFILL, 200,
+                                           dev)
     b, hq, s = (PREFILL[x] for x in ("b", "hq", "s"))
     res = {}
     def sdpa(*x):
@@ -2620,8 +2635,7 @@ def phase_prefill_kernels(dev):
         device_ms=device_ms(lambda *x: fk.flash_attention(*x), sets, 50,
                             True),
         library_device_ms=device_ms(sdpa, sets, 50))
-    rsets = [(x[0], x[1], *m) for x, m in zip(sets, maps)]
-    rms = [ak.sparse_rowmax(*a) for a in rsets]
+    rms = [a[-1] for a in asets]
     need, bounds = prefill_bounds(sets, maps, rms, PREFILL)
     res["rowmax"] = dict(
         ms=cuda_ms(lambda *x: ak.sparse_rowmax(*x), rsets, 50),
@@ -2629,7 +2643,6 @@ def phase_prefill_kernels(dev):
         library_ms=None, bound=bounds["rowmax"],
         device_ms=device_ms(lambda *x: ak.sparse_rowmax(*x), rsets, 50,
                             True))
-    asets = [(x[0], x[1], x[2], *m, rm) for x, m, rm in zip(sets, maps, rms)]
     res["attend"] = dict(
         ms=cuda_ms(lambda *x: ak.sparse_attend(*x, threshold=T_CONS), asets,
                    50),
@@ -2666,10 +2679,11 @@ def phase_prefill_kernels(dev):
     return errs, res
 
 
-def prefill_nan_check(q, k, v, idx, cnt):
+def prefill_nan_check(q, k, v, idx, cnt, bf16_simt=False):
     """#4, #5 and #6 against their plain versions on a NaN key (key 200
     of every kv head, V finite), bf16 (the tensor-core routes) and
-    float32 (the CUDA-core routes): #5's row max is NaN for every query
+    float32 (the CUDA-core routes), and with ``bf16_simt`` #5 and #6 in
+    bf16 on the CUDA-core route too: #5's row max is NaN for every query
     that admits the key, as ``jnp.maximum`` makes it in the Pallas
     kernel, so #6 keeps nothing of those rows under a threshold (zero
     rows) and NaN without one; #4's running max takes the NaN score too.
@@ -2681,48 +2695,62 @@ def prefill_nan_check(q, k, v, idx, cnt):
     k = k.clone()
     k[:, :, 200] = float("nan")
     worst = 0.0
-    for dtype in ("bf16", "f32"):
+    runs = [("bf16", None), ("f32", None)] + \
+        ([("bf16", "simt")] if bf16_simt else [])
+    for dtype, route in runs:
         qq, kk, vv = (q, k, v) if dtype == "bf16" else \
             (q.float(), k.float(), v.float())
-        for window in (None, 512):
+        what = dtype if route is None else f"{dtype}, route={route}"
+        for window in ((None, 512) if route is None else ()):
             worst = max(worst, nan_rows_check(
                 fk.flash_attention(qq, kk, vv, window=window),
                 fk.flash_attention_plain(qq, kk, vv, window=window),
                 f"#4 on a NaN key ({dtype}, window={window})"))
-        rm = ak.sparse_rowmax(qq, kk, idx, cnt)
+        rm = ak.sparse_rowmax(qq, kk, idx, cnt, route=route)
         want_rm = ak.sparse_rowmax_plain(qq, kk, idx, cnt)
         worst = max(worst, nan_rows_check(rm[..., None], want_rm[..., None],
-                                          f"#5 on a NaN key ({dtype})"))
+                                          f"#5 on a NaN key ({what})"))
         check(bool(torch.isnan(want_rm).any()),
               "no query admitted the NaN key")
         for thr in (None, T_CONS):
             worst = max(worst, nan_rows_check(
-                ak.sparse_attend(qq, kk, vv, idx, cnt, rm, threshold=thr),
+                ak.sparse_attend(qq, kk, vv, idx, cnt, rm, threshold=thr,
+                                 route=route),
                 ak.sparse_attend_plain(qq, kk, vv, idx, cnt, want_rm,
                                        threshold=thr),
-                f"#6 on a NaN key ({dtype}, thr={thr})"))
-    log(f"  #4-#6 on a NaN key (bf16 and f32): the NaN rows (#4, #5, #6 "
-        f"without threshold) and zero rows (#6 at {T_CONS}) are the plain "
-        f"versions', the other rows within {worst:.3g}")
+                f"#6 on a NaN key ({what}, thr={thr})"))
+    also = ", #5/#6 in bf16 on the CUDA cores" if bf16_simt else ""
+    log(f"  #4-#6 on a NaN key (bf16 and f32{also}): the NaN rows (#4, #5, "
+        f"#6 without threshold) and zero rows (#6 at {T_CONS}) are the "
+        f"plain versions', the other rows within {worst:.3g}")
 
 
-def threshold_zero_check(q, k, v, idx, cnt):
+def threshold_zero_check(q, k, v, idx, cnt, bf16_simt=False):
     """At threshold 0 the attend pass keeps exactly the entries equal to
     the row-max pass's maximum, so every row that admits an entry must
     return a non-zero row (V at its argmax), in bf16 (the tensor-core
-    pair) and float32 (the CUDA-core pair)."""
+    pair, through ``a3_sparse_attention``), float32 (the CUDA-core pair)
+    and, with ``bf16_simt``, bf16 on the CUDA-core pair."""
     from repro_torch.kernels.a3_attention import kernel as ak
     b, hq, sq, _ = q.shape
     admits = (ak.sparse_rowmax_plain(q, k, idx, cnt) > ak.NEG_INF)
     admits = admits.reshape(b, hq, sq)
-    for dtype in ("bf16", "f32"):
+    runs = [("bf16", None), ("f32", None)] + \
+        ([("bf16", "simt")] if bf16_simt else [])
+    for dtype, route in runs:
         qq, kk, vv = (q, k, v) if dtype == "bf16" else \
             (q.float(), k.float(), v.float())
-        out = ak.a3_sparse_attention(qq, kk, vv, idx, cnt, threshold=0.0)
+        if route is None:
+            out = ak.a3_sparse_attention(qq, kk, vv, idx, cnt, threshold=0.0)
+        else:
+            rm = ak.sparse_rowmax(qq, kk, idx, cnt, route=route)
+            out = ak.sparse_attend(qq, kk, vv, idx, cnt, rm, threshold=0.0,
+                                   route=route)
+        what = dtype if route is None else f"{dtype}, route={route}"
         lost = int(((out == 0).all(-1) & admits).sum())
-        check(lost == 0, f"threshold 0 ({dtype}): {lost} of "
+        check(lost == 0, f"threshold 0 ({what}): {lost} of "
                          f"{int(admits.sum())} admitting rows came back 0")
-        log(f"  threshold 0 ({dtype}): all {int(admits.sum())} admitting "
+        log(f"  threshold 0 ({what}): all {int(admits.sum())} admitting "
             f"rows keep their maximum (non-zero output)")
 
 
@@ -2887,28 +2915,55 @@ def phase_prefill_cpu(dev):
 GEMMA = dict(b=1, hq=8, hkv=4, s=2048, d=256)     # gemma3-4b's attention
 
 
+def head_dim_256_inputs(seed, dev):
+    """bf16 q [1,8,2048,256], k/v [1,4,2048,256] from a seed."""
+    import torch
+    b, hq, hkv, s, d = (GEMMA[x] for x in ("b", "hq", "hkv", "s", "d"))
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return tuple(torch.randn(sh, generator=g, device=dev).bfloat16()
+                 for sh in ((b, hq, s, d), (b, hkv, s, d), (b, hkv, s, d)))
+
+
+def plain_a3_attention(q, k, v, a3):
+    """What the public ``a3_attention`` computes (causal), on its
+    kernels' plain versions and the same tensors: #4's for mode off,
+    else the op's own block map and the plain pair (#6 given the plain
+    row max)."""
+    from repro_torch.config import A3Mode
+    from repro_torch.kernels.a3_attention import kernel as ak
+    from repro_torch.kernels.a3_attention import ops as aops
+    from repro_torch.kernels.flash_attention import kernel as fk
+    if a3.mode == A3Mode.OFF:
+        return fk.flash_attention_plain(q, k, v, causal=True)
+    idx, cnt = aops.candidate_block_map_for_heads(q, k, a3)
+    kw = dict(causal=True, block_q=a3.block_q, block_k=a3.block_k)
+    rm = ak.sparse_rowmax_plain(q, k, idx, cnt, **kw)
+    return ak.sparse_attend_plain(q, k, v, idx, cnt, rm,
+                                  threshold=a3.threshold_nats, **kw)
+
+
 def phase_head_dim_256(dev):
     """[7](d): kernels #4-#6 at gemma3-4b's attention width (head dim
-    256, which the tensor-core routes do not take) in bf16 and float32,
-    causal and with a 1024 window, against their plain versions, every
-    call on a CUDA-core route; then, bf16 causal over 4 input sets (64 MB
-    > L2), each kernel's time, #4 beside SDPA's at the same shape."""
+    256) in bf16 (the tensor-core routes, 64-key kv tiles) and float32
+    (the CUDA-core routes), causal and with a 1024 window, against their
+    plain versions, and #5/#6 in bf16 on the CUDA-core route; threshold 0
+    and NaN keys on the three pairs; the public
+    ``a3_attention`` (off, conservative) against its plain version, its
+    launches counted; then, bf16 causal over 4 input sets (64 MB > L2),
+    each kernel's device time beside its bound and beside the CUDA-core
+    route's at the same shape (``route="simt"`` for #5/#6, float32 for
+    #4: what these calls ran on before the tensor-core tiles), #4 beside
+    SDPA. Returns each kernel's figures for the result line."""
     import torch
     import torch.nn.functional as F
+    from repro_torch.config import A3Config
     from repro_torch.kernels.a3_attention import kernel as ak
+    from repro_torch.kernels.a3_attention import ops as aops
     from repro_torch.kernels.flash_attention import kernel as fk
-    b, hq, hkv, s, d = (GEMMA[x] for x in ("b", "hq", "hkv", "s", "d"))
-
-    def qkv(seed):
-        g = torch.Generator(device=dev).manual_seed(seed)
-        return tuple(torch.randn(sh, generator=g, device=dev).bfloat16()
-                     for sh in ((b, hq, s, d), (b, hkv, s, d),
-                                (b, hkv, s, d)))
-
-    q, k, v = qkv(400)
+    q, k, v = head_dim_256_inputs(400, dev)
     idx, cnt = random_map(400, dev, shape=GEMMA)
     errs = {"flash": 0.0, "rowmax": 0.0, "attend": 0.0}
-    for dtype in ("bf16", "f32"):
+    for dtype, route in (("bf16", "wgmma"), ("f32", "simt")):
         qq, kk, vv = (q, k, v) if dtype == "bf16" else \
             (q.float(), k.float(), v.float())
         for window in (None, 1024):
@@ -2932,49 +2987,123 @@ def phase_head_dim_256(dev):
                       f"disagrees with its plain version: {e}")
                 errs[name] = max(errs[name], e)
             routes = {**fk.LAUNCHES, **ak.LAUNCHES}
-            want = {name: int(name.endswith("_simt")) for name in routes}
+            want = {name: int(name.endswith(f"_{route}")) for name in routes}
             check(routes == want, f"head dim 256 ({dtype}) took {routes}, "
-                                  f"expected the CUDA-core routes")
-    log(f"  #4-#6 at head dim 256 vs plain (bf16 and f32, causal and "
-        f"window 1024, t={T_CONS}): max_abs_err flash {errs['flash']:.3g}, "
-        f"rowmax {errs['rowmax']:.3g}, attend {errs['attend']:.3g}; every "
-        f"call on its CUDA-core route")
+                                  f"expected {want}")
+    log(f"  #4-#6 at head dim 256 vs plain (bf16 on the tensor-core routes,"
+        f" f32 on the CUDA-core ones; causal and window 1024, t={T_CONS}): "
+        f"max_abs_err flash {errs['flash']:.3g}, rowmax "
+        f"{errs['rowmax']:.3g}, attend {errs['attend']:.3g}")
+    # bf16 #5/#6 on the CUDA cores, where 64-row blocks or unaligned
+    # inputs send them at this width
+    ak.reset_launch_counts()
+    simt_errs = {"rowmax": 0.0, "attend": 0.0}
+    for window in (None, 1024):
+        rm = ak.sparse_rowmax(q, k, idx, cnt, window=window, route="simt")
+        got = {"rowmax": (rm, ak.sparse_rowmax_plain(q, k, idx, cnt,
+                                                     window=window)),
+               "attend": (ak.sparse_attend(q, k, v, idx, cnt, rm,
+                                           threshold=T_CONS, window=window,
+                                           route="simt"),
+                          ak.sparse_attend_plain(q, k, v, idx, cnt, rm,
+                                                 threshold=T_CONS,
+                                                 window=window))}
+        for name, (out, want) in got.items():
+            e, ok = max_err(out, want)
+            check(ok and out.shape == want.shape,
+                  f"{name} at head dim 256 (bf16, route=simt, window "
+                  f"{window}) disagrees with its plain version: {e}")
+            simt_errs[name] = max(simt_errs[name], e)
+    want = {n: 2 * n.endswith("_simt") for n in ak.LAUNCHES}
+    check(ak.LAUNCHES == want, f"bf16 route=simt at head dim 256 took "
+                               f"{ak.LAUNCHES}, expected {want}")
+    log(f"  #5/#6 at head dim 256, bf16 on the CUDA-core route, vs plain "
+        f"(causal and window 1024, t={T_CONS}): max_abs_err rowmax "
+        f"{simt_errs['rowmax']:.3g}, attend {simt_errs['attend']:.3g}")
+    threshold_zero_check(q, k, v, idx, cnt, bf16_simt=True)
+    prefill_nan_check(q, k, v, idx, cnt, bf16_simt=True)
 
-    sets = [qkv(410 + i) for i in range(4)]
-    maps = [random_map(410 + i, dev, shape=GEMMA) for i in range(4)]
-    rsets = [(x[0], x[1], *m) for x, m in zip(sets, maps)]
-    asets = [(*x, *m, ak.sparse_rowmax(*r))
-             for x, m, r in zip(sets, maps, rsets)]
+    launches = {}
+    for mode, a3 in (("off", A3Config()),
+                     ("conservative", A3Config.conservative())):
+        want_out = plain_a3_attention(q, k, v, a3)
+        fk.reset_launch_counts()
+        ak.reset_launch_counts()
+        out = aops.a3_attention(q, k, v, a3)
+        sync(dev)
+        launches[mode] = {n: c for n, c in {**fk.LAUNCHES,
+                                            **ak.LAUNCHES}.items() if c}
+        e, ok = max_err(out, want_out)
+        check(ok and out.shape == q.shape[:3] + (v.shape[3],),
+              f"a3_attention at head dim 256 (a3={mode}) disagrees with its "
+              f"plain version: {e}")
+        want = ({"flash_attention_wgmma": 1} if mode == "off" else
+                {"a3_sparse_rowmax_wgmma": 1, "a3_sparse_attend_wgmma": 1})
+        check(launches[mode] == want,
+              f"a3_attention at head dim 256 (a3={mode}) launched "
+              f"{launches[mode]}, expected {want}")
+        log(f"  a3_attention at head dim 256, bf16 a3={mode}: vs its plain "
+            f"version max_abs_err {e:.3g}; launches {launches[mode]}")
+
+    sets, rsets, asets, maps = timing_sets(head_dim_256_inputs, GEMMA, 410,
+                                           dev)
+    fsets = [tuple(t.float() for t in x) for x in sets]
 
     def sdpa(*x):
         return F.scaled_dot_product_attention(*x, is_causal=True,
                                               enable_gqa=True)
 
+    def timed(fn, args, iters):
+        return (cuda_ms(fn, args, iters), device_ms(fn, args, iters, True))
+
+    def rowmax(route):
+        return lambda *x: ak.sparse_rowmax(*x, route=route)
+
+    def attend(route):
+        return lambda *x: ak.sparse_attend(*x, threshold=T_CONS, route=route)
+
     res = {
-        "flash": (cuda_ms(lambda *x: fk.flash_attention(*x), sets, 10),
-                  device_ms(lambda *x: fk.flash_attention(*x), sets, 10,
-                            True)),
-        "SDPA": (cuda_ms(sdpa, sets, 20), device_ms(sdpa, sets, 20)),
-        "rowmax": (cuda_ms(lambda *x: ak.sparse_rowmax(*x), rsets, 10),
-                   device_ms(lambda *x: ak.sparse_rowmax(*x), rsets, 10,
-                             True)),
-        "attend": (cuda_ms(lambda *x: ak.sparse_attend(
-            *x, threshold=T_CONS), asets, 10), device_ms(
-            lambda *x: ak.sparse_attend(*x, threshold=T_CONS), asets, 10,
-            True)),
+        "flash": timed(lambda *x: fk.flash_attention(*x), sets, 50),
+        "rowmax": timed(rowmax("wgmma"), rsets, 50),
+        "attend": timed(attend("wgmma"), asets, 50),
     }
-    log("  at head dim 256, bf16 causal (density-0.5 maps for #5/#6): "
-        + "; ".join(f"{n} {ms:.4f} ms by events, {fmt_ms(dms)} device"
-                    for n, (ms, dms) in res.items()) + f" [{CARD}]")
+    before = {
+        "flash": timed(lambda *x: fk.flash_attention(*x), fsets, 10),
+        "rowmax": timed(rowmax("simt"), rsets, 10),
+        "attend": timed(attend("simt"), asets, 10),
+    }
+    lib_ms, lib_dev = cuda_ms(sdpa, sets, 50), device_ms(sdpa, sets, 50)
     _, bounds = prefill_bounds(sets, maps, [a[-1] for a in asets], GEMMA)
     bounds["flash"] = flash_bound(GEMMA)
-    log("  bounds at head dim 256 (as [7a] computes them): "
-        + "; ".join(f"{n} {bounds[n][0]:.4f} ms ({bounds[n][1]}), device "
-                    f"{fmt_ms(res[n][1])} = "
-                    + ("not measured" if res[n][1] is None
-                       else f"{res[n][1] / bounds[n][0]:.1f}x")
-                    for n in ("flash", "rowmax", "attend")) + f" [{CARD}]")
-    return res
+    for n, label in (("flash", "#4"), ("rowmax", "#5"), ("attend", "#6")):
+        (ms, dms), (bms, bdms) = res[n], before[n]
+        ratio = "not measured" if dms is None else \
+            f"{dms / bounds[n][0]:.1f}x"
+        was = "float32" if n == "flash" else 'route="simt"'
+        log(f"  {label} at head dim 256, bf16 causal: tensor cores "
+            f"{ms:.4f} ms by events, {fmt_ms(dms)} device = {ratio} its "
+            f"bound {bounds[n][0]:.4f} ms ({bounds[n][1]}); CUDA-core "
+            f"route ({was}) {bms:.4f} ms by events, {fmt_ms(bdms)} device "
+            f"[{CARD}]")
+    if lib_dev is not None and lib_dev < bounds["flash"][0]:
+        sdpa_dev = (f"{lib_dev:.4f} ms device, below #4's bound "
+                    f"{bounds['flash'][0]:.4f} ms: the trace does not hold "
+                    f"the whole call")
+    else:
+        sdpa_dev = f"{fmt_ms(lib_dev)} device"
+    log(f"  SDPA at head dim 256 (causal GQA): {lib_ms:.4f} ms by events, "
+        f"{sdpa_dev}; #4 / SDPA by events {res['flash'][0] / lib_ms:.2f}x "
+        f"[{CARD}]")
+    route = {"flash": "flash_attention_wgmma",
+             "rowmax": "a3_sparse_rowmax_wgmma",
+             "attend": "a3_sparse_attend_wgmma"}
+    return {n: {"ms": res[n][0], "device_ms": res[n][1],
+                "bound_ms": bounds[n][0], "bound_by": bounds[n][1],
+                "simt_device_ms": before[n][1], "max_abs_err": errs[n],
+                "library_ms": lib_ms if n == "flash" else None,
+                "op_launches": sum(c.get(route[n], 0)
+                                   for c in launches.values())}
+            for n in res}
 
 
 # ---------------------------------------------------------------------------
@@ -5608,7 +5737,7 @@ def main() -> int:
     phase_prefill_cpu(dev)
     log("[7d] kernels #4-#6 at gemma3-4b's attention width (B=1, Hq=8, "
         "Hkv=4, S=2048, D=256)")
-    phase_head_dim_256(dev)
+    d256 = phase_head_dim_256(dev)
     took("7", t7)
     log("[8] xLSTM: chunkwise mLSTM kernel #7 at xlstm-350m width (B=4, "
         "H=4, S=2048, D=256, bf16 streams), xlstm-350m serving, TINY_XL")
@@ -5732,6 +5861,7 @@ def main() -> int:
                      "library_ms": r["library_ms"]})
         if "device_ms" in r:
             rows[-1]["device_ms"] = r["device_ms"]
+        rows[-1]["head_dim_256"] = d256[key]
     rows.append({"name": "mlstm_chunk", "route": "cuda",
                  "source": "src/repro_torch/csrc/mlstm_chunk.cu",
                  "replaces": "src/repro/kernels/mlstm_chunk/kernel.py:34",

@@ -24,11 +24,13 @@
 // pair; at the prefill shape (S=2048, 24/8 heads, D=128, bf16) and a
 // half-dense map that is ~6-7 GFLOP per pass, a few microseconds of
 // tensor-core time, over ~13-30 MB of q/k/v/out: bound by operations.
+// At gemma3-4b's width (Hq=8, Hkv=4, D = Dv = 256) chip_smoke.py [7d]
+// puts the bounds at 6.5 us (#5) and 9.3 us (#6), by operations too.
 //
 // The wrapper picks one route for both passes before the launch
 // (sparse_route), so the row max and the weights sum q.k in one order:
 //
-//   a3_sparse_rowmax_wgmma,  bf16, D and Dv multiples of 16 up to 128,
+//   a3_sparse_rowmax_wgmma,  bf16, D and Dv multiples of 16 up to 256,
 //   a3_sparse_attend_wgmma   block_q = block_k = 128, 16-byte aligned:
 //                            the tensor-core kernels (rowmax_wgmma_kernel,
 //                            attend_wgmma_kernel)
@@ -42,18 +44,29 @@
 // and compacts the CTA's live list once while Q lands (dead ids and
 // blocks wholly above the diagonal or outside the window dropped;
 // start_q_and_live_list) and streams only those tiles through a ring.
-// Both score with the same issue_s, so a score and the row max it is held
-// against are the same float, and threshold 0 keeps each row's maximum.
-// attend_wgmma_kernel streams K and V through the 3-stage ring; the row
-// max comes from pass 1, so the weights need no online rescale of O:
-// p = exp(s - rowmax) for the kept entries, the per-element mask only on
-// tiles that cross the diagonal or the window edge, P rounded to bf16 for
-// P.V, as #4 does. rowmax_wgmma_kernel streams only K, through its own
-// kRowmaxStages-deep ring, takes the tiles in pairs on two accumulator
-// sets (S_{j+1} runs while S_j is reduced) and keeps a running max per
-// row in registers: no exp, no P.V, no l. The GQA group is not folded
-// into the rows: the heads of a group read the same K/V tiles, which L2
-// serves.
+// Both score with the same issue_s on the same kv tile, so a score and
+// the row max it is held against are the same float, and threshold 0
+// keeps each row's maximum. The tile is #4's: 128 keys up to D, Dv = 128;
+// above, 64 keys (a live 128-key block is two tiles, the list holds tile
+// ids and drops dead halves), and #5 takes Dv from the wrapper so that
+// it picks #6's tile. attend_wgmma_kernel streams K and V through #4's
+// ring (3 stages of 128-key tiles, or 2 of 64-key tiles with K and V
+// freed apart: 192 KB with Q at D = Dv = 256; O 128 registers a thread,
+// S 32, P 16); the row max comes from pass 1, so the weights need no
+// online rescale of O: p = exp(s - rowmax) for the kept entries, the
+// per-element mask only on tiles that cross the diagonal or the window
+// edge, P rounded to bf16 for P.V, as #4 does. rowmax_wgmma_kernel
+// streams only K, through its own ring (3 stages of 128-key tiles, 4 of
+// 64-key ones: 192 KB with Q at D = 256), takes the tiles in pairs on two
+// accumulator sets (S_{j+1} runs while S_j is reduced) and keeps a
+// running max per row in registers: no exp, no P.V, no l. The GQA group
+// is not folded into the rows: the heads of a group read the same K/V
+// tiles, which L2 serves. As for #4, one CTA an SM and a causal grid make
+// the heaviest q block's chain of live tiles set the time. ptxas
+// serialises attend_wgmma_kernel's wgmma (C7514) because of the branch
+// between sparse_weights<true> and <false>; a branch-free mask lifted that
+// at D = 256 on an H100 but left #6's time where it was, so the branch
+// stays.
 //
 // The CUDA-core kernels are the simple design on attention_tile.cuh: a
 // CUDA block reads its own kv_indices row and count (this replaces scalar
@@ -241,21 +254,21 @@ attend_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // the tensor-core route of the attend kernel (bf16, 128 x 128 blocks)
 // ---------------------------------------------------------------------------
 
-// Weights of one 64 x 128 score tile held in wgmma accumulator registers
-// (element i of a lane at row row_a + 8 * ((i >> 1) & 1) of the
-// warpgroup, column c0 + 8 * (i >> 2) + 2 * (lane % 4) + (i & 1)): raw
-// q.k in, p = exp(s - rowmax) out for the kept entries (admitted and
-// s >= rowmax - thr, i.e. s >= cut), 0 for the rest; rm2 is the row max
-// in the log2 domain; l_a / l_b gather the lane's share of its two rows'
-// sums. MASK applies the causal / window mask per element (only tiles
-// that cross an edge).
-template <bool MASK>
+// Weights of one 64 x KEYS score tile held in wgmma accumulator registers
+// (NS = KEYS / 2 a lane; element i of a lane at row row_a + 8 * ((i >> 1)
+// & 1) of the warpgroup, column c0 + 8 * (i >> 2) + 2 * (lane % 4) +
+// (i & 1)): raw q.k in, p = exp(s - rowmax) out for the kept entries
+// (admitted and s >= rowmax - thr, i.e. s >= cut), 0 for the rest; rm2 is
+// the row max in the log2 domain; l_a / l_b gather the lane's share of
+// its two rows' sums. MASK applies the causal / window mask per element
+// (only tiles that cross an edge).
+template <bool MASK, int NS>
 __device__ __forceinline__ void sparse_weights(
-    float (&sc)[64], float cut_a, float cut_b, float rm2_a, float rm2_b,
+    float (&sc)[NS], float cut_a, float cut_b, float rm2_a, float rm2_b,
     float& l_a, float& l_b, float scale, int c0, int lane, int pos_a,
     int causal, int has_window, int window) {
 #pragma unroll
-  for (int i = 0; i < 64; ++i) {
+  for (int i = 0; i < NS; ++i) {
     const float s = sc[i] * scale;
     bool keep = s >= ((i & 2) ? cut_b : cut_a);
     if (MASK) {
@@ -275,11 +288,13 @@ __device__ __forceinline__ void sparse_weights(
 // The producer's prologue of both tensor-core kernels, run by its one
 // issuing lane: start the TMA load of the CTA's 128 Q rows (NB boxes per
 // consumer warpgroup) into q_s, and while they land compact the CTA's
-// live list into tiles[] — ids outside [0, Sk / 128) are dead, and so are
-// blocks wholly above the causal diagonal or left of the window for the
-// CTA's rows [first, last] — then publish its length in *n_tiles and
-// release both on list_full. Returns the length.
-template <int NB>
+// live list into tiles[]: the ids of its KEYS-key tiles (the block id
+// itself at KEYS = 128, two tiles a block at 64) — block ids outside
+// [0, Sk / 128) are dead, and so are tiles wholly above the causal
+// diagonal or left of the window for the CTA's rows [first, last] — then
+// publish its length in *n_tiles and release both on list_full. Returns
+// the length.
+template <int NB, int KEYS>
 __device__ int start_q_and_live_list(
     const CUtensorMap* qmap, unsigned char* q_s, uint64_t* q_full, int q0,
     int bh, const int* __restrict__ kv_idx, const int* __restrict__ kv_cnt,
@@ -298,10 +313,20 @@ __device__ int start_q_and_live_list(
   for (int c = 0; c < count; ++c) {
     const int jk = kv_idx[map * maxb + c];
     if (jk < 0 || jk >= nk) continue;
-    const int c0 = jk * kKeys;
-    if (causal && c0 > last) continue;
-    if (has_window && c0 + kKeys - 1 <= first - window) continue;
-    tiles[ntiles++] = jk;
+    if constexpr (KEYS == kBlock) {
+      const int c0 = jk * kBlock;
+      if (causal && c0 > last) continue;
+      if (has_window && c0 + kBlock - 1 <= first - window) continue;
+      tiles[ntiles++] = jk;
+    } else {
+      constexpr int per = kBlock / KEYS;
+      for (int t = jk * per; t < (jk + 1) * per; ++t) {
+        const int c0 = t * KEYS;
+        if (causal && c0 > last) continue;
+        if (has_window && c0 + KEYS - 1 <= first - window) continue;
+        tiles[ntiles++] = t;
+      }
+    }
   }
   *n_tiles = ntiles;
   mbar_arrive(list_full);                             // release: list written
@@ -309,10 +334,13 @@ __device__ int start_q_and_live_list(
 }
 
 // Shared memory of attend_wgmma_kernel: flash_wgmma_kernel's (Q, the K/V
-// ring, barriers), then the live list's barrier, the CTA's visited block
-// ids and their count.
-size_t attend_wg_smem_bytes(int nb, int nvb, int maxb) {
-  return wgattn::wg_smem_bytes(nb, nvb) + 8 + 4 * ((size_t)maxb + 1);
+// ring, barriers), then the live list's barrier, the ids of the CTA's
+// visited tiles and their count.
+template <int NB, int NVB>
+size_t attend_wg_smem_bytes(int maxb) {
+  constexpr int per = wgattn::kBlock / wgattn::KvTile<NB, NVB>::kKeys;
+  return wgattn::wg_smem_bytes<NB, NVB>() + 8 +
+         4 * ((size_t)maxb * per + 1);
 }
 
 template <int NB, int NVB>
@@ -328,11 +356,13 @@ attend_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                     int has_window, int window, int has_thr, float thr) {
   using namespace hopper;
   using namespace wgattn;
+  using T = KvTile<NB, NVB>;
+  constexpr int kKeys = T::kKeys, kStages = T::kStages;
   extern __shared__ __align__(1024) unsigned char wg_raw[];
-  const WgSmem sm = wg_carve(wg_raw, NB, NVB);
-  uint64_t* list_full = sm.empty + kStages;
-  int* tiles = reinterpret_cast<int*>(list_full + 1);      // [maxb]
-  int* n_tiles = tiles + maxb;
+  const WgSmem sm = wg_carve<NB, NVB>(wg_raw);
+  uint64_t* list_full = sm.end;
+  int* tiles = reinterpret_cast<int*>(list_full + 1);  // [maxb * 128 / kKeys]
+  int* n_tiles = tiles + maxb * (kBlock / kKeys);
   const int bh = blockIdx.x;                          // b * Hq + h
   const int b = bh / Hq, h = bh % Hq;
   const int bkv = b * Hkv + h / (Hq / Hkv);
@@ -348,6 +378,7 @@ attend_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
       mbar_init(sm.k_full + s, 1);
       mbar_init(sm.v_full + s, 1);
       mbar_init(sm.empty + s, 8);                     // one per consumer warp
+      if (T::kWide) mbar_init(sm.v_empty + s, 8);
     }
     mbar_init(list_full, 1);
     fence_barrier_init();
@@ -358,21 +389,23 @@ attend_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
     // producer warpgroup, as in flash_wgmma_kernel, over the live list
     setmaxnreg_dec<24>();
     if (threadIdx.x == 256) {
-      const int ntiles = start_q_and_live_list<NB>(
+      const int ntiles = start_q_and_live_list<NB, kKeys>(
           &qmap, sm.q, sm.q_full, q0, bh, kv_idx, kv_cnt,
-          (long long)bkv * nq + iq, maxb, Sk / kKeys, causal, has_window,
+          (long long)bkv * nq + iq, maxb, Sk / kBlock, causal, has_window,
           window, first, last, tiles, n_tiles, list_full);
       for (int j = 0; j < ntiles; ++j) {
         const int s = j % kStages;
-        if (j >= kStages) mbar_wait(sm.empty + s, ((j / kStages) & 1) ^ 1);
+        const uint32_t freed = ((j / kStages) & 1) ^ 1;
+        if (j >= kStages) mbar_wait(sm.empty + s, freed);
         const int c0 = tiles[j] * kKeys;
-        mbar_expect_tx(sm.k_full + s, NB * kKVBoxBytes);
+        mbar_expect_tx(sm.k_full + s, NB * T::kBoxBytes);
         for (int x = 0; x < NB; ++x)
-          tma_load_3d(sm.k + (s * NB + x) * kKVBoxBytes, &kmap,
+          tma_load_3d(sm.k + (s * NB + x) * T::kBoxBytes, &kmap,
                       sm.k_full + s, x * kBox, c0, bkv);
-        mbar_expect_tx(sm.v_full + s, NVB * kKVBoxBytes);
+        if (T::kWide && j >= kStages) mbar_wait(sm.v_empty + s, freed);
+        mbar_expect_tx(sm.v_full + s, NVB * T::kBoxBytes);
         for (int x = 0; x < NVB; ++x)
-          tma_load_3d(sm.v + (s * NVB + x) * kKVBoxBytes, &vmap,
+          tma_load_3d(sm.v + (s * NVB + x) * T::kBoxBytes, &vmap,
                       sm.v_full + s, x * kBox, c0, bkv);
       }
     }
@@ -404,21 +437,21 @@ attend_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
   for (int i = 0; i < 32 * NVB; ++i) o[i] = 0.f;
   float l_a = 0.f, l_b = 0.f;
 
-  auto issue_qk = [&](float (&sc)[64], int j) {
+  auto issue_qk = [&](float (&sc)[T::kS], int j) {
     const int s = j % kStages;
     mbar_wait(sm.k_full + s, (j / kStages) & 1);
-    issue_s<NB>(sc, qw, sm.k + s * NB * kKVBoxBytes);
+    issue_s<NB, kKeys>(sc, qw, sm.k + s * NB * T::kBoxBytes);
   };
-  auto issue_pv = [&](uint32_t (&pa)[8][4], int j) {
+  auto issue_pv = [&](uint32_t (&pa)[T::kSteps][4], int j) {
     const int s = j % kStages;
-    const unsigned char* vs = sm.v + s * NVB * kKVBoxBytes;
+    const unsigned char* vs = sm.v + s * NVB * T::kBoxBytes;
     mbar_wait(sm.v_full + s, (j / kStages) & 1);
 #pragma unroll
-    for (int kk = 0; kk < 8; ++kk)
-      pv_mma<NVB>(o, pa[kk], sw128_desc(vs + kk * 2048, kKVBoxBytes, 1024));
+    for (int kk = 0; kk < T::kSteps; ++kk)
+      pv_mma<NVB, T::kBoxBytes>(o, pa[kk], vs + kk * 2048);
     wgmma_commit();
   };
-  auto weights = [&](float (&sc)[64], int j) {
+  auto weights = [&](float (&sc)[T::kS], int j) {
     const int c0 = tiles[j] * kKeys;
     const bool need_mask = (causal && c0 + kKeys - 1 > pos_first) ||
                            (has_window && c0 <= pos_last - window);
@@ -429,19 +462,12 @@ attend_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
       sparse_weights<false>(sc, cut_a, cut_b, rm2_a, rm2_b, l_a, l_b, scale,
                             c0, lane, pos_a, causal, has_window, window);
   };
-  auto to_bf16 = [](const float (&sc)[64], uint32_t (&pa)[8][4]) {
-#pragma unroll
-    for (int kk = 0; kk < 8; ++kk)
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-        pa[kk][r] = pack_bf16(sc[8 * kk + 2 * r], sc[8 * kk + 2 * r + 1]);
-  };
 
   // flash_wgmma_kernel's software pipeline without the rescale (the row
   // max is given): S_j and P_{j-1} V_{j-1} are issued together and the
   // weights of S_j are formed while the tensor cores finish the product.
-  float sc[64];
-  uint32_t pa[8][4];
+  float sc[T::kS];
+  uint32_t pa[T::kSteps][4];
   mbar_wait(sm.q_full, 0);
   if (ntiles > 0) {
     fence_regs(sc);
@@ -449,6 +475,7 @@ attend_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
     issue_qk(sc, 0);
     wgmma_wait<0>();
     fence_regs(sc);
+    if (T::kWide && lane == 0) mbar_arrive(sm.empty);
     weights(sc, 0);
     to_bf16(sc, pa);
   }
@@ -461,11 +488,12 @@ attend_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
     issue_pv(pa, j - 1);
     wgmma_wait<1>();                                  // S_j is ready
     fence_regs(sc);
+    if (T::kWide && lane == 0) mbar_arrive(sm.empty + j % kStages);
     weights(sc, j);
     wgmma_wait<0>();                                  // P_{j-1} V_{j-1} too
     fence_regs(o);
     fence_regs(pa);
-    if (lane == 0) mbar_arrive(sm.empty + (j - 1) % kStages);
+    if (lane == 0) mbar_arrive(sm.v_empty + (j - 1) % kStages);
     to_bf16(sc, pa);
   }
   if (ntiles > 0) {
@@ -507,12 +535,13 @@ int launch_attend_wgmma(const void* q, const void* k, const void* v,
                         int has_window, int window, int has_thr, float thr,
                         cudaStream_t stream) {
   using namespace wgattn;
+  constexpr int kKeys = KvTile<NB, NVB>::kKeys;
   CUtensorMap qmap, kmap, vmap;
   int e = hopper::make_map(&qmap, q, B * Hq, Sq, D, kWgRows);
   if (e == 0) e = hopper::make_map(&kmap, k, B * Hkv, Sk, D, kKeys);
   if (e == 0) e = hopper::make_map(&vmap, v, B * Hkv, Sk, Dv, kKeys);
   if (e != 0) return e;
-  const size_t smem = attend_wg_smem_bytes(NB, NVB, maxb);
+  const size_t smem = attend_wg_smem_bytes<NB, NVB>(maxb);
   e = prepare(attend_wgmma_kernel<NB, NVB>, smem);
   if (e != 0) return e;
   const dim3 grid(B * Hq, Sq / kQRows);
@@ -528,25 +557,32 @@ int launch_attend_wgmma(const void* q, const void* k, const void* v,
 // the tensor-core route of the row-max kernel (bf16, 128 x 128 blocks)
 // ---------------------------------------------------------------------------
 
-// Depth of rowmax_wgmma_kernel's K-only ring: a K tile is 16 KB per box
-// of D, so at D = 128 three stages and Q take 128 KB. On an H100 depths
-// 3 to 6 ran alike and 2 about 7% slower (tools/rowmax_ring_depth.py).
+// Depth of rowmax_wgmma_kernel's K-only ring: a 128-key K tile is 16 KB
+// per box of D, so at D = 128 three stages and Q take 128 KB. On an H100
+// depths 3 to 6 ran alike and 2 about 7% slower (tools/rowmax_ring_depth.py).
 constexpr int kRowmaxStages = 3;
+// With the 64-key tiles of D or Dv above 128, an 8 KB box: at D = 256 four
+// stages and Q take 192 KB.
+constexpr int kRowmaxWideStages = 4;
 
-// The running row max of one 64 x 128 score tile held in wgmma
-// accumulator registers (element i of a lane at row row_a + 8 * ((i >> 1)
-// & 1) of the warpgroup, column c0 + 8 * (i >> 2) + 2 * (lane % 4) +
-// (i & 1)): s = raw q.k * scale exactly as sparse_weights forms it, -1e30
-// where masked. MASK applies the causal / window mask per element (only
-// tiles that cross an edge).
-template <bool MASK>
-__device__ __forceinline__ void rowmax_tile(const float (&sc)[64],
+template <int KEYS>
+constexpr int kRowmaxStagesOf = KEYS == 128 ? kRowmaxStages
+                                            : kRowmaxWideStages;
+
+// The running row max of one 64 x KEYS score tile held in wgmma
+// accumulator registers (NS = KEYS / 2 a lane; element i of a lane at row
+// row_a + 8 * ((i >> 1) & 1) of the warpgroup, column c0 + 8 * (i >> 2) +
+// 2 * (lane % 4) + (i & 1)): s = raw q.k * scale exactly as sparse_weights
+// forms it, -1e30 where masked. MASK applies the causal / window mask per
+// element (only tiles that cross an edge).
+template <bool MASK, int NS>
+__device__ __forceinline__ void rowmax_tile(const float (&sc)[NS],
                                             float& m_a, float& m_b,
                                             float scale, int c0, int lane,
                                             int pos_a, int causal,
                                             int has_window, int window) {
 #pragma unroll
-  for (int i = 0; i < 64; ++i) {
+  for (int i = 0; i < NS; ++i) {
     float s = sc[i] * scale;
     if (MASK) {
       const int col = c0 + 8 * (i >> 2) + 2 * (lane & 3) + (i & 1);
@@ -559,16 +595,20 @@ __device__ __forceinline__ void rowmax_tile(const float (&sc)[64],
 }
 
 // Shared memory of rowmax_wgmma_kernel, boxes 1024-byte aligned: Q
-// [2 WGs][nb], K [kRowmaxStages][nb], then the barriers (Q, live list,
-// kRowmaxStages full and empty), the CTA's visited block ids and their
+// [2 WGs][NB], K [stages][NB], then the barriers (Q, live list, the
+// stages' full and empty), the ids of the CTA's visited tiles and their
 // count.
-size_t rowmax_wg_smem_bytes(int nb, int maxb) {
-  return 1024 + (size_t)2 * nb * wgattn::kQBoxBytes +
-         (size_t)kRowmaxStages * nb * wgattn::kKVBoxBytes +
-         8 * (2 + 2 * kRowmaxStages) + 4 * ((size_t)maxb + 1);
+template <int NB, int KEYS>
+size_t rowmax_wg_smem_bytes(int maxb) {
+  constexpr int st = kRowmaxStagesOf<KEYS>;
+  return 1024 + (size_t)2 * NB * wgattn::kQBoxBytes +
+         (size_t)st * NB * KEYS * wgattn::kBox * 2 + 8 * (2 + 2 * st) +
+         4 * ((size_t)maxb * (wgattn::kBlock / KEYS) + 1);
 }
 
-template <int NB>
+// KEYS is the kv tile of the attend kernel of the same call (64 where D
+// or Dv is above 128), so that both score with the same issue_s.
+template <int NB, int KEYS>
 __global__ void __launch_bounds__(wgattn::kWgThreads, 1)
 rowmax_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                     const __grid_constant__ CUtensorMap kmap,
@@ -579,17 +619,18 @@ rowmax_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                     int has_window, int window) {
   using namespace hopper;
   using namespace wgattn;
-  constexpr int ST = kRowmaxStages;
+  constexpr int ST = kRowmaxStagesOf<KEYS>;
+  constexpr int kBoxBytes = KEYS * kBox * 2;
   extern __shared__ __align__(1024) unsigned char wg_raw[];
   unsigned char* q_s = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(wg_raw) + 1023) & ~(uintptr_t)1023);
   unsigned char* k_s = q_s + 2 * NB * kQBoxBytes;
-  uint64_t* q_full = reinterpret_cast<uint64_t*>(k_s + ST * NB * kKVBoxBytes);
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(k_s + ST * NB * kBoxBytes);
   uint64_t* list_full = q_full + 1;
   uint64_t* k_full = q_full + 2;                      // [ST]
   uint64_t* empty = k_full + ST;                      // [ST]
-  int* tiles = reinterpret_cast<int*>(empty + ST);    // [maxb]
-  int* n_tiles = tiles + maxb;
+  int* tiles = reinterpret_cast<int*>(empty + ST);    // [maxb * 128 / KEYS]
+  int* n_tiles = tiles + maxb * (kBlock / KEYS);
   const int bh = blockIdx.x;                          // b * Hq + h
   const int b = bh / Hq, h = bh % Hq;
   const int bkv = b * Hkv + h / (Hq / Hkv);
@@ -614,18 +655,18 @@ rowmax_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
     // only the K tiles
     setmaxnreg_dec<24>();
     if (threadIdx.x == 256) {
-      const int ntiles = start_q_and_live_list<NB>(
+      const int ntiles = start_q_and_live_list<NB, KEYS>(
           &qmap, q_s, q_full, q0, bh, kv_idx, kv_cnt,
-          (long long)bkv * nq + iq, maxb, Sk / kKeys, causal, has_window,
+          (long long)bkv * nq + iq, maxb, Sk / kBlock, causal, has_window,
           window, q0 + off, q0 + kQRows - 1 + off, tiles, n_tiles,
           list_full);
       for (int j = 0; j < ntiles; ++j) {
         const int s = j % ST;
         if (j >= ST) mbar_wait(empty + s, ((j / ST) & 1) ^ 1);
-        mbar_expect_tx(k_full + s, NB * kKVBoxBytes);
+        mbar_expect_tx(k_full + s, NB * kBoxBytes);
         for (int x = 0; x < NB; ++x)
-          tma_load_3d(k_s + (s * NB + x) * kKVBoxBytes, &kmap, k_full + s,
-                      x * kBox, tiles[j] * kKeys, bkv);
+          tma_load_3d(k_s + (s * NB + x) * kBoxBytes, &kmap, k_full + s,
+                      x * kBox, tiles[j] * KEYS, bkv);
       }
     }
     return;
@@ -646,19 +687,19 @@ rowmax_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
   const int ntiles = *n_tiles;
   float m_a = kNegInf, m_b = kNegInf;
 
-  auto issue_qk = [&](float (&sc)[64], int j) {
+  auto issue_qk = [&](float (&sc)[KEYS / 2], int j) {
     const int s = j % ST;
     mbar_wait(k_full + s, (j / ST) & 1);
     fence_regs(sc);
     wgmma_fence();
-    issue_s<NB>(sc, qw, k_s + s * NB * kKVBoxBytes);
+    issue_s<NB, KEYS>(sc, qw, k_s + s * NB * kBoxBytes);
   };
   // tile j's stage is released as soon as S_j has read it
-  auto reduce = [&](float (&sc)[64], int j) {
+  auto reduce = [&](float (&sc)[KEYS / 2], int j) {
     fence_regs(sc);
     if (lane == 0) mbar_arrive(empty + j % ST);
-    const int c0 = tiles[j] * kKeys;
-    const bool need_mask = (causal && c0 + kKeys - 1 > pos_first) ||
+    const int c0 = tiles[j] * KEYS;
+    const bool need_mask = (causal && c0 + KEYS - 1 > pos_first) ||
                            (has_window && c0 <= pos_last - window);
     if (need_mask)
       rowmax_tile<true>(sc, m_a, m_b, scale, c0, lane, pos_a, causal,
@@ -671,7 +712,7 @@ rowmax_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
   // tensor cores while S_j is reduced. Each pair ends with nothing in
   // flight, so no wgmma crosses the loop's back edge (ptxas serialises
   // every wgmma of a kernel where one does).
-  float s0[64], s1[64];
+  float s0[KEYS / 2], s1[KEYS / 2];
   mbar_wait(q_full, 0);
   int j = 0;
   for (; j + 1 < ntiles; j += 2) {
@@ -700,7 +741,7 @@ rowmax_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
   }
 }
 
-template <int NB>
+template <int NB, int KEYS>
 int launch_rowmax_wgmma(const void* q, const void* k, const void* idx,
                         const void* cnt, void* rowmax, int B, int Hq,
                         int Hkv, int Sq, int Sk, int D, int maxb, float scale,
@@ -709,13 +750,13 @@ int launch_rowmax_wgmma(const void* q, const void* k, const void* idx,
   using namespace wgattn;
   CUtensorMap qmap, kmap;
   int e = hopper::make_map(&qmap, q, B * Hq, Sq, D, kWgRows);
-  if (e == 0) e = hopper::make_map(&kmap, k, B * Hkv, Sk, D, kKeys);
+  if (e == 0) e = hopper::make_map(&kmap, k, B * Hkv, Sk, D, KEYS);
   if (e != 0) return e;
-  const size_t smem = rowmax_wg_smem_bytes(NB, maxb);
-  e = prepare(rowmax_wgmma_kernel<NB>, smem);
+  const size_t smem = rowmax_wg_smem_bytes<NB, KEYS>(maxb);
+  e = prepare(rowmax_wgmma_kernel<NB, KEYS>, smem);
   if (e != 0) return e;
   const dim3 grid(B * Hq, Sq / kQRows);
-  rowmax_wgmma_kernel<NB><<<grid, kWgThreads, smem, stream>>>(
+  rowmax_wgmma_kernel<NB, KEYS><<<grid, kWgThreads, smem, stream>>>(
       qmap, kmap, static_cast<const int*>(idx), static_cast<const int*>(cnt),
       static_cast<float*>(rowmax), Hq, Hkv, Sq, Sk, maxb, scale, causal,
       has_window, window);
@@ -810,46 +851,50 @@ int a3_sparse_attend(const void* q, const void* k, const void* v,
 }
 
 // The tensor-core route of the row-max kernel: bf16 q/k as above,
-// 16-byte aligned, D a multiple of 16 up to 128, block_q = block_k = 128
-// (the wrapper checks). Returns the cudaError_t of the launch.
+// 16-byte aligned, D a multiple of 16 up to 256, block_q = block_k = 128
+// (the wrapper checks). Dv is the value head dim of the attend pass of
+// the same call: it fixes the kv tile (64 keys where D or Dv is above
+// 128), so that both passes score with the same issue_s. Returns the
+// cudaError_t of the launch.
 int a3_sparse_rowmax_wgmma(const void* q, const void* k, const void* idx,
                            const void* cnt, void* rowmax, int B, int Hq,
-                           int Hkv, int Sq, int Sk, int D, int maxb,
+                           int Hkv, int Sq, int Sk, int D, int Dv, int maxb,
                            float scale, int causal, int has_window,
                            int window, void* stream) {
+  using wgattn::kBlock;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (D % 16 != 0 || D > 128 || Sq % wgattn::kQRows != 0 ||
-      Sk % wgattn::kKeys != 0)
+  if (D % 16 != 0 || Dv % 16 != 0 || D <= 0 || Dv <= 0 || D > 256 ||
+      Dv > 256 || Sq % kBlock != 0 || Sk % kBlock != 0)
     return (int)cudaErrorInvalidValue;
-  auto go = [&](auto fn) {
-    return fn(q, k, idx, cnt, rowmax, B, Hq, Hkv, Sq, Sk, D, maxb, scale,
-              causal, has_window, window, st);
-  };
-  return D > 64 ? go(launch_rowmax_wgmma<2>) : go(launch_rowmax_wgmma<1>);
+  return wgattn::dispatch_head_dims(D, Dv, [&](auto nb, auto nvb) {
+    constexpr int NB = decltype(nb)::value;
+    constexpr int KEYS = wgattn::KvTile<NB, decltype(nvb)::value>::kKeys;
+    return launch_rowmax_wgmma<NB, KEYS>(q, k, idx, cnt, rowmax, B, Hq, Hkv,
+                                         Sq, Sk, D, maxb, scale, causal,
+                                         has_window, window, st);
+  });
 }
 
 // The tensor-core route of the attend kernel: bf16 q/k/v/out as above,
-// 16-byte aligned, D and Dv multiples of 16 up to 128, block_q = block_k
-// = 128 (the wrapper checks). Returns the cudaError_t of the launch.
+// 16-byte aligned, D and Dv multiples of 16 up to 256, block_q = block_k
+// = 128 (the wrapper checks); one instantiation per (ceil(D / 64),
+// ceil(Dv / 64)). Returns the cudaError_t of the launch.
 int a3_sparse_attend_wgmma(const void* q, const void* k, const void* v,
                            const void* idx, const void* cnt,
                            const void* rowmax, void* out, int B, int Hq,
                            int Hkv, int Sq, int Sk, int D, int Dv, int maxb,
                            float scale, int causal, int has_window,
                            int window, int has_thr, float thr, void* stream) {
+  using wgattn::kBlock;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (D % 16 != 0 || Dv % 16 != 0 || D > 128 || Dv > 128 ||
-      Sq % wgattn::kQRows != 0 || Sk % wgattn::kKeys != 0)
+  if (D % 16 != 0 || Dv % 16 != 0 || D <= 0 || Dv <= 0 || D > 256 ||
+      Dv > 256 || Sq % kBlock != 0 || Sk % kBlock != 0)
     return (int)cudaErrorInvalidValue;
-  auto go = [&](auto fn) {
-    return fn(q, k, v, idx, cnt, rowmax, out, B, Hq, Hkv, Sq, Sk, D, Dv,
-              maxb, scale, causal, has_window, window, has_thr, thr, st);
-  };
-  if (D > 64)
-    return Dv > 64 ? go(launch_attend_wgmma<2, 2>)
-                   : go(launch_attend_wgmma<2, 1>);
-  return Dv > 64 ? go(launch_attend_wgmma<1, 2>)
-                 : go(launch_attend_wgmma<1, 1>);
+  return wgattn::dispatch_head_dims(D, Dv, [&](auto nb, auto nvb) {
+    return launch_attend_wgmma<decltype(nb)::value, decltype(nvb)::value>(
+        q, k, v, idx, cnt, rowmax, out, B, Hq, Hkv, Sq, Sk, D, Dv, maxb,
+        scale, causal, has_window, window, has_thr, thr, st);
+  });
 }
 
 }  // extern "C"

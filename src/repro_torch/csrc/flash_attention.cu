@@ -4,7 +4,7 @@
 // route; the wrapper picks the route from dtype and head dims before the
 // launch:
 //
-//   flash_attention_fwd_wgmma  bf16, D and Dv multiples of 16 up to 128,
+//   flash_attention_fwd_wgmma  bf16, D and Dv multiples of 16 up to 256,
 //                              16-byte aligned inputs, a positive scale:
 //                              the tensor-core kernel (flash_wgmma_kernel)
 //   flash_attention_fwd        float32 and every other call (head dims
@@ -21,7 +21,9 @@
 // Bound: at the prefill shape (B=1, Hq=24, Hkv=8, S=2048, D=128, bf16,
 // causal) the admitted pairs need 4*D flops each, 25.8 GFLOP, 26 us at
 // 989 TFLOP/s, against 34 MB of q/k/v/out (10 us at 3.35 TB/s): the
-// kernel is bound by operations, i.e. by the tensor cores.
+// kernel is bound by operations, i.e. by the tensor cores. At gemma3-4b's
+// width (Hq=8, Hkv=4, D=256) it is 17.2 GFLOP, 17.4 us, against 25 MB
+// (7.5 us): bound by operations too.
 //
 // flash_wgmma_kernel (the bf16 route) puts both products on the tensor
 // cores (its CTA shape, K/V ring and P.V product live in
@@ -30,22 +32,34 @@
 // warpgroups of 64 rows each and one producer warpgroup, which hands its
 // registers to the consumers (setmaxnreg 24 / 240: the accumulators of S,
 // O and P need ~180 a thread) and has one lane load the CTA's Q once and
-// stream 128-key K and V tiles through a 3-stage ring with TMA (128-byte
-// swizzle, 64-column boxes, mbarriers with transaction counts; rows past
-// Sk and columns past D arrive as zeros). Each consumer computes
-// S = Q K^T with wgmma m64n128k16 (Q and K from shared memory, both
-// K-major), runs the online softmax on the accumulator registers (exp2
-// on the special-function unit, the scale folded into one FFMA, the
-// per-element mask only on tiles that cross the causal diagonal, the
-// window edge or Sk), converts P to bf16 in registers and accumulates
-// O += P V with wgmma (P as the register A operand, V the MN-major B
-// operand). The loop is software-pipelined: S_j and P_{j-1} V_{j-1} are
-// issued together and the softmax of S_j runs while the tensor cores
-// finish P_{j-1} V_{j-1}. The loop covers only the kv tiles the causal
-// diagonal and the window admit for the CTA's rows, and the grid runs
-// the heaviest causal query blocks first. What bounds it now is the
+// stream K and V tiles through a ring with TMA (128-byte swizzle,
+// 64-column boxes, mbarriers with transaction counts; rows past Sk and
+// columns past D arrive as zeros): 128-key tiles in 3 stages up to
+// D, Dv = 128, 64-key tiles in 2 stages above, each stage's K freed as
+// soon as S has read it (wgmma_attention.cuh::KvTile). Each consumer
+// computes S = Q K^T with wgmma m64n128k16 or m64n64k16 (Q and K from
+// shared memory, both K-major), runs the online softmax on the
+// accumulator registers (exp2 on the special-function unit, the scale
+// folded into one FFMA, the per-element mask only on tiles that cross the
+// causal diagonal, the window edge or Sk), converts P to bf16 in
+// registers and accumulates O += P V with wgmma (P as the register A
+// operand, V the MN-major B operand). The loop is software-pipelined:
+// S_j and P_{j-1} V_{j-1} are issued together and the softmax of S_j
+// runs while the tensor cores finish P_{j-1} V_{j-1}. The loop covers
+// only the kv tiles the causal diagonal and the window admit for the
+// CTA's rows, and the grid runs the heaviest causal query blocks first. What bounds it now is the
 // softmax's share of the special-function unit and issue slots beside
 // the wgmma (about half of each tile's time on an H100).
+//
+// Head dims above 128 (gemma3-4b's and recurrentgemma-2b's 256): Q takes
+// 64 KB and the 2-stage ring of 64-key tiles 128 KB (192 KB in all); a
+// consumer thread holds O in 128 registers, S in 32 and P in 16, and
+// P V is two wgmma n128 products on one P (n128 + n64 at Dv 192); ptxas
+// spills nothing under the 240. There the grid is one wave (B*Hq*Sq/128
+// CTAs at one CTA an SM) whose heaviest causal CTA does twice the mean
+// work: 32 tiles of 8.4 MFLOP each at D = Dv = 256, 36 us at an SM's
+// 1/132 of the tensor-core peak, so that CTA's chain of tiles, not the
+// card's total rate, sets the time (about 2x the bound at best).
 //
 // Precision: P is rounded to bf16 before P.V (the Pallas kernel and
 // flash_kernel multiply in float32); scores, m, l and O stay float32.
@@ -176,24 +190,24 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
 // the tensor-core route (bf16)
 // ---------------------------------------------------------------------------
 
-// Online softmax of one 64 x 128 score tile held in wgmma accumulator
-// registers: element i of a lane sits at row row_a + 8 * ((i >> 1) & 1)
-// of the warpgroup and column c0 + 8 * (i >> 2) + 2 * (lane % 4) + (i & 1),
-// so a row's 128 columns spread over the 4 lanes of a quad. Raw scores
-// in, probabilities out; m is kept in the log2 domain (scale * log2 e
-// folded into one FFMA per element), l as this lane's share of the row;
-// al_a / al_b return the rescale factors of the lane's two rows.
-// MASK applies the causal / window / Sk mask per element (only tiles
-// that cross an edge); masked entries get weight 0 even while their
-// whole row is masked (m at its initial value).
-template <bool MASK>
+// Online softmax of one 64 x KEYS score tile held in wgmma accumulator
+// registers (NS = KEYS / 2 a lane): element i of a lane sits at row
+// row_a + 8 * ((i >> 1) & 1) of the warpgroup and column c0 + 8 * (i >> 2)
+// + 2 * (lane % 4) + (i & 1), so a row's columns spread over the 4 lanes
+// of a quad. Raw scores in, probabilities out; m is kept in the log2
+// domain (scale * log2 e folded into one FFMA per element), l as this
+// lane's share of the row; al_a / al_b return the rescale factors of the
+// lane's two rows. MASK applies the causal / window / Sk mask per element
+// (only tiles that cross an edge); masked entries get weight 0 even while
+// their whole row is masked (m at its initial value).
+template <bool MASK, int NS>
 __device__ __forceinline__ void softmax_tile(
-    float (&sc)[64], float& m_a, float& m_b, float& l_a, float& l_b,
+    float (&sc)[NS], float& m_a, float& m_b, float& l_a, float& l_b,
     float& al_a, float& al_b, float scale2, int c0, int lane, int pos_a,
     int Sk, int causal, int has_window, int window) {
   float mx_a = kNegInf, mx_b = kNegInf;
 #pragma unroll
-  for (int i = 0; i < 64; ++i) {
+  for (int i = 0; i < NS; ++i) {
     if (MASK) {
       const int col = c0 + 8 * (i >> 2) + 2 * (lane & 3) + (i & 1);
       const int pos = pos_a + ((i & 2) ? 8 : 0);
@@ -216,7 +230,7 @@ __device__ __forceinline__ void softmax_tile(
   m_b = mn_b;
   float ps_a = 0.f, ps_b = 0.f;
 #pragma unroll
-  for (int i = 0; i < 64; ++i) {
+  for (int i = 0; i < NS; ++i) {
     const float mn = (i & 2) ? mn_b : mn_a;
     float p = hopper::fast_exp2(fmaf(sc[i], scale2, -mn));
     if (MASK && sc[i] == kNegInf) p = 0.f;
@@ -237,8 +251,10 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                    int Sk, int Dv, float scale, int causal, int has_window,
                    int window) {
   using namespace hopper;
+  using T = KvTile<NB, NVB>;
+  constexpr int kKeys = T::kKeys, kStages = T::kStages;
   extern __shared__ __align__(1024) unsigned char wg_raw[];
-  const WgSmem sm = wg_carve(wg_raw, NB, NVB);
+  const WgSmem sm = wg_carve<NB, NVB>(wg_raw);
   const int bh = blockIdx.x;                          // b * Hq + h
   const int b = bh / Hq, h = bh % Hq;
   const int bkv = b * Hkv + h / (Hq / Hkv);
@@ -259,6 +275,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
       mbar_init(sm.k_full + s, 1);
       mbar_init(sm.v_full + s, 1);
       mbar_init(sm.empty + s, 8);                     // one per consumer warp
+      if (T::kWide) mbar_init(sm.v_empty + s, 8);
     }
     fence_barrier_init();
   }
@@ -276,15 +293,17 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                       x * kBox, q0 + w * kWgRows, bh);
       for (int j = 0; j < ntiles; ++j) {
         const int s = j % kStages;
-        if (j >= kStages) mbar_wait(sm.empty + s, ((j / kStages) & 1) ^ 1);
+        const uint32_t freed = ((j / kStages) & 1) ^ 1;
+        if (j >= kStages) mbar_wait(sm.empty + s, freed);
         const int c0 = t0 + j * kKeys;
-        mbar_expect_tx(sm.k_full + s, NB * kKVBoxBytes);
+        mbar_expect_tx(sm.k_full + s, NB * T::kBoxBytes);
         for (int x = 0; x < NB; ++x)
-          tma_load_3d(sm.k + (s * NB + x) * kKVBoxBytes, &kmap,
+          tma_load_3d(sm.k + (s * NB + x) * T::kBoxBytes, &kmap,
                       sm.k_full + s, x * kBox, c0, bkv);
-        mbar_expect_tx(sm.v_full + s, NVB * kKVBoxBytes);
+        if (T::kWide && j >= kStages) mbar_wait(sm.v_empty + s, freed);
+        mbar_expect_tx(sm.v_full + s, NVB * T::kBoxBytes);
         for (int x = 0; x < NVB; ++x)
-          tma_load_3d(sm.v + (s * NVB + x) * kKVBoxBytes, &vmap,
+          tma_load_3d(sm.v + (s * NVB + x) * T::kBoxBytes, &vmap,
                       sm.v_full + s, x * kBox, c0, bkv);
       }
     }
@@ -310,23 +329,22 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
   float al_a = 1.f, al_b = 1.f;           // the last softmax's rescales
 
   // S_j = Q K_j^T once tile j has landed: issued, not waited for
-  auto issue_qk = [&](float (&sc)[64], int j) {
+  auto issue_qk = [&](float (&sc)[T::kS], int j) {
     const int s = j % kStages;
     mbar_wait(sm.k_full + s, (j / kStages) & 1);
-    issue_s<NB>(sc, qw, sm.k + s * NB * kKVBoxBytes);
+    issue_s<NB, kKeys>(sc, qw, sm.k + s * NB * T::kBoxBytes);
   };
-  // O += P_j V_j (V MN-major: 8-key groups 1024 B apart, 64-column boxes
-  // kKVBoxBytes apart; a k16 step is 16 keys = 2048 B): issued
-  auto issue_pv = [&](uint32_t (&pa)[8][4], int j) {
+  // O += P_j V_j (a k16 step is 16 keys = 2048 B of each V box): issued
+  auto issue_pv = [&](uint32_t (&pa)[T::kSteps][4], int j) {
     const int s = j % kStages;
-    const unsigned char* vs = sm.v + s * NVB * kKVBoxBytes;
+    const unsigned char* vs = sm.v + s * NVB * T::kBoxBytes;
     mbar_wait(sm.v_full + s, (j / kStages) & 1);
 #pragma unroll
-    for (int kk = 0; kk < 8; ++kk)
-      pv_mma<NVB>(o, pa[kk], sw128_desc(vs + kk * 2048, kKVBoxBytes, 1024));
+    for (int kk = 0; kk < T::kSteps; ++kk)
+      pv_mma<NVB, T::kBoxBytes>(o, pa[kk], vs + kk * 2048);
     wgmma_commit();
   };
-  auto softmax = [&](float (&sc)[64], int j) {
+  auto softmax = [&](float (&sc)[T::kS], int j) {
     const int c0 = t0 + j * kKeys;
     const bool need_mask = c0 + kKeys > Sk ||
                            (causal && c0 + kKeys - 1 > pos_first) ||
@@ -338,20 +356,13 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
       softmax_tile<false>(sc, m_a, m_b, l_a, l_b, al_a, al_b, scale2, c0,
                           lane, pos_a, Sk, causal, has_window, window);
   };
-  auto to_bf16 = [](const float (&sc)[64], uint32_t (&pa)[8][4]) {
-#pragma unroll
-    for (int kk = 0; kk < 8; ++kk)
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-        pa[kk][r] = pack_bf16(sc[8 * kk + 2 * r], sc[8 * kk + 2 * r + 1]);
-  };
 
   // Software pipeline: while the tensor cores run P_{j-1} V_{j-1}, the
   // warpgroup runs the softmax of S_j, which was issued just before it.
   // O is rescaled by tile j-1's alpha before P_{j-1} V_{j-1} is issued,
   // and P_j is written only after that product has read P_{j-1}.
-  float sc[64];
-  uint32_t pa[8][4];
+  float sc[T::kS];
+  uint32_t pa[T::kSteps][4];
   mbar_wait(sm.q_full, 0);
   if (ntiles > 0) {
     fence_regs(sc);
@@ -359,6 +370,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
     issue_qk(sc, 0);
     wgmma_wait<0>();
     fence_regs(sc);
+    if (T::kWide && lane == 0) mbar_arrive(sm.empty);
     softmax(sc, 0);
     to_bf16(sc, pa);
   }
@@ -373,11 +385,12 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
     issue_pv(pa, j - 1);
     wgmma_wait<1>();                                  // S_j is ready
     fence_regs(sc);
+    if (T::kWide && lane == 0) mbar_arrive(sm.empty + j % kStages);
     softmax(sc, j);
     wgmma_wait<0>();                                  // P_{j-1} V_{j-1} too
     fence_regs(o);
     fence_regs(pa);
-    if (lane == 0) mbar_arrive(sm.empty + (j - 1) % kStages);
+    if (lane == 0) mbar_arrive(sm.v_empty + (j - 1) % kStages);
     to_bf16(sc, pa);
   }
   if (ntiles > 0) {
@@ -419,12 +432,13 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* out,
                  int B, int Hq, int Hkv, int Sq, int Sk, int D, int Dv,
                  float scale, int causal, int has_window, int window,
                  cudaStream_t stream) {
+  constexpr int kKeys = KvTile<NB, NVB>::kKeys;
   CUtensorMap qmap, kmap, vmap;
   int e = hopper::make_map(&qmap, q, B * Hq, Sq, D, kWgRows);
   if (e == 0) e = hopper::make_map(&kmap, k, B * Hkv, Sk, D, kKeys);
   if (e == 0) e = hopper::make_map(&vmap, v, B * Hkv, Sk, Dv, kKeys);
   if (e != 0) return e;
-  const size_t smem = wg_smem_bytes(NB, NVB);
+  const size_t smem = wg_smem_bytes<NB, NVB>();
   e = prepare(flash_wgmma_kernel<NB, NVB>, smem);
   if (e != 0) return e;
   const dim3 grid(B * Hq, (Sq + kQRows - 1) / kQRows);
@@ -459,8 +473,9 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
 
 // The tensor-core route: bf16 q [B,Hq,Sq,D], k [B,Hkv,Sk,D],
 // v [B,Hkv,Sk,Dv], out [B,Hq,Sq,Dv], contiguous and 16-byte aligned, D and
-// Dv multiples of 16 up to 128 (the wrapper checks). Returns the
-// cudaError_t of the launch (0 = success).
+// Dv multiples of 16 up to 256 (the wrapper checks); one instantiation
+// per (ceil(D / 64), ceil(Dv / 64)). Returns the cudaError_t of the
+// launch (0 = success).
 extern "C" int flash_attention_fwd_wgmma(const void* q, const void* k,
                                          const void* v, void* out, int B,
                                          int Hq, int Hkv, int Sq, int Sk,
@@ -468,13 +483,12 @@ extern "C" int flash_attention_fwd_wgmma(const void* q, const void* k,
                                          int causal, int has_window,
                                          int window, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (D % 16 != 0 || Dv % 16 != 0 || D > 128 || Dv > 128)
+  if (D % 16 != 0 || Dv % 16 != 0 || D <= 0 || Dv <= 0 || D > 256 ||
+      Dv > 256)
     return (int)cudaErrorInvalidValue;
-  auto go = [&](auto fn) {
-    return fn(q, k, v, out, B, Hq, Hkv, Sq, Sk, D, Dv, scale, causal,
-              has_window, window, st);
-  };
-  if (D > 64)
-    return Dv > 64 ? go(launch_wgmma<2, 2>) : go(launch_wgmma<2, 1>);
-  return Dv > 64 ? go(launch_wgmma<1, 2>) : go(launch_wgmma<1, 1>);
+  return wgattn::dispatch_head_dims(D, Dv, [&](auto nb, auto nvb) {
+    return launch_wgmma<decltype(nb)::value, decltype(nvb)::value>(
+        q, k, v, out, B, Hq, Hkv, Sq, Sk, D, Dv, scale, causal, has_window,
+        window, st);
+  });
 }

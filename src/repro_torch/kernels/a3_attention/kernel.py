@@ -12,10 +12,11 @@ and P.V. Both are hand-written CUDA C++ in
 ``repro_torch/csrc/a3_attention.cu`` (see the note there for the bound
 and the design). Each has two routes, and one decision before the
 launches (``sparse_route``) sends both passes down the same one: bf16
-with 128 x 128 blocks and head dims multiples of 16 up to 128 runs on
-the tensor cores (kernel #4's wgmma + TMA engine, one q head per CTA);
-float32, other blocks and other head dims (up to 256) on the CUDA
-cores, with the GQA group folded into the rows. Both passes of a route
+with 128 x 128 blocks and head dims multiples of 16 up to 256 runs on
+the tensor cores (kernel #4's wgmma + TMA engine, one q head per CTA;
+both passes take the kv tile of the pair's (D, Dv)); float32, other
+blocks and other head dims (up to 256) on the CUDA cores, with the GQA
+group folded into the rows. Both passes of a route
 score q.k with the same code, so the attend pass's scores are the very
 floats whose maximum the row-max pass took, and threshold 0 keeps each
 row's maximum.
@@ -42,11 +43,11 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.flash_attention.kernel import WGMMA_MAX_HEAD_DIM
 
 NEG_INF = -1e30
 SOURCE = "a3_attention.cu"
 MAX_HEAD_DIM = 256          # a CUDA-core thread holds 16 value columns
-WGMMA_MAX_HEAD_DIM = 128    # the tensor-core kernels' head dims
 WGMMA_BLOCK = 128           # the tensor-core kernels' q and kv block
 ROUTES = ("wgmma", "simt")  # tensor cores, CUDA cores
 
@@ -66,7 +67,7 @@ _ARGTYPES = {
     "a3_sparse_rowmax_simt": ("a3_sparse_rowmax",
                               [_P] * 5 + [_I] * 10 + [_F, _I, _I, _I, _P]),
     "a3_sparse_rowmax_wgmma": ("a3_sparse_rowmax_wgmma",
-                               [_P] * 5 + [_I] * 7 + [_F, _I, _I, _I, _P]),
+                               [_P] * 5 + [_I] * 8 + [_F, _I, _I, _I, _P]),
     "a3_sparse_attend_simt": ("a3_sparse_attend",
                               [_P] * 7 + [_I] * 11 + [_F] + [_I] * 4
                               + [_F, _P]),
@@ -80,7 +81,7 @@ def sparse_route(dtype: torch.dtype, d: int, dv: int, bq: int, bk: int,
                  aligned: bool = True) -> str:
     """The route both passes of a CUDA call take, decided before the
     launches: ``"wgmma"`` (the tensor-core kernels) for bf16 with D and Dv
-    multiples of 16 up to 128, 128 x 128 blocks (``block_q``/``block_k``
+    multiples of 16 up to 256, 128 x 128 blocks (``block_q``/``block_k``
     after clamping to Sq/Sk) and 16-byte aligned q/k/v (what the wgmma
     tiles and TMA take), else ``"simt"`` (the CUDA-core kernels)."""
     if dtype == torch.bfloat16 and aligned and \
@@ -276,11 +277,13 @@ def sparse_attend_plain(q, k, v, kv_indices, kv_counts, rowmax, *,
 # ---------------------------------------------------------------------------
 
 def sparse_rowmax(q, k, kv_indices, kv_counts, *, causal=True, window=None,
-                  scale=None, block_q=128, block_k=128, route=None):
+                  scale=None, block_q=128, block_k=128, route=None,
+                  dv=None):
     """Kernel #5 on CUDA tensors, its plain version on CPU tensors.
-    ``route`` ("wgmma" / "simt") is the pair's route when
-    :func:`a3_sparse_attention` calls it; alone, the call decides from
-    (D, D)."""
+    ``route`` ("wgmma" / "simt") and ``dv`` (the attend pass's value head
+    dim, D by default) are the pair's when :func:`a3_sparse_attention`
+    calls it; alone, the call decides from (D, D). On the tensor cores
+    ``dv`` fixes the kv tile, which both passes of a call share."""
     if build.route(q) == "plain":
         return sparse_rowmax_plain(q, k, kv_indices, kv_counts,
                                    causal=causal, window=window, scale=scale,
@@ -289,7 +292,8 @@ def sparse_rowmax(q, k, kv_indices, kv_counts, *, causal=True, window=None,
         q, k, None, kv_indices, kv_counts, block_q, block_k)
     build.check_launch("a3 sparse", (q, k), (kv_indices, kv_counts), (d,),
                        MAX_HEAD_DIM)
-    route = _pick_route(route, q.dtype, d, d, bq, bk, _aligned(q, k))
+    dv = d if dv is None else dv
+    route = _pick_route(route, q.dtype, d, dv, bq, bk, _aligned(q, k))
     scale = d ** -0.5 if scale is None else scale
     has_win, win = build.window_args(window, sq, sk)
     out = torch.empty((b, hkv, hq // hkv, sq), dtype=torch.float32,
@@ -300,7 +304,7 @@ def sparse_rowmax(q, k, kv_indices, kv_counts, *, causal=True, window=None,
             kv_counts.data_ptr(), out.data_ptr())
     tail = (scale, int(causal), has_win, win, build.stream(q.device))
     if route == "wgmma":
-        err = fn(*ptrs, b, hq, hkv, sq, sk, d, maxb, *tail)
+        err = fn(*ptrs, b, hq, hkv, sq, sk, d, dv, maxb, *tail)
     else:
         err = fn(*ptrs, int(q.dtype == torch.bfloat16), b, hq, hkv, sq, sk,
                  d, bq, bk, maxb, *tail)
@@ -314,7 +318,11 @@ def sparse_attend(q, k, v, kv_indices, kv_counts, rowmax, *, threshold=None,
                   block_k=128, route=None):
     """Kernel #6 on CUDA tensors, its plain version on CPU tensors.
     ``route`` as for :func:`sparse_rowmax`; alone, the call decides from
-    (D, Dv)."""
+    (D, Dv). On the tensor cores threshold 0 keeps each row's maximum
+    only if ``rowmax`` came from ``sparse_rowmax(..., dv=v.shape[3])``
+    (the two passes then score on one kv tile); where D or Dv is above
+    128 and they differ, a row max taken without it may not match to the
+    bit. :func:`a3_sparse_attention` pairs them so."""
     if build.route(q) == "plain":
         return sparse_attend_plain(q, k, v, kv_indices, kv_counts, rowmax,
                                    threshold=threshold, causal=causal,
@@ -383,6 +391,6 @@ def a3_sparse_attention(
     kw["route"] = sparse_route(q.dtype, q.shape[3], v.shape[3],
                                min(block_q, q.shape[2]),
                                min(block_k, k.shape[2]), _aligned(q, k, v))
-    rm = sparse_rowmax(q, k, kv_indices, kv_counts, **kw)
+    rm = sparse_rowmax(q, k, kv_indices, kv_counts, dv=v.shape[3], **kw)
     return sparse_attend(q, k, v, kv_indices, kv_counts, rm,
                          threshold=threshold, **kw)

@@ -6,8 +6,9 @@ tiles, query rows offset by ``seq_k - seq_q``. The kernels are
 hand-written CUDA C++ in ``repro_torch/csrc/flash_attention.cu`` (see the
 note there for the bound and the design), one per route, chosen from the
 dtype and head dims before the launch (``kernel_route``): bf16 with D and
-Dv multiples of 16 up to 128 runs on the tensor cores (wgmma + TMA),
-float32 and every other head dim (up to 256) on the CUDA cores.
+Dv multiples of 16 up to 256 runs on the tensor cores (wgmma + TMA;
+128-key kv tiles up to D, Dv = 128, 64-key tiles above), float32 and
+every other head dim (up to 256) on the CUDA cores.
 
 The device of the tensors decides the route: CUDA tensors launch the
 kernel (or raise), CPU tensors take the plain PyTorch version, which
@@ -29,7 +30,9 @@ from repro_torch.kernels import build
 NEG_INF = -1e30
 SOURCE = "flash_attention.cu"
 MAX_HEAD_DIM = 256          # a CUDA-core thread holds 16 value columns
-WGMMA_MAX_HEAD_DIM = 128    # the tensor-core kernel's head dims
+# the head dims of the tensor-core engine (wgmma_attention.cuh), which
+# the A^3 pair (#5 / #6) shares
+WGMMA_MAX_HEAD_DIM = 256
 
 # launches per route: the tensor-core kernel and the CUDA-core kernel
 LAUNCHES = {"flash_attention_wgmma": 0, "flash_attention_simt": 0}
@@ -53,9 +56,10 @@ def kernel_route(dtype: torch.dtype, d: int, dv: int, aligned: bool = True,
                  scale: float = 1.0) -> str:
     """The kernel a CUDA call takes, decided before the launch:
     ``"flash_attention_wgmma"`` for bf16 with D and Dv multiples of 16 up
-    to 128, 16-byte aligned q/k/v (what the wgmma tiles and TMA take) and
+    to 256, 16-byte aligned q/k/v (what the wgmma tiles and TMA take) and
     a positive scale (its softmax takes the row max of unscaled scores),
-    else ``"flash_attention_simt"`` (float32, other head dims up to 256)."""
+    else ``"flash_attention_simt"`` (float32, other head dims up to
+    256)."""
     if dtype == torch.bfloat16 and aligned and scale > 0 and \
             all(x % 16 == 0 and 0 < x <= WGMMA_MAX_HEAD_DIM for x in (d, dv)):
         return "flash_attention_wgmma"

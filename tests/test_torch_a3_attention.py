@@ -414,8 +414,13 @@ def test_cuda_a3_attention_matches_cpu(cuda, mode):
     (torch.bfloat16, 128, 128, 128, 32, True, "simt"),
     (torch.bfloat16, 72, 72, 128, 128, True, "simt"),
     (torch.bfloat16, 128, 40, 128, 128, True, "simt"),
-    (torch.bfloat16, 144, 144, 128, 128, True, "simt"),
-    (torch.bfloat16, 256, 256, 128, 128, True, "simt"),
+    (torch.bfloat16, 144, 144, 128, 128, True, "wgmma"),
+    (torch.bfloat16, 192, 192, 128, 128, True, "wgmma"),
+    (torch.bfloat16, 256, 256, 128, 128, True, "wgmma"),
+    (torch.bfloat16, 256, 128, 128, 128, True, "wgmma"),
+    (torch.bfloat16, 200, 200, 128, 128, True, "simt"),
+    (torch.bfloat16, 256, 256, 64, 64, True, "simt"),
+    (torch.bfloat16, 256, 256, 128, 128, False, "simt"),
     (torch.bfloat16, 128, 128, 128, 128, False, "simt"),
     (torch.float32, 128, 128, 128, 128, True, "simt"),
     (torch.float32, 256, 256, 128, 128, True, "simt"),
@@ -452,16 +457,21 @@ def fake_launches(monkeypatch):
     ("bfloat16", 64, 32, 128, "wgmma"),
     ("bfloat16", 128, 72, 128, "simt"),      # #5 alone would take wgmma
     ("bfloat16", 128, 128, 64, "simt"),
-    ("bfloat16", 256, 256, 128, "simt"),
-    ("bfloat16", 128, 256, 128, "simt"),
+    ("bfloat16", 256, 256, 128, "wgmma"),
+    ("bfloat16", 192, 192, 128, "wgmma"),
+    ("bfloat16", 256, 128, 128, "wgmma"),
+    ("bfloat16", 128, 256, 128, "wgmma"),
+    ("bfloat16", 256, 200, 128, "simt"),     # #5 alone would take wgmma
+    ("bfloat16", 256, 256, 64, "simt"),
     ("float32", 128, 128, 128, "simt"),
     ("float32", 256, 256, 128, "simt"),
 ])
 def test_pair_takes_one_route_for_both_passes(fake_launches, dtype, d, dv,
                                               block, want):
     """a3_sparse_attention decides the route once: #5 and #6 always run
-    on the same engine (so they score q.k in the same order), and head
-    dims above 128 go to the CUDA-core kernels."""
+    on the same engine (so they score q.k in the same order); bf16 head
+    dims up to 256 go to the tensor cores, float32 and head dims that
+    are not multiples of 16 to the CUDA-core kernels."""
     _, tt = _qkv(3, 1, 4, 2, 256, d, dtype, dv=dv)
     tidx, tcnt = tak.build_block_map(torch.ones(1, 2, 256 // block,
                                                 256 // block,
@@ -470,6 +480,37 @@ def test_pair_takes_one_route_for_both_passes(fake_launches, dtype, d, dv,
                             block_k=block)
     assert tak.LAUNCHES == {name: int(name.endswith(want))
                             for name in tak.LAUNCHES}
+
+
+@pytest.mark.parametrize("d,dv", [(128, 128), (256, 256), (64, 256),
+                                  (256, 128)])
+def test_pair_gives_rowmax_the_attend_value_dim(monkeypatch, fake_launches,
+                                                d, dv):
+    """On the tensor cores the kv tile follows (D, Dv) (64 keys where
+    either is above 128), and #5 must score with #6's tile: the pair
+    passes #6's Dv to #5's C entry (after D), a lone #5 its own D."""
+    from repro_torch.kernels import build
+    calls = []
+
+    def entry(source, name, argtypes):
+        def fn(*args):
+            calls.append((name, args))
+            return 0
+        return fn
+
+    monkeypatch.setattr(build, "entry", entry)
+    _, tt = _qkv(3, 1, 4, 2, 256, d, "bfloat16", dv=dv)
+    tidx, tcnt = tak.build_block_map(torch.ones(1, 2, 2, 2,
+                                                dtype=torch.bool))
+    tak.a3_sparse_attention(*tt, tidx, tcnt, threshold=3.0)
+    tak.sparse_rowmax(tt[0], tt[1], tidx, tcnt)
+    names = [name for name, _ in calls]
+    assert names == ["a3_sparse_rowmax_wgmma", "a3_sparse_attend_wgmma",
+                     "a3_sparse_rowmax_wgmma"]
+    # (..., B, Hq, Hkv, Sq, Sk, D, Dv, maxb, ...) after the five pointers
+    assert calls[0][1][5:13] == (1, 4, 2, 256, 256, d, dv, 2)
+    assert calls[1][1][7:15] == (1, 4, 2, 256, 256, d, dv, 2)
+    assert calls[2][1][10:12] == (d, d)
 
 
 def test_rowmax_alone_routes_on_its_own_head_dim(fake_launches):
@@ -523,14 +564,16 @@ SPARSE_WGMMA_CASES = [(kind, g, window, thr)
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("d", [128, 256])
 @pytest.mark.parametrize("case", SPARSE_WGMMA_CASES, ids=str)
-def test_cuda_sparse_attend_wgmma_route_matches_plain(cuda, case):
+def test_cuda_sparse_attend_wgmma_route_matches_plain(cuda, case, d):
     """On the card: bf16 attend calls with 128 x 128 blocks take the
     tensor-core kernel and agree with the plain version on empty, full
     and random live lists (rows with l == 0, dead ids), GQA groups 1, 3
-    and 8, a window, with and without a threshold."""
+    and 8, a window, with and without a threshold; at D 256 on 64-key
+    tiles, two a live block."""
     kind, g, window, thr = case
-    b, hkv, s, d = 2, 2, 512, 128
+    b, hkv, s = 2, 2, 512
     _, tt = _qkv(40 + g, b, g * hkv, hkv, s, d, "bfloat16")
     tq, tk_, tv = [t.to(cuda) for t in tt]
     idx, cnt = _attend_map(kind, b, hkv, s // 128, cuda)
@@ -549,10 +592,13 @@ def test_cuda_sparse_attend_wgmma_route_matches_plain(cuda, case):
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype,d,block", [("float32", 128, 128),
                                            ("bfloat16", 72, 128),
-                                           ("bfloat16", 128, 64)])
+                                           ("bfloat16", 128, 64),
+                                           ("bfloat16", 256, 64),
+                                           ("float32", 256, 128)])
 def test_cuda_sparse_attend_simt_route_matches_plain(cuda, dtype, d, block):
     """On the card: float32, and bf16 at a head dim or block size the
-    tensor-core route does not take, run the CUDA-core attend kernel."""
+    tensor-core route does not take, run the CUDA-core attend kernel (at
+    D 256 with 16 value columns a thread)."""
     b, hkv, g, s = 1, 2, 3, 512
     _, tt = _qkv(50, b, g * hkv, hkv, s, d, dtype)
     tq, tk_, tv = [t.to(cuda) for t in tt]
@@ -624,21 +670,24 @@ def _check_rowmax(cuda, dtype, d, block, case, route):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("d", [128, 256])
 @pytest.mark.parametrize("case", ROWMAX_CASES, ids=str)
-def test_cuda_sparse_rowmax_wgmma_route_matches_plain(cuda, case):
+def test_cuda_sparse_rowmax_wgmma_route_matches_plain(cuda, case, d):
     """On the card: bf16 row-max calls with 128 x 128 blocks take the
     tensor-core kernel and agree with the plain version on empty, random
     and capped live lists (rows with nothing admitted at -1e30, dead ids,
     kv_counts above maxb), GQA groups 1 and 3, a window and a 256-row
-    continuation of a 512-key prefix."""
-    _check_rowmax(cuda, "bfloat16", 128, 128, case, "wgmma")
+    continuation of a 512-key prefix; at D 256 each live block is two
+    64-key tiles."""
+    _check_rowmax(cuda, "bfloat16", d, 128, case, "wgmma")
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype,d,block", [("float32", 128, 128),
                                            ("bfloat16", 72, 128),
                                            ("bfloat16", 128, 64),
-                                           ("bfloat16", 256, 128)])
+                                           ("bfloat16", 256, 64),
+                                           ("float32", 256, 128)])
 @pytest.mark.parametrize("case", [c for c in ROWMAX_CASES if c[1] == 3],
                          ids=str)
 def test_cuda_sparse_rowmax_simt_route_matches_plain(cuda, case, dtype, d,
@@ -650,23 +699,34 @@ def test_cuda_sparse_rowmax_simt_route_matches_plain(cuda, case, dtype, d,
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("dtype,d", [("bfloat16", 128), ("float32", 128),
-                                     ("bfloat16", 256)])
-def test_cuda_sparse_pair_threshold_zero_keeps_the_max(cuda, dtype, d):
+@pytest.mark.parametrize("dtype,d,block", [
+    ("bfloat16", 128, 128), ("float32", 128, 128), ("bfloat16", 256, 128),
+    ("float32", 256, 128), ("bfloat16", 256, 64)])
+def test_cuda_sparse_pair_threshold_zero_keeps_the_max(cuda, dtype, d,
+                                                       block):
     """At threshold 0 pass 2 keeps exactly the entries equal to pass 1's
     row max, so every row that admits an entry keeps its maximum and
     returns a non-zero row (V at the argmax), as the reference does: the
-    two passes must score q.k in the same order. phi4-mini's attention
-    width at S = 2048 (gemma3-4b's at D = 256), a random map of density
-    0.5 with the diagonal kept."""
+    two passes must score q.k in the same order (bf16 at 128 x 128 blocks
+    on the tensor cores, with 64-key tiles at D = 256; float32, and bf16
+    at 64 x 64 blocks, on the CUDA cores). phi4-mini's attention width at
+    S = 2048 (gemma3-4b's at D = 256), a random map of density 0.5 with
+    the diagonal kept."""
     hq, hkv = (24, 8) if d == 128 else (8, 4)
+    n = 2048 // block
     _, tt = _qkv(70 + d, 1, hq, hkv, 2048, d, dtype)
     tq, tk_, tv = [t.to(cuda) for t in tt]
-    bm = torch.from_numpy(_random_map(70, 1, hq, 16, 16, 0.5)).to(cuda)
+    bm = torch.from_numpy(_random_map(70, 1, hq, n, n, 0.5)).to(cuda)
     idx, cnt = tak.union_block_map_gqa(*tak.build_block_map(bm),
-                                       hq // hkv, 16)
-    out = tak.a3_sparse_attention(tq, tk_, tv, idx, cnt, threshold=0.0)
-    admits = (tak.sparse_rowmax_plain(tq, tk_, idx, cnt) > tak.NEG_INF)
+                                       hq // hkv, n)
+    kw = dict(block_q=block, block_k=block)
+    tak.reset_launch_counts()
+    out = tak.a3_sparse_attention(tq, tk_, tv, idx, cnt, threshold=0.0, **kw)
+    route = "wgmma" if dtype == "bfloat16" and block == 128 else "simt"
+    assert tak.LAUNCHES == _launched(**{f"a3_sparse_rowmax_{route}": 1,
+                                        f"a3_sparse_attend_{route}": 1})
+    admits = (tak.sparse_rowmax_plain(tq, tk_, idx, cnt, **kw)
+              > tak.NEG_INF)
     admits = admits.reshape(1, hq, 2048)
     zero = (out == 0).all(-1)
     assert bool(admits.all())                 # the diagonal is live
@@ -676,26 +736,32 @@ def test_cuda_sparse_pair_threshold_zero_keeps_the_max(cuda, dtype, d):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("window,threshold", [(None, 3.0), (300, None)])
-def test_cuda_sparse_head_dim_256_matches_plain(cuda, window, threshold,
-                                                dtype):
-    """On the card: #5 and #6 at gemma3-4b's attention width (Hq=8,
-    Hkv=4, D = Dv = 256) take the CUDA-core kernels and agree with their
-    plain versions (#6 given #5's row max, as the pair runs)."""
-    _, tt = _qkv(80, 1, 8, 4, 512, 256, dtype)
+@pytest.mark.parametrize("hq,hkv,s,window,threshold", [
+    (8, 4, 512, None, 3.0),                  # gemma3-4b's attention width
+    (8, 4, 512, 300, None),
+    (10, 1, 2048, 2048, 3.0),                # recurrentgemma-2b's MQA
+])
+def test_cuda_sparse_head_dim_256_matches_plain(cuda, hq, hkv, s, window,
+                                                threshold, dtype):
+    """On the card: #5 and #6 at D = Dv = 256 agree with their plain
+    versions (#6 given #5's row max, as the pair runs) on the route of
+    their dtype: bf16 on the tensor cores (64-key tiles), float32 on the
+    CUDA-core kernels."""
+    _, tt = _qkv(80, 1, hq, hkv, s, 256, dtype)
     tq, tk_, tv = [t.to(cuda) for t in tt]
-    idx, cnt = _edge_map("random", 1, 4, 4, 4, cuda)
+    idx, cnt = _edge_map("random", 1, hkv, s // 128, s // 128, cuda)
     tak.reset_launch_counts()
     rm = tak.sparse_rowmax(tq, tk_, idx, cnt, window=window)
     np.testing.assert_allclose(N(rm), N(tak.sparse_rowmax_plain(
         tq, tk_, idx, cnt, window=window)), **tol(dtype))
     out = tak.sparse_attend(tq, tk_, tv, idx, cnt, rm, threshold=threshold,
                             window=window)
-    assert tak.LAUNCHES == _launched(a3_sparse_rowmax_simt=1,
-                                     a3_sparse_attend_simt=1)
+    route = "wgmma" if dtype == "bfloat16" else "simt"
+    assert tak.LAUNCHES == _launched(**{f"a3_sparse_rowmax_{route}": 1,
+                                        f"a3_sparse_attend_{route}": 1})
     want = tak.sparse_attend_plain(tq, tk_, tv, idx, cnt, rm,
                                    threshold=threshold, window=window)
-    assert tuple(out.shape) == (1, 8, 512, 256)
+    assert tuple(out.shape) == (1, hq, s, 256)
     np.testing.assert_allclose(N(out), N(want), **tol(dtype))
 
 
@@ -743,18 +809,24 @@ def test_sparse_plain_propagates_nan_keys_as_pallas(jx, threshold):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("hq,hkv,d", [(24, 8, 128), (8, 4, 256)])
 @pytest.mark.parametrize("threshold", [None, 3.0])
 @pytest.mark.parametrize("dtype", DTYPES)
-def test_cuda_sparse_nan_keys_match_plain(cuda, dtype, threshold):
-    """On the card, at phi4-mini's attention width (Hq=24, Hkv=8, S=2048,
-    D=128; bf16 takes the tensor-core routes, float32 the CUDA-core
-    ones): #5 and #6 on a NaN key give their plain versions' NaN and
-    zero rows, the other rows within the tolerance."""
-    _, tt = _nan_qkv(23, 2, 24, 8, 2048, 128, dtype)
+def test_cuda_sparse_nan_keys_match_plain(cuda, dtype, threshold, hq, hkv,
+                                          d):
+    """On the card, at phi4-mini's and gemma3-4b's attention widths
+    (S=2048, D=128 and 256; bf16 takes the tensor-core routes, float32
+    the CUDA-core ones): #5 and #6 on a NaN key give their plain
+    versions' NaN and zero rows, the other rows within the tolerance."""
+    _, tt = _nan_qkv(23, 2, hq, hkv, 2048, d, dtype)
     tq, tk_, tv = [t.to(cuda) for t in tt]
-    bm = torch.from_numpy(_random_map(23, 2, 24, 16, 16, 0.5)).to(cuda)
-    idx, cnt = tak.union_block_map_gqa(*tak.build_block_map(bm), 3, 16)
+    bm = torch.from_numpy(_random_map(23, 2, hq, 16, 16, 0.5)).to(cuda)
+    idx, cnt = tak.union_block_map_gqa(*tak.build_block_map(bm),
+                                       hq // hkv, 16)
+    tak.reset_launch_counts()
     rm = tak.sparse_rowmax(tq, tk_, idx, cnt)
+    route = "wgmma" if dtype == "bfloat16" else "simt"
+    assert tak.LAUNCHES == _launched(**{f"a3_sparse_rowmax_{route}": 1})
     want_rm = tak.sparse_rowmax_plain(tq, tk_, idx, cnt)
     assert_nan_and_zero_rows(rm[..., None], want_rm[..., None],
                               **tol(dtype))

@@ -151,9 +151,16 @@ def test_cuda_flash_matches_plain(cuda, sq, window, dtype):
     (torch.bfloat16, 16, 96, True, 0.25, "flash_attention_wgmma"),
     (torch.bfloat16, 72, 72, True, 0.1, "flash_attention_simt"),   # not x16
     (torch.bfloat16, 128, 40, True, 0.1, "flash_attention_simt"),
-    (torch.bfloat16, 144, 144, True, 0.1, "flash_attention_simt"),  # > 128
-    (torch.bfloat16, 256, 256, True, 0.1, "flash_attention_simt"),
+    (torch.bfloat16, 144, 144, True, 0.1, "flash_attention_wgmma"),  # > 128
+    (torch.bfloat16, 192, 192, True, 0.1, "flash_attention_wgmma"),  # NB 3
+    (torch.bfloat16, 256, 256, True, 0.1, "flash_attention_wgmma"),
+    (torch.bfloat16, 256, 128, True, 0.1, "flash_attention_wgmma"),
+    (torch.bfloat16, 64, 256, True, 0.1, "flash_attention_wgmma"),
+    (torch.bfloat16, 200, 200, True, 0.1, "flash_attention_simt"),  # not x16
+    (torch.bfloat16, 256, 256, False, 0.1, "flash_attention_simt"),
+    (torch.bfloat16, 256, 256, True, -0.1, "flash_attention_simt"),
     (torch.float32, 256, 256, True, 0.1, "flash_attention_simt"),
+    (torch.float32, 192, 192, True, 0.1, "flash_attention_simt"),
     (torch.bfloat16, 128, 128, False, 0.1, "flash_attention_simt"),
     (torch.bfloat16, 128, 128, True, -0.1, "flash_attention_simt"),
     (torch.float32, 128, 128, True, 0.1, "flash_attention_simt"),
@@ -174,6 +181,8 @@ WGMMA_CASES = [
     (1, 4, 2, 512, 512, 128, 128, 100),     # window not a tile multiple
     (2, 4, 2, 256, 256, 64, 64, None),      # D = Dv = 64
     (1, 4, 1, 200, 328, 32, 96, 150),       # short D, Dv in two boxes
+    (1, 4, 2, 96, 96, 256, 256, None),      # under one 64-key tile
+    (1, 4, 1, 200, 328, 192, 240, 150),     # 64-key tiles, ragged Sk
 ]
 
 
@@ -196,10 +205,12 @@ def test_cuda_flash_wgmma_route_matches_plain(cuda, case):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("dtype,d", [("float32", 128), ("bfloat16", 72)])
+@pytest.mark.parametrize("dtype,d", [("float32", 128), ("bfloat16", 72),
+                                     ("bfloat16", 200)])
 def test_cuda_flash_simt_route_matches_plain(cuda, dtype, d):
     """On the card: float32, and bf16 at a head dim the wgmma tiles do
-    not take, run the CUDA-core kernel."""
+    not take, run the CUDA-core kernel (at D 200 with 16 value columns a
+    thread)."""
     _, tt = _qkv(d, 1, 4, 2, 256, 256, d, d, dtype)
     tq, tk_, tv = [t.to(cuda) for t in tt]
     tfk.reset_launch_counts()
@@ -224,14 +235,16 @@ def test_flash_plain_head_dim_256_matches_pallas(jx, window, dtype):
     np.testing.assert_allclose(N(out), N(ref), **tol(dtype))
 
 
-# (b, hq, hkv, sq, sk, d, dv, window): head dims above the tensor cores'
+# (b, hq, hkv, sq, sk, d, dv, window): head dims above 128
 HEAD_DIM_256_CASES = [
     (1, 1, 1, 128, 128, 256, 256, None),     # the smallest input
     (1, 8, 4, 2048, 2048, 256, 256, None),   # gemma3-4b's attention width
     (1, 8, 4, 2048, 2048, 256, 256, 1024),   # and its sliding window
     (1, 8, 4, 512, 2048, 256, 256, None),    # a continuation
+    (1, 10, 1, 2048, 2048, 256, 256, 2048),  # recurrentgemma-2b's MQA
     (1, 4, 2, 256, 256, 256, 128, None),     # Dv = 128 beside D = 256
-    (1, 4, 2, 256, 256, 64, 200, 100),       # Dv in (128, 256]
+    (1, 4, 2, 384, 384, 192, 192, 200),      # three boxes of D and Dv
+    (1, 4, 2, 256, 256, 64, 200, 100),       # Dv in (128, 256], not x16
 ]
 
 
@@ -239,35 +252,42 @@ HEAD_DIM_256_CASES = [
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("case", HEAD_DIM_256_CASES, ids=str)
 def test_cuda_flash_head_dim_256_matches_plain(cuda, case, dtype):
-    """On the card: head dims up to 256 take the CUDA-core kernel (16
-    value columns a thread) and agree with the plain version; bf16
-    [1, 1, 128, 256] returns [1, 1, 128, 256]."""
+    """On the card: head dims up to 256 agree with the plain version on
+    the route of their dtype: bf16 with D and Dv multiples of 16 on the
+    tensor cores (64-key kv tiles above 128), float32 and Dv 200 on the
+    CUDA-core kernel (16 value columns a thread); bf16 [1, 1, 128, 256]
+    returns [1, 1, 128, 256]."""
     b, hq, hkv, sq, sk, d, dv, window = case
     _, tt = _qkv(d + dv, b, hq, hkv, sq, sk, d, dv, dtype)
     tq, tk_, tv = [t.to(cuda) for t in tt]
     tfk.reset_launch_counts()
     out = tfk.flash_attention(tq, tk_, tv, window=window)
-    assert tfk.LAUNCHES == {"flash_attention_wgmma": 0,
-                            "flash_attention_simt": 1}
+    wgmma = dtype == "bfloat16" and d % 16 == 0 and dv % 16 == 0
+    assert tfk.LAUNCHES == {"flash_attention_wgmma": int(wgmma),
+                            "flash_attention_simt": int(not wgmma)}
     assert tuple(out.shape) == (b, hq, sq, dv) and out.dtype == tq.dtype
     want = tfk.flash_attention_plain(tq, tk_, tv, window=window)
     np.testing.assert_allclose(N(out), N(want), **tol(dtype))
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("hq,hkv,d", [(24, 8, 128), (8, 4, 256)])
 @pytest.mark.parametrize("window", [None, 512])
 @pytest.mark.parametrize("dtype", DTYPES)
-def test_cuda_flash_nan_key_matches_plain(cuda, dtype, window):
-    """On the card, at phi4-mini's attention width (bf16: the tensor-core
-    route, float32: the CUDA-core one): a NaN key (batch 1, key 200)
-    poisons every row that admits it, as in the plain version, whose
-    running max takes ``torch.maximum``; the other rows stay within the
-    tolerance."""
-    arrs, _ = _qkv(71, 2, 24, 8, 1024, 1024, 128, 128, "float32")
+def test_cuda_flash_nan_key_matches_plain(cuda, dtype, window, hq, hkv, d):
+    """On the card, at phi4-mini's and gemma3-4b's attention widths
+    (bf16: the tensor-core route, with 64-key tiles at D 256; float32:
+    the CUDA-core one): a NaN key (batch 1, key 200) poisons every row
+    that admits it, as in the plain version, whose running max takes
+    ``torch.maximum``; the other rows stay within the tolerance."""
+    arrs, _ = _qkv(71, 2, hq, hkv, 1024, 1024, d, d, "float32")
     arrs[1][1, :, 200] = np.nan
     tq, tk_, tv = [torch.from_numpy(a).to(getattr(torch, dtype)).to(cuda)
                    for a in arrs]
+    tfk.reset_launch_counts()
     out = tfk.flash_attention(tq, tk_, tv, causal=True, window=window)
+    route = "wgmma" if dtype == "bfloat16" else "simt"
+    assert tfk.LAUNCHES[f"flash_attention_{route}"] == 1
     want = tfk.flash_attention_plain(tq, tk_, tv, causal=True, window=window)
     assert_nan_and_zero_rows(out, want, **tol(dtype))
     want = N(want)

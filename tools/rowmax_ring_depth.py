@@ -85,7 +85,7 @@ def main() -> int:
             out = torch.empty((b, hkv, hq // hkv, s), device=dev)
             err = fn(q.data_ptr(), k.data_ptr(), idx.data_ptr(),
                      cnt.data_ptr(), out.data_ptr(), b, hq, hkv, s, s, d,
-                     idx.shape[-1], d ** -0.5, 1, 0, 0, kb.stream(dev))
+                     d, idx.shape[-1], d ** -0.5, 1, 0, 0, kb.stream(dev))
             kb.raise_on(err, f"a3_sparse_rowmax_wgmma (depth {depth})")
             return out
 
